@@ -1,0 +1,76 @@
+"""Carry state into the port from plain numpy arrays and floats.
+
+A caller that holds a state of the JAX package (or of anything else) turns
+its arrays into numpy and hands them here: this module imports no jax.  The
+layouts are the JAX package's: (3, n_pad) f32 lanes, a (1, 3) box
+diagonal, and the tile-pair list's (1, capacity) rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import units
+from .integrators import LangevinCarry
+from .ops.lj_cull import TilePairList
+from .ops.lj_dense import box_diagonal
+from .potential import LJPotential
+from .runtime import CullCarry
+from .topology import Topology
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def lj_system(sigma: float, epsilon: float, cutoff: float, masses):
+    """(LJPotential, Topology) from MD-unit floats and per-particle masses."""
+    topology = Topology.from_masses(np.asarray(masses, dtype=np.float64))
+    potential = LJPotential(
+        topology,
+        sigma=sigma * units.nanometer,
+        epsilon=epsilon * units.kilojoule_per_mole,
+        cutoff=cutoff * units.nanometer,
+    )
+    return potential, topology
+
+
+def langevin_carry(x, v, F, box, device, seed: int = 0) -> LangevinCarry:
+    """A ``LangevinCarry`` from (3, n_pad) arrays and a box (``box_diagonal``
+    takes a (3, 3) box or 3 lengths); ``seed`` seeds the generator that
+    ``FastLJRunner.run`` draws its noise from."""
+    return LangevinCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device), box_vectors=box_diagonal(box, device),
+        overflowed=torch.zeros((), dtype=torch.bool, device=device),
+        generator=torch.Generator(device=device).manual_seed(seed),
+    )
+
+
+def tile_pair_list(rows, cols, ccx, ptr2, rowcx, count, overflowed,
+                   device) -> TilePairList:
+    return TilePairList(
+        rows=_t(rows, np.int32, device).reshape(1, -1),
+        cols=_t(cols, np.int32, device).reshape(1, -1),
+        ccx=_t(ccx, np.float32, device).reshape(1, -1),
+        ptr2=_t(ptr2, np.int32, device).reshape(1, -1),
+        rowcx=_t(rowcx, np.float32, device).reshape(1, -1),
+        count=_t(count, np.int32, device).reshape(1, 1),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
+    )
+
+
+def cull_carry(x, v, F, step, box, overflowed, pairs: dict, x_anchor,
+               device) -> CullCarry:
+    """A ``CullCarry`` from arrays; ``pairs`` maps the ``TilePairList``
+    field names to arrays."""
+    return CullCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device),
+        step=_t(step, np.int32, device).reshape(1, 1),
+        box_diag=box_diagonal(box, device),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
+        pairs=tile_pair_list(device=device, **pairs),
+        x_anchor=_t(x_anchor, np.float32, device),
+    )

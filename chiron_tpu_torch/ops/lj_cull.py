@@ -1,0 +1,516 @@
+"""Culled tile-pair LJ engine (port of ``chiron_tpu/ops/lj_cull.py``).
+
+Two layers, as in the JAX package:
+
+* the list layer in plain PyTorch: the spatial sort key, the stable sort,
+  per-tile bounding boxes and the capacity-padded tile-pair Verlet list
+  (``build_tile_pairs``), all device-side with no host synchronisation;
+* the engine: ``CulledLJMD.run_segment`` advances S BAOAB steps on a fixed
+  list.  On a CUDA tensor each step launches the BAOAB kernel
+  (``csrc/baoab.cu``) and the culled force pass (``csrc/lj_cull_force.cu``),
+  and the segment ends with the drift latch (``csrc/drift.cu``); together
+  they replace the fused TPU kernel ``culled_md_raw`` (K3), and the force
+  pass alone replaces ``culled_force_raw`` (K4).  On a CPU tensor each
+  wrapper runs its plain version: ``row_force_pass_plain``,
+  ``baoab_phase_plain`` and ``tile_skin_drift_bad_plain``.
+
+The segment loop is a Python loop of launches on the current stream; the
+step counter, the list and the latch stay on the device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from . import _build
+
+_TWO_PI = 6.2831853071795864
+_MASK32 = 0xFFFFFFFF
+# row-tile entry ranges are split over this many blocks of the force kernel
+FORCE_SPLIT = 4
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Spatial sort + tile bboxes + tile-pair list
+# ---------------------------------------------------------------------------
+
+
+def slab_y_key(pos3, n: int, nslab: int, L, Ly=None):
+    """Monotone spatial sort key (``lj_cull.py:61``).
+
+    ``nslab == 0``: pure x.  ``nslab >= 1``: (x-slab, y) lexicographic with
+    the slab separation scaled by the y box length.  Padding columns get a
+    3e38 sentinel so that they stay at the end.  ``L`` and ``Ly`` may be
+    floats or 0-dim f32 tensors, as the caller has them.
+    """
+    n_pad = pos3.shape[1]
+    if nslab == 0:
+        key = pos3[0]
+    else:
+        if Ly is None:
+            Ly = L
+        slab_w = L / nslab
+        slab = torch.clamp(torch.floor(pos3[0] / slab_w), 0, nslab - 1)
+        key = slab * (2.0 * Ly) + pos3[1]
+    live = torch.arange(n_pad, device=pos3.device) < n
+    return torch.where(live, key, torch.tensor(3.0e38, dtype=key.dtype,
+                                               device=key.device))
+
+
+def sort_by_key(key, pos3, payloads: Tuple[torch.Tensor, ...]):
+    """Stable sort of the (3, n_pad) layout and each payload (last axis
+    n_pad) by ``key``; ties keep their order, as ``jax.lax.sort`` does."""
+    perm = torch.sort(key, stable=True).indices
+    return pos3[:, perm], tuple(p[..., perm] for p in payloads)
+
+
+def tile_bboxes(pos3, n: int, tile: int, box_diag):
+    """Circular per-tile bounding boxes: (centers, halves), each (3, n_tiles),
+    from min-imaged offsets to each tile's first particle."""
+    n_pad = pos3.shape[1]
+    n_tiles = n_pad // tile
+    L = box_diag.reshape(3, 1, 1)
+    p = pos3.reshape(3, n_tiles, tile)
+    ref = p[:, :, :1]
+    d = p - ref
+    d = d - L * torch.round(d / L)
+    lo = torch.amin(d, dim=2)
+    hi = torch.amax(d, dim=2)
+    centers = ref[:, :, 0] + 0.5 * (lo + hi)
+    halves = 0.5 * (hi - lo)
+    return centers, halves
+
+
+class TilePairList(NamedTuple):
+    """Capacity-padded tile-pair Verlet list (all fields device tensors).
+
+    Entries are sorted by (row tile, general-before-fast, col tile); row
+    i's general entries are [ptr2[2i], ptr2[2i+1]) and its fast entries
+    [ptr2[2i+1], ptr2[2i+2]).  ``ccx`` is the col tile's x-center shifted by
+    the pair's periodic image, ``rowcx`` the row tile's x-center.
+    """
+
+    rows: torch.Tensor      # (1, capacity) int32 row-tile index
+    cols: torch.Tensor      # (1, capacity) int32 col-tile index
+    ccx: torch.Tensor       # (1, capacity) f32 image-shifted col x-center
+    ptr2: torch.Tensor      # (1, 2*nr+1) int32 segment boundaries
+    rowcx: torch.Tensor     # (1, nr) f32 row bbox x-centers
+    count: torch.Tensor     # (1, 1) int32 live entries
+    overflowed: torch.Tensor  # () bool: capacity exceeded or shift bound broken
+
+
+def build_tile_pairs(pos3, n: int, tm: int, tn: int, box_diag, cutoff: float,
+                     slack: float, capacity: int) -> TilePairList:
+    """Build the tile-pair list from current positions (``lj_cull.py:144``).
+
+    Keeps the (row tile, col tile) rectangles whose bbox min-image distance
+    is under cutoff + slack and that can hold a pair with col rank > row
+    rank.  The ordered placement is a scatter into capacity + 1 slots, the
+    last of which takes the dropped entries and is cut off; it gives the
+    arrays the JAX package's one-hot placement gives.
+    """
+    dev = pos3.device
+    n_pad = pos3.shape[1]
+    box_diag = box_diag.reshape(3)
+    pad_mask = torch.arange(n_pad, device=dev) < n
+    pos3 = torch.where(pad_mask, pos3, pos3[:, n - 1:n])
+    nr, nc = n_pad // tm, n_pad // tn
+    rcen, rhal = tile_bboxes(pos3, n, tm, box_diag)
+    ccen, chal = tile_bboxes(pos3, n, tn, box_diag)
+    L = box_diag.reshape(3, 1, 1)
+    dc = rcen[:, :, None] - ccen[:, None, :]
+    dc = dc - L * torch.round(dc / L)
+    hsum = rhal[:, :, None] + chal[:, None, :]
+    dmin = torch.clamp_min(torch.abs(dc) - hsum, 0.0)
+    d2 = dmin * dmin
+    reach = cutoff + slack
+    near = (d2[0] + d2[1] + d2[2]) < reach * reach
+    ri = torch.arange(nr, device=dev)[:, None]
+    ci = torch.arange(nc, device=dev)[None, :]
+    useful = (ci * tn + (tn - 1) > ri * tm) & (ri * tm < n) & (ci * tn < n)
+    keep = near & useful
+    dcx_raw = rcen[0][:, None] - ccen[0][None, :]
+    Lx = box_diag[0]
+    ccx_sh = ccen[0][None, :] + torch.round(dcx_raw / Lx) * Lx
+    bound_x = 0.5 * Lx - cutoff - slack
+    shift_bad = torch.any(keep & (hsum[0] > bound_x))
+
+    last_real_col = (n - 1) // tn
+    last_real_row = (n - 1) // tm
+    general = (
+        (ci * tn < ri * tm + tm)
+        | (ci >= last_real_col)
+        | (ri >= last_real_row)
+    )
+    kg = keep & general
+    kf = keep & ~general
+    seg = torch.stack([kg.sum(dim=1), kf.sum(dim=1)], dim=1).reshape(-1)
+    ptr2 = torch.cat([torch.zeros(1, dtype=seg.dtype, device=dev),
+                      torch.cumsum(seg, dim=0)])
+    total = ptr2[-1]
+    gen_rank = torch.cumsum(kg, dim=1) - 1
+    fast_rank = torch.cumsum(kf, dim=1) - 1
+    base_gen = ptr2[0:2 * nr:2][:, None]
+    base_fast = ptr2[1:2 * nr:2][:, None]
+    slot = torch.where(kg, base_gen + gen_rank, base_fast + fast_rank)
+    slot = torch.where(keep & (slot < capacity), slot, capacity).reshape(-1)
+
+    def place(vals, dtype):
+        buf = torch.zeros(capacity + 1, dtype=dtype, device=dev)
+        buf[slot] = vals.expand(nr, nc).reshape(-1).to(dtype)
+        return buf[:capacity].reshape(1, capacity)
+
+    return TilePairList(
+        rows=place(ri, torch.int32),
+        cols=place(ci, torch.int32),
+        ccx=place(ccx_sh, torch.float32),
+        ptr2=torch.clamp_max(ptr2, capacity).to(torch.int32).reshape(1, -1),
+        rowcx=rcen[0].reshape(1, -1).contiguous(),
+        count=torch.clamp_max(total, capacity).to(torch.int32).reshape(1, 1),
+        overflowed=(total > capacity) | shift_bad,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Force pass (K4, and K3's force phase)
+# ---------------------------------------------------------------------------
+
+
+def row_force_pass_plain(x3, box_diag, pairs: TilePairList, n: int, tm: int,
+                         tn: int, sigma: float, epsilon: float, cutoff: float,
+                         with_energy: bool = False):
+    """Plain version of the culled force pass (``_row_force_pass``).
+
+    Evaluates every live entry's (tm, tn) rectangle at once with the
+    kernel's semantics (sigma-prescaled coordinates, x folded into the
+    entry frame, y/z minimum image by trunc(2d/L), the general-entry rank
+    mask and r^2 clamp).  The reciprocal is the exact division (the kernel's
+    approximate one is held to its exact one on the card).  Positions must
+    be wrapped into [0, L).  Returns ((3, n_pad) force, energy or None).
+    """
+    dev = x3.device
+    n_pad = x3.shape[1]
+    box = box_diag.reshape(3)
+    Lx, Ly, Lz = box[0], box[1], box[2]
+    iLx, iLy, iLz = 1.0 / Lx, 1.0 / Ly, 1.0 / Lz
+    inv_sigma = 1.0 / sigma
+    Lys, Lzs = Ly * inv_sigma, Lz * inv_sigma
+    two_inv_Lys = (2.0 * iLy) * (1.0 / inv_sigma)
+    two_inv_Lzs = (2.0 * iLz) * (1.0 / inv_sigma)
+    cutoff2_s = (cutoff / sigma) ** 2
+
+    count = int(pairs.count.reshape(-1)[0])
+    rows = pairs.rows[0, :count].long()
+    cols = pairs.cols[0, :count].long()
+    ccx = pairs.ccx[0, :count]
+    ptr2 = pairs.ptr2[0].long()
+    general = (torch.arange(count, device=dev) < ptr2[2 * rows + 1])[:, None, None]
+    rid = rows[:, None] * tm + torch.arange(tm, device=dev)       # (K, tm)
+    cid = cols[:, None] * tn + torch.arange(tn, device=dev)       # (K, tn)
+    rcx = pairs.rowcx[0][rows][:, None]
+    xi = x3[0][rid]
+    xi = (xi - Lx * torch.floor((xi - rcx) * iLx + 0.5)) * inv_sigma
+    yi = x3[1][rid] * inv_sigma
+    zi = x3[2][rid] * inv_sigma
+    xj = x3[0][cid]
+    xj = (xj - Lx * torch.floor((xj - ccx[:, None]) * iLx + 0.5)) * inv_sigma
+    yj = x3[1][cid] * inv_sigma
+    zj = x3[2][cid] * inv_sigma
+
+    dx = xi[:, :, None] - xj[:, None, :]
+    dy = yi[:, :, None] - yj[:, None, :]
+    dy = dy - Lys * torch.trunc(dy * two_inv_Lys)
+    dz = zi[:, :, None] - zj[:, None, :]
+    dz = dz - Lzs * torch.trunc(dz * two_inv_Lzs)
+    r2 = dx * dx + dy * dy + dz * dz
+    rank_ok = (cid[:, None, :] > rid[:, :, None]) & (cid[:, None, :] < n)
+    m = (r2 < cutoff2_s) & (rank_ok | ~general)
+    r2s = torch.where(general, torch.clamp_min(r2, 1e-4), r2)
+    inv = 1.0 / r2s
+    i6 = inv * inv * inv
+    zero = torch.zeros((), dtype=x3.dtype, device=dev)
+    coef = torch.where(m, (i6 - 0.5) * i6 * inv, zero)
+
+    F = torch.zeros((3, n_pad), dtype=x3.dtype, device=dev)
+    for a, d in enumerate((dx, dy, dz)):
+        t = coef * d
+        F[a].index_add_(0, rid.reshape(-1), t.sum(dim=2).reshape(-1))
+        F[a].index_add_(0, cid.reshape(-1), -t.sum(dim=1).reshape(-1))
+    F = (48.0 * epsilon / sigma) * F
+    if not with_energy:
+        return F, None
+    e = torch.where(m, (i6 - 1.0) * i6, zero)
+    return F, (4.0 * epsilon) * torch.sum(e, dtype=torch.float64).to(x3.dtype)
+
+
+def culled_force_pass(x3, box_diag, pairs: TilePairList, n: int, tm: int,
+                      tn: int, sigma: float, epsilon: float, cutoff: float,
+                      approx_recip: bool = True, with_energy: bool = False):
+    """Culled LJ force of wrapped positions ``x3`` over the tile-pair list.
+
+    Returns ((3, n_pad) force, energy or None).  On a CUDA tensor this
+    launches ``csrc/lj_cull_force.cu``; ``with_energy`` also sums the total
+    truncated-LJ energy of the listed pairs.
+    """
+    if x3.device.type == "cpu":
+        return row_force_pass_plain(x3, box_diag, pairs, n, tm, tn, sigma,
+                                    epsilon, cutoff, with_energy)
+    _build.check_cuda(x3, "x3")
+    dev = x3.device
+    n_pad = x3.shape[1]
+    nr = n_pad // tm
+    capacity = pairs.cols.shape[1]
+    _build.require(x3, "x3", (3, n_pad), torch.float32)
+    _build.require(box_diag, "box_diag", None, torch.float32, dev)
+    for name, dtype, shape in (
+        ("cols", torch.int32, (1, capacity)),
+        ("ccx", torch.float32, (1, capacity)),
+        ("ptr2", torch.int32, (1, 2 * nr + 1)),
+        ("rowcx", torch.float32, (1, nr)),
+        ("count", torch.int32, (1, 1)),
+    ):
+        _build.require(getattr(pairs, name), f"pairs.{name}", shape, dtype, dev)
+    if (tm not in (16, 32, 64, 128) or tn % 16 or not 0 < tn <= 512
+            or n_pad % tm or n_pad % tn or box_diag.numel() != 3):
+        raise ValueError(
+            f"culled force kernel takes tm in (16, 32, 64, 128), tn a "
+            f"multiple of 16 up to 512, both dividing n_pad, and 3 box "
+            f"lengths (got tm={tm}, tn={tn}, n_pad={n_pad})"
+        )
+    f32 = dict(dtype=torch.float32, device=dev)
+    F = torch.empty((3, n_pad), **f32)
+    P = torch.empty((FORCE_SPLIT, 3, n_pad), **f32)
+    R = torch.empty((capacity, 3, tn), **f32)
+    e_part = torch.empty(nr * FORCE_SPLIT, **f32)
+    energy = torch.empty(1, **f32) if with_energy else None
+    inv_sigma = 1.0 / sigma
+    _build.launch(
+        "culled_force", "chiron_cull_force",
+        x3.data_ptr(), box_diag.data_ptr(), pairs.cols.data_ptr(),
+        pairs.ccx.data_ptr(), pairs.ptr2.data_ptr(), pairs.rowcx.data_ptr(),
+        pairs.count.data_ptr(), P.data_ptr(), R.data_ptr(), e_part.data_ptr(),
+        F.data_ptr(), None if energy is None else energy.data_ptr(),
+        n, n_pad, tm, tn, FORCE_SPLIT, inv_sigma, 1.0 / inv_sigma,
+        (cutoff / sigma) ** 2, 48.0 * epsilon / sigma, 4.0 * epsilon,
+        int(approx_recip), _build.stream_of(x3),
+    )
+    return F, (energy[0] if with_energy else None)
+
+
+# ---------------------------------------------------------------------------
+# BAOAB phase (K3) and its noise stream
+# ---------------------------------------------------------------------------
+
+
+def _mul32(z, k: int):
+    """(z * k) mod 2^32 for int64 z in [0, 2^32) without int64 overflow."""
+    lo = z * (k & 0xFFFF)
+    hi = ((z * (k >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _mix32(z):
+    z = z ^ (z >> 16)
+    z = _mul32(z, 0x85EBCA6B)
+    z = z ^ (z >> 13)
+    z = _mul32(z, 0xC2B2AE35)
+    return z ^ (z >> 16)
+
+
+def splitmix_counters(seed: int, step: int, n_pad: int, device="cpu"):
+    """The two splitmix32 counters of every (3, n_pad/2) lane at ``step``,
+    as int64 tensors holding uint32 values (``_baoab_phase``'s stream)."""
+    half = n_pad // 2
+    lane = torch.arange(3 * half, dtype=torch.int64, device=device).reshape(3, half)
+    base = ((seed & _MASK32) * 0x9E3779B9 + (step & _MASK32) * 0x85EBCA6B) & _MASK32
+    c1 = ((lane * 2) * 0x9E3779B9 + base) & _MASK32
+    c2 = ((lane * 2 + 1) * 0x9E3779B9 + base) & _MASK32
+    return c1, c2
+
+
+def splitmix_noise_plain(seed: int, step: int, n_pad: int, device="cpu"):
+    """The (3, n_pad) standard-normal O-step noise of one step: two-output
+    Box-Muller on half the lanes (cos half | sin half)."""
+    c1, c2 = splitmix_counters(seed, step, n_pad, device)
+    scale = 1.0 / 16777216.0
+    u1 = (_mix32(c1) >> 8).to(torch.int32).to(torch.float32) * scale
+    u2 = (_mix32(c2) >> 8).to(torch.int32).to(torch.float32) * scale
+    u1 = torch.clamp_min(u1, 1e-7)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI * u2
+    return torch.cat([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
+
+
+def baoab_phase_plain(x, w, F, minv, sigv, box_diag, seed: int, step: int,
+                      dt: float, a: float, b: float):
+    """Plain version of one BAOAB update phase: returns the new (x, w, F)."""
+    v = w + dt * F * minv
+    x = x + (dt * 0.5) * v
+    noise = splitmix_noise_plain(seed, step, x.shape[1], x.device)
+    v = a * v + b * sigv * noise
+    x = x + (dt * 0.5) * v
+    L = box_diag.reshape(3, 1)
+    x = x - torch.floor(x * (1.0 / L)) * L
+    return x, v, torch.zeros_like(F)
+
+
+def baoab_phase_(x, w, F, minv, sigv, box_diag, seed: int, step_offset,
+                 s: int, dt: float, a: float, b: float):
+    """One BAOAB update phase in place on (x, w, F) at step
+    ``step_offset + s`` (``step_offset`` a (1, 1) int32 device tensor)."""
+    if x.device.type == "cpu":
+        step = int(step_offset.reshape(-1)[0]) + s
+        out = baoab_phase_plain(x, w, F, minv, sigv, box_diag, seed, step,
+                                dt, a, b)
+        for dst, src in zip((x, w, F), out):
+            dst.copy_(src)
+        return
+    _build.check_cuda(x, "x")
+    dev = x.device
+    n_pad = x.shape[1]
+    for name, t, shape in (("x", x, (3, n_pad)), ("w", w, (3, n_pad)),
+                           ("F", F, (3, n_pad)), ("minv", minv, (1, n_pad)),
+                           ("sigv", sigv, (1, n_pad))):
+        _build.require(t, name, shape, torch.float32, dev)
+    _build.require(box_diag, "box_diag", None, torch.float32, dev)
+    _build.require(step_offset, "step_offset", (1, 1), torch.int32, dev)
+    if n_pad % 2 or box_diag.numel() != 3:
+        raise ValueError("baoab: n_pad must be even and the box 3 lengths")
+    _build.launch(
+        "baoab", "chiron_baoab",
+        x.data_ptr(), w.data_ptr(), F.data_ptr(), minv.data_ptr(),
+        sigv.data_ptr(), box_diag.data_ptr(), step_offset.data_ptr(), s,
+        seed & _MASK32, n_pad, dt, dt * 0.5, a, b, _build.stream_of(x),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Drift latch (K3's last step)
+# ---------------------------------------------------------------------------
+
+
+def tile_skin_drift_bad_plain(x, anchor, n: int, slack: float, box_diag):
+    """Plain version of the latch: () bool, True when the top-2 joint
+    min-image drift from ``anchor`` exceeds ``slack`` or a live coordinate
+    is not finite."""
+    n_pad = x.shape[1]
+    valid = torch.arange(n_pad, device=x.device) < n
+    L = box_diag.reshape(3, 1)
+    dxa = x - anchor
+    dxa = dxa - L * torch.floor(dxa * (1.0 / L) + 0.5)
+    d2 = dxa[0] * dxa[0]
+    d2 = d2 + dxa[1] * dxa[1]
+    d2 = d2 + dxa[2] * dxa[2]
+    finite_ok = torch.all(torch.abs(torch.where(valid, x, 0.0)) < 3.0e38)
+    d = torch.sqrt(torch.where(valid, d2, 0.0))
+    m1 = torch.max(d)
+    others = torch.where(d == m1, -1.0, d)
+    m2 = torch.clamp_min(torch.max(others), 0.0)
+    tied = torch.sum(d == m1) > 1
+    top2 = m1 + torch.where(tied, m1, m2)
+    return (top2 > slack) | ~finite_ok
+
+
+def tile_skin_drift_bad(x, anchor, n: int, slack: float, box_diag):
+    """The drift latch: () bool tensor on the device of ``x``."""
+    if x.device.type == "cpu":
+        return tile_skin_drift_bad_plain(x, anchor, n, slack, box_diag)
+    _build.check_cuda(x, "x")
+    n_pad = x.shape[1]
+    _build.require(x, "x", (3, n_pad), torch.float32)
+    _build.require(anchor, "anchor", (3, n_pad), torch.float32, x.device)
+    _build.require(box_diag, "box_diag", None, torch.float32, x.device)
+    if box_diag.numel() != 3:
+        raise ValueError("drift: the box needs 3 lengths")
+    flag = torch.empty(1, dtype=torch.float32, device=x.device)
+    _build.launch(
+        "tile_skin_drift", "chiron_drift",
+        x.data_ptr(), anchor.data_ptr(), box_diag.data_ptr(), n, n_pad,
+        slack, flag.data_ptr(), _build.stream_of(x),
+    )
+    return flag[0] > 0.5
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+class CulledLJMD:
+    """S-step BAOAB segments on the culled tile-pair LJ force
+    (``lj_cull.py:998``): half-kick convention w = v - dt/2 F/m inside,
+    standard (x, v, F) at both ends; the caller owns sorting and rebuilds."""
+
+    def __init__(self, n, sigma, epsilon, cutoff, masses_lane, dt, gamma, kT,
+                 tm: int = 128, tn: int = 128,
+                 slack: float = 0.2, n_pad: int = None, *, device):
+        self.n = n
+        self.sigma, self.epsilon, self.cutoff = (
+            float(sigma), float(epsilon), float(cutoff)
+        )
+        self.dt = float(dt)
+        # f32 coefficients, computed as the JAX engine computes them
+        f32 = torch.float32
+        self.a = float(torch.exp(torch.tensor(-gamma * dt, dtype=f32)))
+        self.b = float(torch.sqrt(
+            1.0 - torch.exp(torch.tensor(-2.0 * gamma * dt, dtype=f32))
+        ))
+        self.kT = float(kT)
+        self.slack = float(slack)
+        self.tm, self.tn = tm, tn
+        self.n_pad = _round_up(n_pad if n_pad is not None else n,
+                               math.lcm(tm, tn))
+        self.device = torch.device(device)
+        m = torch.as_tensor(masses_lane, dtype=f32).reshape(1, -1)
+        if m.shape[1] != self.n_pad:
+            mm = torch.ones((1, self.n_pad), dtype=f32)
+            mm[0, :m.shape[1]] = m[0]
+            m = mm
+        m = m.to(self.device)
+        self.minv = 1.0 / m
+        self.sigv = torch.sqrt(self.kT / m)
+
+    def build_pairs(self, pos3, box_diag, capacity: int) -> TilePairList:
+        return build_tile_pairs(pos3, self.n, self.tm, self.tn, box_diag,
+                                self.cutoff, self.slack, capacity)
+
+    def force(self, pos3, box_diag, pairs: TilePairList,
+              approx_recip: bool = True):
+        """Culled force of WRAPPED positions under the given list (K4)."""
+        return culled_force_pass(
+            pos3, box_diag, pairs, self.n, self.tm, self.tn, self.sigma,
+            self.epsilon, self.cutoff, approx_recip,
+        )[0]
+
+    def run_segment(self, x3, v3, f3, box_diag, pairs: TilePairList, seed: int,
+                    step_offset, n_steps: int, approx_recip: bool = True,
+                    drift_slack: float = None):
+        """Advance ``n_steps`` on a fixed list from (x3, v3, f3) (K3).
+
+        ``step_offset`` is the (1, 1) int32 step counter of the noise
+        stream.  Returns new (x, v, F) tensors, plus the () bool drift latch
+        against the entry positions when ``drift_slack`` is given.
+        """
+        if not torch.is_tensor(step_offset):
+            step_offset = torch.tensor([[step_offset]], dtype=torch.int32,
+                                       device=x3.device)
+        half_dt = 0.5 * self.dt
+        w = v3 - half_dt * f3 * self.minv
+        x = x3.clone()
+        F = f3.clone()
+        for s in range(n_steps):
+            baoab_phase_(x, w, F, self.minv, self.sigv, box_diag, seed,
+                         step_offset, s, self.dt, self.a, self.b)
+            F = self.force(x, box_diag, pairs, approx_recip)
+        v = w + half_dt * F * self.minv
+        if drift_slack is None:
+            return x, v, F
+        stale = tile_skin_drift_bad(x, x3, self.n, drift_slack, box_diag)
+        return x, v, F, stale

@@ -1,0 +1,164 @@
+"""Dense all-pairs LJ force and energy (port of ``chiron_tpu/ops/lj_dense.py``).
+
+``lj_dense_force_energy`` is the wrapper of kernel K1 (``csrc/lj_dense.cu``,
+replacing ``_make_triangle_kernel``): all-pairs minimum-image LJ in the
+(3, n_pad) f32 lane layout, with the approximate or the Newton-refined
+reciprocal and an optional energy.  On a CPU tensor it runs
+``lj_dense_plain``, the same function in plain PyTorch.  ``LJDense`` has the
+surface of ``LJDensePallas``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .diff import energy_with_force_gradient
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def box_diagonal(box, device) -> torch.Tensor:
+    """(1, 3) f32 box lengths on ``device`` from a (3, 3) orthogonal box or
+    from 3 lengths (numpy, list or tensor)."""
+    if not torch.is_tensor(box):
+        box = np.array(box, dtype=np.float32)  # a writable copy
+    b = torch.as_tensor(box, dtype=torch.float32, device=device)
+    if b.shape == (3, 3):
+        b = torch.diagonal(b)
+    return b.reshape(1, 3).contiguous()
+
+
+def lj_dense_plain(pos3, box_diag, n: int, sigma: float, epsilon: float,
+                   cutoff: float, with_energy: bool = True):
+    """Plain version of K1: returns ((3, n_pad) force, energy or None).
+
+    Mirrors ``_lj_tile_math``: minimum image by floor(d/L + 1/2), r^2
+    clamped at 1e-4 sigma^2, coef = 24 eps (2 s12 - s6) / r^2, every pair
+    of live particles once from each side (the energy is halved).  The
+    reciprocal is the exact division, which the kernel's Newton-refined
+    reciprocal matches to an ulp; the energy is summed in float64.
+    """
+    n_pad = pos3.shape[1]
+    sigma2 = sigma * sigma
+    eps4 = 4.0 * epsilon
+    L = box_diag.reshape(3, 1, 1)
+    inv_L = 1.0 / L
+    d = pos3[:, :, None] - pos3[:, None, :]
+    d = d - L * torch.floor(d * inv_L + 0.5)
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    ids = torch.arange(n_pad, device=pos3.device)
+    pair = (ids[:, None] < n) & (ids[None, :] < n) & (ids[:, None] != ids[None, :])
+    m = (r2 < cutoff * cutoff) & pair
+    r2s = torch.clamp_min(r2, 1e-4 * sigma2)
+    inv = 1.0 / r2s
+    inv_r2 = sigma2 * inv
+    i6 = inv_r2 * inv_r2 * inv_r2
+    i12 = i6 * i6
+    zero = torch.zeros((), dtype=pos3.dtype, device=pos3.device)
+    coef = torch.where(m, (6.0 * eps4) * (2.0 * i12 - i6) * inv, zero)
+    force = torch.sum(coef[None] * d, dim=2)
+    if not with_energy:
+        return force, None
+    e = torch.where(m, eps4 * (i12 - i6), zero)
+    energy = 0.5 * torch.sum(e, dtype=torch.float64)
+    return force, energy.to(pos3.dtype)
+
+
+def lj_dense_force_energy(pos3, box_diag, n: int, sigma: float,
+                          epsilon: float, cutoff: float,
+                          approx_recip: bool = False,
+                          with_energy: bool = True):
+    """K1: dense LJ force (and energy) of ``pos3`` in the lane layout.
+
+    ``box_diag`` holds the three box lengths on the device of ``pos3``.
+    Returns ((3, n_pad) force with zero padding columns, () energy or None).
+    """
+    if pos3.device.type == "cpu":
+        return lj_dense_plain(pos3, box_diag, n, sigma, epsilon, cutoff,
+                              with_energy)
+    _build.check_cuda(pos3, "pos3")
+    n_pad = pos3.shape[1]
+    _build.require(pos3, "pos3", (3, n_pad), torch.float32)
+    _build.require(box_diag, "box_diag", None, torch.float32, pos3.device)
+    if box_diag.numel() != 3 or n_pad % 32 != 0 or not 0 < n <= n_pad:
+        raise ValueError(
+            f"lj_dense: needs 3 box lengths and n_pad % 32 == 0 with "
+            f"0 < n <= n_pad (got {box_diag.numel()}, n_pad={n_pad}, n={n})"
+        )
+    force = torch.empty_like(pos3)
+    e_part = torch.empty(n_pad // 32, dtype=torch.float32, device=pos3.device)
+    energy = torch.empty(1, dtype=torch.float32, device=pos3.device)
+    sigma2 = sigma * sigma
+    eps4 = 4.0 * epsilon
+    _build.launch(
+        "lj_dense", "chiron_lj_dense",
+        pos3.data_ptr(), box_diag.data_ptr(), force.data_ptr(),
+        e_part.data_ptr(), energy.data_ptr(), n, n_pad, sigma2, 6.0 * eps4,
+        eps4, cutoff * cutoff, 1e-4 * sigma2, int(approx_recip),
+        int(with_energy), _build.stream_of(pos3),
+    )
+    return force, (energy[0] if with_energy else None)
+
+
+class LJDense:
+    """Dense LJ force+energy for a fixed (N, params): the ``LJDensePallas``
+    surface on K1.
+
+    ``tm``/``tn`` only set the padding (n_pad is a multiple of both, as in
+    the JAX package, so that the runners share one state shape).
+    """
+
+    def __init__(self, n: int, sigma: float, epsilon: float, cutoff: float,
+                 tm: int = 128, tn: int = 128, n_pad: Optional[int] = None,
+                 *, device):
+        self.n = n
+        self.sigma = float(sigma)
+        self.epsilon = float(epsilon)
+        self.cutoff = float(cutoff)
+        self.n_pad = _round_up(n_pad if n_pad is not None else n, max(tm, tn))
+        self.tm, self.tn = tm, tn
+        self.device = torch.device(device)
+
+    def _fe(self, pos3, box_diag, approx_recip, with_energy):
+        return lj_dense_force_energy(
+            pos3, box_diag, self.n, self.sigma, self.epsilon, self.cutoff,
+            approx_recip=approx_recip, with_energy=with_energy,
+        )
+
+    def force_only_t(self, pos3, box_diag, approx_recip: bool = True):
+        """(3, n_pad) force without the energy (the stepping hot path)."""
+        return self._fe(pos3, box_diag, approx_recip, False)[0]
+
+    def force_energy_t(self, pos3, box_diag):
+        """(3, n_pad) force and () energy, exact reciprocal."""
+        return self._fe(pos3, box_diag, False, True)
+
+    def pad_positions(self, positions):
+        """(N, 3) -> (3, n_pad) f32 on this op's device, zero padding."""
+        p = torch.as_tensor(positions, dtype=torch.float32, device=self.device)
+        pos3 = torch.zeros((3, self.n_pad), dtype=torch.float32,
+                           device=self.device)
+        pos3[:, :self.n] = p.T
+        return pos3
+
+    def unpad(self, a3):
+        return a3[:, :self.n].T
+
+    def force_energy(self, positions, box_vectors):
+        """(N, 3) force and energy of (N, 3) positions in a (3, 3) box."""
+        box_diag = box_diagonal(box_vectors, self.device)
+        force3, energy = self.force_energy_t(self.pad_positions(positions),
+                                             box_diag)
+        return self.unpad(force3), energy
+
+    def energy(self, positions, box_vectors):
+        """Differentiable energy: autograd gives exactly ``-force``."""
+        return energy_with_force_gradient(
+            lambda p: self.force_energy(p, box_vectors), positions,
+        )

@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU with nvcc (sm_90a): they build the kernels
+of chiron_tpu_torch/csrc and skip where no CUDA device is visible.  On the
+GPU machine run them with
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
+
+They import no jax, so they run where jax is not installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chiron_tpu_torch import units
+from chiron_tpu_torch.ops import _build
+from chiron_tpu_torch.ops import lj_cull as lc
+from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy, lj_dense_plain
+from chiron_tpu_torch.runtime import make_culled_lj_runner
+from chiron_tpu_torch.testsystems import LennardJonesFluid
+
+pytestmark = pytest.mark.gpu
+
+N = 2000  # the smallest bench-density fluid that takes 128 x 256 tiles
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def carry(cuda):
+    fluid = LennardJonesFluid(nparticles=N, reduced_density=0.8)
+    md = units.md_unit_system
+    rng = np.random.default_rng(1)
+    box = fluid.box_vectors.value_in_unit_system(md)
+    pos = fluid.positions.value_in_unit_system(md)
+    pos = ((pos + rng.normal(0, 0.01, pos.shape)) % box[0, 0]).astype(np.float32)
+    runner = make_culled_lj_runner(
+        potential=fluid.potential, n_particles=N, topology=fluid.topology,
+        temperature=120.0 * units.kelvin, slack=0.15, segment_steps=8,
+        device=cuda)
+    c0 = runner.init(pos, box, seed=2)
+    return runner, c0, fluid.potential
+
+
+def test_dense_kernel_matches_plain(carry):
+    _, c0, pot = carry
+    x, box = c0.x, c0.box_diag
+    args = (N, pot.sigma, pot.epsilon, pot.cutoff)
+    Fp, Ep = lj_dense_plain(x, box, *args)
+    Fk, Ek = lj_dense_force_energy(x, box, *args, approx_recip=False)
+    Fa, Ea = lj_dense_force_energy(x, box, *args, approx_recip=True,
+                                   with_energy=False)
+    scale = float(Fp.abs().max())
+    assert float((Fk - Fp).abs().max()) / scale < 1e-5
+    assert float((Fa - Fp).abs().max()) / scale < 1e-4
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    assert Ea is None
+    assert float(Fk[:, N:].abs().max()) == 0.0
+
+
+def test_culled_force_kernel_matches_plain(carry):
+    runner, c0, pot = carry
+    md = runner.md
+    args = (c0.x, c0.box_diag, c0.pairs, N, md.tm, md.tn, pot.sigma,
+            pot.epsilon, pot.cutoff)
+    Fp, Ep = lc.row_force_pass_plain(*args, with_energy=True)
+    Fk, Ek = lc.culled_force_pass(*args, approx_recip=False, with_energy=True)
+    err = (Fk - Fp)[:, :N].abs()
+    scale = float(Fp.abs().max())
+    assert float(err.max()) < 0.05
+    assert float(torch.quantile(err.flatten(), 0.99)) / scale < 1e-5
+    assert float(Fk[:, N:].abs().max()) == 0.0
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+
+
+def test_baoab_kernel_matches_plain(carry):
+    runner, c0, _ = carry
+    md = runner.md
+    w = c0.v - (0.5 * md.dt) * c0.F * md.minv
+    xk, wk, Fk = c0.x.clone(), w.clone(), c0.F.clone()
+    step = torch.full((1, 1), 17, dtype=torch.int32, device=c0.x.device)
+    lc.baoab_phase_(xk, wk, Fk, md.minv, md.sigv, c0.box_diag, 99, step, 2,
+                    md.dt, md.a, md.b)
+    xp, wp, Fp = lc.baoab_phase_plain(c0.x, w, c0.F, md.minv, md.sigv,
+                                      c0.box_diag, 99, 19, md.dt, md.a, md.b)
+    assert float((xk - xp).abs().max()) < 1e-5
+    assert float((wk - wp).abs().max()) < 1e-4
+    assert float(Fk.abs().max()) == 0.0 == float(Fp.abs().max())
+
+
+def test_drift_kernel_matches_plain(carry):
+    runner, c0, _ = carry
+    c1 = runner.segment_fn(8)(c0)
+    tripped = c1.x_anchor.clone()
+    tripped[0, 3] += 0.1
+    tripped[1, 9] += 0.1
+    nan = c1.x.clone()
+    nan[2, 4] = float("nan")
+    for x, anchor in ((c1.x, c1.x_anchor), (c1.x, tripped), (nan, c1.x_anchor)):
+        k = lc.tile_skin_drift_bad(x, anchor, N, 0.15, c0.box_diag)
+        p = lc.tile_skin_drift_bad_plain(x, anchor, N, 0.15, c0.box_diag)
+        assert bool(k) == bool(p)
+    assert bool(lc.tile_skin_drift_bad(nan, c1.x_anchor, N, 0.15, c0.box_diag))
+
+
+def test_segment_is_bitwise_repeatable_and_counted(carry):
+    runner, c0, _ = carry
+    _build.reset_launch_counts()
+    a = runner.segment_fn(8)(c0)
+    b = runner.segment_fn(8)(c0)
+    for name in ("x", "v", "F", "overflowed"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert dict(_build.launches) == {"baoab": 16, "culled_force": 16,
+                                     "tile_skin_drift": 2}
+
+
+def test_kernel_wrappers_refuse_bad_inputs(carry):
+    _, c0, pot = carry
+    with pytest.raises(ValueError, match="contiguous"):
+        lj_dense_force_energy(c0.x.t().contiguous().t(), c0.box_diag, N,
+                              pot.sigma, pot.epsilon, pot.cutoff)
+    with pytest.raises(ValueError, match="dtype"):
+        lj_dense_force_energy(c0.x.double(), c0.box_diag, N, pot.sigma,
+                              pot.epsilon, pot.cutoff)

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's N=4000 main path goes, on one NVIDIA GPU.
+"""Where the time of the port's N=4000 NVT and NpT paths goes, on one NVIDIA
+GPU.
 
     python3 chip_profile.py
 
-Runs the workload of ``chip_smoke.py`` (``LennardJonesFluid(4000, 0.8)``,
-120 K, 2 fs, a 1000-step dense melt, then the culled runner at S=40 and
-slack 0.15) and prints:
+Runs the workloads of ``chip_smoke.py`` (``LennardJonesFluid(4000, 0.8)``,
+120 K, 2 fs, a 1000-step dense melt, the culled runner at S=40 and slack
+0.15, then the culled NpT runner at 100 atm, an attempt every 25 steps,
+S=50 and slack 0.2, and the dense NpT runner) and prints:
 
 1. the card's name, power limit, SM clock and power draw, before and after;
-2. three timed windows of each runner (3000 culled steps, 1000 dense steps),
-   as seconds and steps/s, on the host's clock around a device sync;
-3. a ``torch.profiler`` trace of 400 culled and of 100 dense steps, after a
-   warm-up of the same length: wall per step (profiler on), device busy per
-   step (the union of the kernel, memcpy and memset intervals), the device's
-   idle share, and the top device rows with their time per launch.
+2. three timed windows of each runner (3000 steps of each culled runner,
+   1000 of each dense one), as seconds and steps/s, on the host's clock
+   around a device sync;
+3. a ``torch.profiler`` trace of 400 steps of each culled runner and 100 of
+   each dense one, after a warm-up of the same length: wall per step
+   (profiler on), device busy per step (the union of the kernel, memcpy and
+   memset intervals), the device's idle share, and the top device rows with
+   their time per launch.
 
 Without a CUDA device it exits nonzero before measuring anything.
 """
@@ -26,7 +30,10 @@ import time
 N = 4000
 SEED = 1234
 WINDOWS = 3
-PROFILE_STEPS = {"culled": 400, "dense": 100}
+WINDOW_STEPS = {"culled": 3000, "dense": 1000, "culled_npt": 3000,
+                "dense_npt": 1000}
+PROFILE_STEPS = {"culled": 400, "dense": 100, "culled_npt": 400,
+                 "dense_npt": 100}
 TOP_ROWS = 14
 
 
@@ -90,7 +97,12 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chiron_tpu_torch import units
     from chiron_tpu_torch.ops import _build
-    from chiron_tpu_torch.runtime import make_culled_lj_runner, make_fast_lj_runner
+    from chiron_tpu_torch.runtime import (
+        make_culled_lj_runner,
+        make_culled_npt_lj_runner,
+        make_fast_lj_runner,
+        make_npt_lj_runner,
+    )
     from chiron_tpu_torch.testsystems import LennardJonesFluid
 
     print(f"card before: {_card()}")
@@ -112,11 +124,20 @@ def main():
     print(f"culled list: nslab={runner.nslab} capacity={runner.capacity} "
           f"count={int(state['culled'].pairs.count)}")
 
-    def advance(label, steps):
-        run = runner.run if label == "culled" else fast.run
-        state[label] = run(state[label], steps)
+    npt_kw = dict(common, pressure=100.0 * units.atmosphere)
+    npt = make_culled_npt_lj_runner(slack=0.2, segment_steps=50,
+                                    barostat_interval=25, **npt_kw)
+    dnpt = make_npt_lj_runner(barostat_interval=25, **npt_kw)
+    melt = runner.positions(state["culled"])
+    state["culled_npt"] = npt.run(npt.init(melt, box, seed=SEED), 400)
+    state["dense_npt"] = dnpt.run(dnpt.init(melt, box, seed=SEED), 100)
+    runs = {"culled": runner.run, "dense": fast.run, "culled_npt": npt.run,
+            "dense_npt": dnpt.run}
 
-    for label, steps in (("culled", 3000), ("dense", 1000)):
+    def advance(label, steps):
+        state[label] = runs[label](state[label], steps)
+
+    for label, steps in WINDOW_STEPS.items():
         seconds = []
         for _ in range(WINDOWS):
             torch.cuda.synchronize()
@@ -128,6 +149,10 @@ def main():
               f"{[round(s, 6) for s in seconds]}, steps/s "
               f"{[round(steps / s, 1) for s in seconds]}")
     runner.check(state["culled"])
+    npt.check(state["culled_npt"])
+    dnpt.check(state["dense_npt"])
+    print(f"culled NpT acceptance {npt.acceptance(state['culled_npt']):.3f}, "
+          f"dense NpT {dnpt.acceptance(state['dense_npt']):.3f}")
 
     for label, steps in PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LJ-fluid main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's LJ-fluid NVT and NpT paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,16 +9,31 @@ Phases (any failure raises, and the script exits nonzero):
 2. build the kernels of ``chiron_tpu_torch/csrc`` with nvcc;
 3. compare every kernel with its plain PyTorch version on the card, at the
    main path's shapes (N=4000, n_pad=4096, tiles 128 x 256), on a
-   configuration melted by 1000 dense steps, and time both with CUDA events;
-4. run one culled segment twice from one carry: the results must be
+   configuration melted by 1000 dense steps, and time both with CUDA events:
+   K1, the culled force (K4, K3's force phase), K5 and K3's exact-energy
+   final step, BAOAB, and the drift latch with the slack and with a budget
+   on either side of the measured drift;
+4. run one culled segment, and one NpT segment with the barostat's
+   generator restored in between, twice from one carry: the results must be
    bitwise equal (no float atomics anywhere);
-5. the main path of ``bench.py`` on the port, with launch counts reset just
-   before it: ``LennardJonesFluid(4000, 0.8)``, 1000 dense BAOAB steps at
-   120 K and 2 fs, then the culled runner (S=40, slack 0.15) for 3000 steps;
-   ``check()`` must pass, the energy must be finite and agree with the f64
-   oracle, the kinetic temperature must be within 5% of 120 K, and every
-   kernel must have been launched.
+5. the NVT main path of ``bench.py`` on the port, with launch counts reset
+   just before it: ``LennardJonesFluid(4000, 0.8)``, 1000 dense BAOAB steps
+   at 120 K and 2 fs, then the culled runner (S=40, slack 0.15) for 3000
+   steps; ``check()`` must pass, the energy must be finite and agree with
+   the f64 oracle, the kinetic temperature must be within 5% of 120 K, and
+   every kernel of the path must have been launched;
+6. the NpT path, with the counts reset again: from the phase-5 state, the
+   culled NpT runner at 120 K and 100 atm (barostat every 25 steps, S=50,
+   slack 0.2) for 3000 steps, then the dense NpT runner for 500 steps; 120
+   and 20 attempts, ``check()`` clean, the carried energy equal to a fresh
+   K5 pass within 1e-6, K5 within 1e-5 of the f64 oracle, T_kin within 5%,
+   and all five kernels launched.
 
+The ``kernels`` line gives each kernel's launches in phase 6 (and in phase 5
+under ``launches_by_path``), its error and times, and its bound: the larger
+of the f32 operations its function needs over 67 TFLOP/s and its bytes (each
+input read once, each output written once) over 3.35 TB/s, from this run's
+shapes, list and pairs within the cutoff.
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -39,6 +54,32 @@ CULLED_STEPS = 3000
 SEGMENT = 40
 SLACK = 0.15
 SEED = 1234
+P_ATM = 100.0
+NPT_INTERVAL = 25
+NPT_SEGMENT = 50
+NPT_SLACK = 0.2
+NPT_STEPS = 3000
+DENSE_NPT_STEPS = 500
+
+# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): f32 outside the
+# tensor cores, and HBM3.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations a pair that the functions need (an FMA is 2).  Every
+# candidate pair takes the distance test: for K1 the three minimum-image
+# axes (subtract, scale, round, FMA: 5 each), r^2 (5) and the compare (1);
+# for the culled passes, whose x fold is done once a particle, dx (1), the
+# y and z trunc folds (5 each), r^2 and the compare.  Only the pairs within
+# the cutoff take the LJ term: the reciprocal (1), i6 (2), the coefficient
+# (3), three force products and six sums into both particles; the energy
+# adds (i6 - 1) i6 and its sum.  The kernels run without branches and take
+# the LJ term on every candidate pair: that is their cost, not the bound.
+TEST_FLOPS = {"lj_dense": 21, "culled": 17}
+LJ_FLOPS = 15
+ENERGY_FLOPS = 3
+# per lane: BAOAB's kick, drifts, wrap and half a Box-Muller pair; the
+# latch's image fold, norm and reductions
+LANE_FLOPS = {"baoab": 40, "tile_skin_drift": 20}
 
 
 def _run(cmd):
@@ -71,6 +112,30 @@ def _report(name, err, tol, ms, plain_ms):
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
 
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time of the work on the card."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _pairs_in_cutoff(x3, box_diag, n, cutoff):
+    """Unordered pairs of live particles closer than the cutoff (f64)."""
+    import torch
+
+    pos = x3[:, :n].T.double()
+    L = box_diag.reshape(3).double()
+    count = 0
+    for i0 in range(0, n, 1000):
+        d = pos[i0:i0 + 1000, None, :] - pos[None, :, :]
+        d = d - L * torch.round(d / L)
+        r2 = (d * d).sum(-1)
+        ids = torch.arange(n, device=pos.device)
+        upper = ids[None, :] > ids[i0:i0 + 1000, None]
+        count += int(((r2 < cutoff * cutoff) & upper).sum())
+    return count
+
+
 def main():
     import torch
 
@@ -83,7 +148,12 @@ def main():
     from chiron_tpu_torch.ops import lj_cull as lc
     from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy, lj_dense_plain
     from chiron_tpu_torch.oracles import lj_dense_oracle
-    from chiron_tpu_torch.runtime import make_culled_lj_runner, make_fast_lj_runner
+    from chiron_tpu_torch.runtime import (
+        make_culled_lj_runner,
+        make_culled_npt_lj_runner,
+        make_fast_lj_runner,
+        make_npt_lj_runner,
+    )
     from chiron_tpu_torch.testsystems import LennardJonesFluid
 
     dev = torch.device("cuda")
@@ -120,6 +190,7 @@ def main():
     results = {}
 
     # K1: the dense triangle kernel at n_pad = 4096
+    in_cut = _pairs_in_cutoff(x_melt, box_diag, N, cut)
     Fp, Ep = lj_dense_plain(x_melt, box_diag, N, sig, eps, cut)
     scale = float(Fp.abs().max())
     Fk, Ek = lj_dense_force_energy(x_melt, box_diag, N, sig, eps, cut,
@@ -141,10 +212,18 @@ def main():
           f"(tolerance 1e-4), energy rel err {e_rel:.3e} (tolerance 1e-5)")
     _report("lj_dense (exact force vs plain, rel tol 1e-5)", err, "1e-5 rel",
             ms, plain_ms)
+    n_pad = x_melt.shape[1]
+    lane_bytes = 3 * n_pad * 4  # one (3, n_pad) f32 array
+    tested = N * (N - 1) // 2
+    bound_ms, bound_by = _bound(
+        tested * TEST_FLOPS["lj_dense"] + in_cut * LJ_FLOPS,
+        2 * lane_bytes + 12)
+    print(f"    pairs: {tested} distance tests, {in_cut} within the cutoff; "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
     results["lj_dense"] = dict(
         source="chiron_tpu_torch/csrc/lj_dense.cu",
         replaces="chiron_tpu/ops/lj_dense.py:340", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms)
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
     # K4 and K3's force phase: the culled force on the production list
     runner = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
@@ -181,10 +260,63 @@ def main():
           f"exact rel {err_a:.3e} (1e-4), energy rel {e_rel:.3e} (1e-5)")
     _report("culled_force (exact vs plain, max abs tol 0.05)", err, 0.05, ms,
             plain_ms)
+    count = int(pairs.count)
+    listed = count * md.tm * md.tn
+    in_cut = _pairs_in_cutoff(c0.x, box_diag, N, cut)
+    nr = n_pad // md.tm
+    list_bytes = 4 * (2 * count + 2 * nr + 2) + 12  # cols, ccx, ptr2, ...
+    bound_ms, bound_by = _bound(
+        listed * TEST_FLOPS["culled"] + in_cut * LJ_FLOPS,
+        2 * lane_bytes + list_bytes)
+    print(f"    pairs: {listed} distance tests on the list ({count} entries "
+          f"x {md.tm} x {md.tn}), {in_cut} within the cutoff; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})")
     results["culled_force"] = dict(
         source="chiron_tpu_torch/csrc/lj_cull_force.cu",
         replaces="chiron_tpu/ops/lj_cull.py:700", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms)
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    # K5: the culled force and energy, exact reciprocal
+    def k5():
+        return lc.culled_force_energy(c0.x, box_diag, pairs, N, md.tm, md.tn,
+                                      sig, eps, cut)
+
+    F5, E5 = k5()
+    diff = (F5 - Fp)[:, :N].abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+    e_rel = abs(float(E5) - float(Ep)) / abs(float(Ep))
+    box33 = torch.diag(box_diag.reshape(3)).double()
+    _, e_oracle = lj_dense_oracle(c0.x[:, :N].T.double(), box33, sig, eps,
+                                  cut)
+    e_rel_oracle = abs(float(E5) - float(e_oracle)) / abs(float(e_oracle))
+    _require(err < 0.05 and p99 < 1e-5, f"K5 force err {err}, p99 {p99}")
+    _require(e_rel < 1e-5 and e_rel_oracle < 1e-5,
+             f"K5 energy rel err {e_rel} (plain), {e_rel_oracle} (oracle)")
+    # K3's final_energy step: approximate force, K5's energy, bit for bit
+    F_mix, E_mix = cforce(True, True)
+    _require(torch.equal(F_mix, Fa), "exact-energy step force != approx pass")
+    _require(torch.equal(E_mix, E5), "exact-energy step energy != K5 energy")
+    ms = _cuda_ms(k5)
+    mix_ms = _cuda_ms(lambda: cforce(True, True))
+    plain_ms = _cuda_ms(lambda: lc.row_force_pass_plain(
+        c0.x, box_diag, pairs, N, md.tm, md.tn, sig, eps, cut,
+        with_energy=True), reps=5)
+    print(f"  culled_force_energy p99 rel err {p99:.3e} (tolerance 1e-5), "
+          f"energy rel {e_rel:.3e} to plain and {e_rel_oracle:.3e} to the "
+          f"f64 oracle (1e-5); exact-energy step: force equal to the approx "
+          f"pass and energy equal to K5, bit for bit ({mix_ms:.4f} ms)")
+    _report("culled_force_energy (K5 vs plain, max abs tol 0.05)", err, 0.05,
+            ms, plain_ms)
+    bound_ms, bound_by = _bound(
+        listed * TEST_FLOPS["culled"] + in_cut * (LJ_FLOPS + ENERGY_FLOPS),
+        2 * lane_bytes + list_bytes + 4)
+    print(f"    pairs: {listed} distance tests on the list, {in_cut} within "
+          f"the cutoff; bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    results["culled_force_energy"] = dict(
+        source="chiron_tpu_torch/csrc/lj_cull_force.cu",
+        replaces="chiron_tpu/ops/lj_cull.py:766", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
     # K3's BAOAB phase, in place on copies of the carry
     w0 = c0.v - (0.5 * md.dt) * c0.F * md.minv
@@ -206,13 +338,18 @@ def main():
         md.b))
     print(f"  baoab position err {ex:.3e} (tolerance 1e-5)")
     _report("baoab (velocity vs plain, tol 1e-4)", ew, 1e-4, ms, plain_ms)
+    # reads x, w, F, 1/m, sigma_v, box, step; writes x, w, F
+    bound_ms, bound_by = _bound(3 * n_pad * LANE_FLOPS["baoab"],
+                                6 * lane_bytes + 2 * n_pad * 4 + 16)
     results["baoab"] = dict(
         source="chiron_tpu_torch/csrc/baoab.cu",
         replaces="chiron_tpu/ops/lj_cull.py:984", max_abs_err=max(ex, ew),
-        ms=ms, plain_ms=plain_ms)
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
-    # K3's drift latch: a real segment, a forced trip and a NaN
+    # K3's drift latch: a real segment, a forced trip and a NaN, against
+    # the engine's slack on the device, as the NVT segment passes it
     c1 = runner.segment_fn(SEGMENT)(c0)
+    slack_t = md.slack_t
     x_end, anchor = c1.x, c1.x_anchor
     tripped = anchor.clone()
     tripped[0, 10] += 0.6 * SLACK
@@ -222,21 +359,37 @@ def main():
     flags = []
     for xx, aa, expect in ((x_end, anchor, None), (x_end, tripped, True),
                            (poisoned, anchor, True)):
-        fk = bool(lc.tile_skin_drift_bad(xx, aa, N, SLACK, box_diag))
-        fp = bool(lc.tile_skin_drift_bad_plain(xx, aa, N, SLACK, box_diag))
+        fk = bool(lc.tile_skin_drift_bad(xx, aa, N, slack_t, box_diag))
+        fp = bool(lc.tile_skin_drift_bad_plain(xx, aa, N, slack_t, box_diag))
         _require(fk == fp and (expect is None or fk == expect),
                  f"drift latch kernel {fk}, plain {fp}, expected {expect}")
         flags.append(fk)
-    ms = _cuda_ms(lambda: lc.tile_skin_drift_bad(x_end, anchor, N, SLACK,
+    ms = _cuda_ms(lambda: lc.tile_skin_drift_bad(x_end, anchor, N, slack_t,
                                                  box_diag))
     plain_ms = _cuda_ms(lambda: lc.tile_skin_drift_bad_plain(
-        x_end, anchor, N, SLACK, box_diag))
-    _report(f"tile_skin_drift (flags {flags} equal to plain)", 0.0, "equal",
-            ms, plain_ms)
+        x_end, anchor, N, slack_t, box_diag))
+    # the NpT mode: the threshold is a budget on the device, set on either
+    # side of the measured top-2 drift (1e-3 apart: the card fuses the
+    # squares into FMAs, so its drift may differ from the plain one by an
+    # ulp), and a NaN
+    top2 = float(lc.skin_drift_top2_plain(x_end, anchor, N, box_diag))
+    for xx, scale, expect in ((x_end, 0.999, True), (x_end, 1.001, False),
+                              (poisoned, 1.001, True)):
+        budget = torch.tensor(top2 * scale, device=dev)
+        fk = bool(lc.tile_skin_drift_bad(xx, anchor, N, budget, box_diag))
+        fp = bool(lc.tile_skin_drift_bad_plain(xx, anchor, N, budget,
+                                               box_diag))
+        _require(fk == fp == expect,
+                 f"budgeted latch kernel {fk}, plain {fp}, expected {expect}")
+        flags.append(fk)
+    _report(f"tile_skin_drift (flags {flags} equal to plain; top-2 drift "
+            f"{top2:.6f} nm)", 0.0, "equal", ms, plain_ms)
+    bound_ms, bound_by = _bound(n_pad * LANE_FLOPS["tile_skin_drift"],
+                                2 * lane_bytes + 20)
     results["tile_skin_drift"] = dict(
         source="chiron_tpu_torch/csrc/drift.cu",
         replaces="chiron_tpu/ops/lj_cull.py:984", max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms)
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
     # ---- 4. determinism ----
     seg = runner.segment_fn(SEGMENT)
@@ -244,9 +397,23 @@ def main():
     for name in ("x", "v", "F", "overflowed"):
         _require(torch.equal(getattr(a, name), getattr(b, name)),
                  f"repeated segment differs in {name}")
-    print("[4] a repeated culled segment is bitwise identical")
+    npt_common = dict(common, pressure=P_ATM * units.atmosphere)
+    npt = make_culled_npt_lj_runner(
+        slack=NPT_SLACK, segment_steps=NPT_SEGMENT,
+        barostat_interval=NPT_INTERVAL, **npt_common)
+    n0 = npt.init(fast.positions(fs), box, seed=7)
+    gen_state = n0.generator.get_state()
+    a = npt.segment(n0)
+    n0.generator.set_state(gen_state)
+    b = npt.segment(n0)
+    for name in ("x", "v", "F", "U", "box_diag", "overflowed", "n_accepted",
+                 "vmax_scale", "eval_peak"):
+        _require(torch.equal(getattr(a, name), getattr(b, name)),
+                 f"repeated NpT segment differs in {name}")
+    print("[4] a repeated culled segment, and a repeated NpT segment with its "
+          "generator restored, are bitwise identical")
 
-    # ---- 5. the main path, counted ----
+    # ---- 5. the NVT main path, counted ----
     _build.reset_launch_counts()
     fast = make_fast_lj_runner(**common)
     fs = fast.init(pos0, box, seed=SEED)
@@ -263,9 +430,9 @@ def main():
     st = runner.run(st, CULLED_STEPS)
     torch.cuda.synchronize()
     culled_rate = CULLED_STEPS / (time.perf_counter() - t0)
+    nvt_counts = dict(_build.launches)
     runner.check(st)
     energy = float(runner.energy(st))
-    counts = dict(_build.launches)
 
     _require(math.isfinite(energy), f"energy {energy}")
     pos = runner.positions(st).double()
@@ -273,20 +440,85 @@ def main():
                              sig, eps, cut)
     e_rel = abs(energy - float(e64)) / abs(float(e64))
     _require(e_rel < 1e-5, f"energy rel err vs f64 oracle {e_rel}")
-    v = runner.velocities(st).double()
     m = float(fluid.topology.masses()[0])
-    t_kin = m * float((v * v).sum()) / (3 * N * units.kB_MD)
-    _require(abs(t_kin - T_KELVIN) / T_KELVIN < 0.05, f"T_kin {t_kin}")
-    for name in results:
-        _require(counts.get(name, 0) > 0, f"kernel {name} never launched")
-    print(f"[5] main path: check() passed, energy {energy:.6f} kJ/mol "
-          f"(f64 oracle rel err {e_rel:.2e}), T_kin {t_kin:.3f} K, "
-          f"launches {counts}")
-    print(f"    dense {dense_rate:.1f} steps/s, culled {culled_rate:.1f} "
-          f"steps/s (N=4000, {smi})")
 
-    kernels = [dict(name=name, route="cuda", launches=counts[name], **r)
-               for name, r in results.items()]
+    def t_kin(v):
+        v = v.double()
+        return m * float((v * v).sum()) / (3 * N * units.kB_MD)
+
+    t5 = t_kin(runner.velocities(st))
+    _require(abs(t5 - T_KELVIN) / T_KELVIN < 0.05, f"T_kin {t5}")
+    for name in ("lj_dense", "culled_force", "baoab", "tile_skin_drift"):
+        _require(nvt_counts.get(name, 0) > 0, f"kernel {name} never launched")
+    print(f"[5] NVT main path: check() passed, energy {energy:.6f} kJ/mol "
+          f"(f64 oracle rel err {e_rel:.2e}), T_kin {t5:.3f} K, "
+          f"launches {nvt_counts}")
+    print(f"    dense {dense_rate:.1f} steps/s, culled {culled_rate:.1f} "
+          f"steps/s (N={N}, {smi})")
+
+    # ---- 6. the NpT path, counted: the flagship point at full width ----
+    melt = runner.positions(st)
+    _build.reset_launch_counts()
+    npt = make_culled_npt_lj_runner(
+        slack=NPT_SLACK, segment_steps=NPT_SEGMENT,
+        barostat_interval=NPT_INTERVAL, **npt_common)
+    ns = npt.init(melt, box, seed=SEED)
+    V0 = float(npt.volume(ns))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ns = npt.run(ns, NPT_STEPS)
+    torch.cuda.synchronize()
+    npt_rate = NPT_STEPS / (time.perf_counter() - t0)
+    dnpt = make_npt_lj_runner(barostat_interval=NPT_INTERVAL, **npt_common)
+    ds = dnpt.init(melt, box, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = dnpt.run(ds, DENSE_NPT_STEPS)
+    torch.cuda.synchronize()
+    dense_npt_rate = DENSE_NPT_STEPS / (time.perf_counter() - t0)
+    npt_counts = dict(_build.launches)
+
+    npt.check(ns)
+    dnpt.check(ds)
+    n_prop, n_acc = int(ns.n_proposed), int(ns.n_accepted)
+    _require(n_prop == NPT_STEPS // NPT_INTERVAL and 0 < n_acc < n_prop,
+             f"culled NpT attempts {n_prop}, accepted {n_acc}")
+    _require(int(ds.n_proposed) == DENSE_NPT_STEPS // NPT_INTERVAL,
+             f"dense NpT attempts {int(ds.n_proposed)}")
+    V = float(npt.volume(ns))
+    _require(math.isfinite(V) and V != V0, f"volume {V} (start {V0})")
+    U_carried = float(ns.U)
+    U_k5 = float(npt.energy(ns))
+    u_rel = abs(U_carried - U_k5) / abs(U_k5)
+    _require(u_rel <= 1e-6, f"carried U {U_carried} vs fresh K5 {U_k5}")
+    box33 = torch.diag(ns.box_diag.reshape(3)).double()
+    _, e64 = lj_dense_oracle(npt.positions(ns).double(), box33, sig, eps, cut)
+    e_rel = abs(U_k5 - float(e64)) / abs(float(e64))
+    _require(e_rel < 1e-5, f"NpT K5 energy rel err vs f64 oracle {e_rel}")
+    t6 = t_kin(npt.velocities(ns))
+    _require(abs(t6 - T_KELVIN) / T_KELVIN < 0.05, f"NpT T_kin {t6}")
+    for name in results:
+        _require(npt_counts.get(name, 0) > 0,
+                 f"kernel {name} never launched on the NpT path")
+    print(f"[6] NpT ({P_ATM:g} atm, {T_KELVIN:g} K, attempt every "
+          f"{NPT_INTERVAL} steps, S={NPT_SEGMENT}, slack {NPT_SLACK}): "
+          f"check() passed; culled: {n_acc}/{n_prop} accepted "
+          f"({n_acc / n_prop:.3f}), V {V0:.4f} -> {V:.4f} nm^3, carried U "
+          f"{U_carried:.6f} vs K5 {U_k5:.6f} (rel {u_rel:.2e}), K5 vs f64 "
+          f"oracle rel {e_rel:.2e}, T_kin {t6:.3f} K; dense: "
+          f"{int(ds.n_accepted)}/{int(ds.n_proposed)} accepted, V "
+          f"{float(dnpt.volume(ds)):.4f} nm^3; launches {npt_counts}")
+    print(f"    culled NpT {npt_rate:.1f} steps/s, dense NpT "
+          f"{dense_npt_rate:.1f} steps/s (N={N}, {smi})")
+
+    kernels = [dict(
+        name=name, route="cuda", source=r["source"], replaces=r["replaces"],
+        launches=npt_counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        launches_by_path={"nvt": nvt_counts.get(name, 0),
+                          "npt": npt_counts[name]},
+    ) for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 The JAX package ``chiron_tpu`` is the reference; this package mirrors its
 file layout (each module here has one counterpart there) and runs its main
-path -- the LJ-fluid NVT workload of ``bench.py`` -- on an NVIDIA Hopper
-card through hand-written CUDA kernels (``csrc/``, built on first use by
-``ops/_build.py``).  Every kernel wrapper runs its plain PyTorch version for
+path -- the LJ-fluid NVT workload of ``bench.py`` -- and NpT on an NVIDIA
+Hopper card through hand-written CUDA kernels (``csrc/``, built on first use
+by ``ops/_build.py``).  Every kernel wrapper runs its plain PyTorch version for
 a tensor on the CPU, which is how the CPU tests compare the two packages.
 
 This package imports ``torch`` and numpy only, never jax or ``chiron_tpu``.

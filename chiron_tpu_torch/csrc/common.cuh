@@ -19,16 +19,20 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return y;
 }
 
-// The LJ engines' reciprocal: the fast seed, or the seed refined by two
-// Newton steps (the JAX kernels' f32-exact scheme, lj_dense.py:66-75 and
-// lj_cull.py:425-437).
+// Two Newton steps on a reciprocal seed of x (the JAX kernels' f32-exact
+// scheme, lj_dense.py:66-75 and lj_cull.py:425-437).  Written with explicit
+// rounding intrinsics so that every caller gets the same instructions and
+// the same bits, whatever the compiler would contract around it.
+__device__ __forceinline__ float lj_newton2(float x, float inv) {
+  inv = __fmul_rn(inv, __fmaf_rn(-x, inv, 2.0f));
+  return __fmul_rn(inv, __fmaf_rn(-x, inv, 2.0f));
+}
+
+// The LJ engines' reciprocal: the fast seed, or the seed refined by
+// lj_newton2.
 __device__ __forceinline__ float lj_recip(float x, bool approx) {
-  float inv = rcp_approx(x);
-  if (!approx) {
-    inv = inv * (2.0f - x * inv);
-    inv = inv * (2.0f - x * inv);
-  }
-  return inv;
+  const float inv = rcp_approx(x);
+  return approx ? inv : lj_newton2(x, inv);
 }
 
 // One compensated (Kahan) accumulation step (lj_dense.py:108-119).

@@ -4,14 +4,18 @@
 // the final grid step of _make_md_kernel (pallas_call at :984).  Over the
 // live lanes (lane < n) it takes the minimum-image drift d from the segment
 // anchor, the largest m1 and the second largest m2 (when two lanes tie at
-// m1, the second is m1), and latches when m1 + m2 > slack or any live
-// coordinate is not finite (|x| < 3e38 fails for NaN too).
+// m1, the second is m1), and latches when m1 + m2 > threshold or any live
+// coordinate is not finite (|x| < 3e38 fails for NaN too).  The threshold
+// is read on the device: the slack in NVT, the remaining budget
+// slack - eval_peak in NpT (the anchor3/budget mode, :804-816 and
+// :884-893), so no sub-segment waits for the host.
 //
-// Bound: two passes over 2 x (3, n_pad) floats; launch latency dominates.
-// One block of kThreads strides over the lanes; the max and the tie count
-// are reduced in shared memory, and both are independent of the order, so
-// the flag is deterministic.  Padding lanes count with
-// d = 0, as in the JAX kernel.
+// Bound: two passes over 2 x (3, n_pad) floats, well under 0.1 us of
+// memory time.  One block of kThreads strides over the lanes twice and
+// reduces the max and the tie count in shared memory, so the time is that
+// one block's serial passes and tree reductions, not the bytes.  Both
+// reductions are independent of the order, so the flag is deterministic.
+// Padding lanes count with d = 0, as in the JAX kernel.
 #include "common.cuh"
 
 namespace {
@@ -34,8 +38,8 @@ __device__ __forceinline__ float lane_drift(const float* x, const float* anchor,
 
 __global__ void __launch_bounds__(kThreads)
 tile_skin_drift(const float* __restrict__ x, const float* __restrict__ anchor,
-                const float* __restrict__ box, int n, int n_pad, float slack,
-                float* __restrict__ flag) {
+                const float* __restrict__ box, int n, int n_pad,
+                const float* __restrict__ threshold, bool* __restrict__ flag) {
   __shared__ float smax[kThreads];
   __shared__ int sint[kThreads];
   const int tid = threadIdx.x;
@@ -87,18 +91,19 @@ tile_skin_drift(const float* __restrict__ x, const float* __restrict__ anchor,
   }
   if (tid == 0) {
     const float second = sint[0] > 1 ? m1 : fmaxf(smax[0], 0.0f);
-    const bool bad = (m1 + second > slack) || !all_finite;
-    flag[0] = bad ? 1.0f : 0.0f;
+    flag[0] = (m1 + second > threshold[0]) || !all_finite;
   }
 }
 
 }  // namespace
 
-// x, anchor: (3, n_pad) f32; box: (3,) f32; flag: (1,) f32 (1 = latched).
+// x, anchor: (3, n_pad) f32; box: (3,) f32; threshold: (1,) f32; flag:
+// (1,) bool (true = latched).
 CHIRON_EXPORT int chiron_drift(const float* x, const float* anchor,
-                               const float* box, int n, int n_pad, float slack,
-                               float* flag, void* stream) {
+                               const float* box, int n, int n_pad,
+                               const float* threshold, bool* flag,
+                               void* stream) {
   tile_skin_drift<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, anchor, box, n, n_pad, slack, flag);
+      x, anchor, box, n, n_pad, threshold, flag);
   return static_cast<int>(cudaGetLastError());
 }

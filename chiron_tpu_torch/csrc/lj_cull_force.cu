@@ -24,11 +24,18 @@
 //      own, in slot order.
 // Every sum has one order, so a repeated call is bitwise identical.
 //
-// Bound: pair arithmetic (about 35 f32 operations a pair over
-// count x tm x tn pairs).  Splitting each row tile's entries over S blocks
+// Bound: pair arithmetic.  The function needs the distance test on each of
+// the count x tm x tn listed pairs and the LJ term only on the few within
+// the cutoff; this kernel runs without branches, so it takes the LJ term
+// on every listed pair.  Splitting each row tile's entries over S blocks
 // gives the grid nr x S blocks, enough to occupy the card at nr = 32.
-// The energy flag accumulates (i6-1) i6 over the same pairs into one
-// partial per block, summed in order by cull_gather (the later K5 surface).
+// The energy instantiation accumulates (i6-1) i6 over the same pairs into
+// one partial per block, summed in order by cull_gather, always with the
+// exact reciprocal (two Newton steps on the rcp.approx seed, lj_newton2).
+// With approx = 0 this is K5 (culled_force_energy_raw, pallas_call at
+// :766); with approx = 1 it is K3's final_energy step (:845-870), whose
+// force keeps the fast seed.  Both sum the same bits in the same order, so
+// that step's energy equals a K5 pass on the same list bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -55,7 +62,9 @@ struct Params {
   int approx;
 };
 
-template <int RPT>
+// kEnergy instantiates the energy sum; the force-only pass carries none of
+// its code (a runtime flag in the pair loop cost the force-only pass 7%).
+template <int RPT, bool kEnergy>
 __global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
   extern __shared__ float smem[];
   const int tn = p.tn, tm = p.tm, n_pad = p.n_pad;
@@ -86,8 +95,7 @@ __global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
     zi[u] = p.x[2 * n_pad + r] * inv_sigma;
     fx[u] = fy[u] = fz[u] = 0.0f;
   }
-  float ea = 0.0f;
-  const bool with_energy = p.energy != nullptr;
+  [[maybe_unused]] float ea = 0.0f;
   const int g0 = p.ptr2[2 * i], g1 = p.ptr2[2 * i + 1], g2 = p.ptr2[2 * i + 2];
 
   for (int k = g0 + split; k < g2; k += n_split) {
@@ -120,7 +128,8 @@ __global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
           m = m && (cid > rid[u]) && (cid < p.n);
           r2s = fmaxf(r2, 1e-4f);
         }
-        const float inv = lj_recip(r2s, p.approx != 0);
+        const float seed = rcp_approx(r2s);
+        const float inv = p.approx != 0 ? seed : lj_newton2(r2s, seed);
         const float i6 = inv * inv * inv;
         const float coef = m ? (i6 - 0.5f) * i6 * inv : 0.0f;
         const float tx = coef * dx, ty = coef * dy, tz = coef * dz;
@@ -130,7 +139,12 @@ __global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
         cx_sum += tx;
         cy_sum += ty;
         cz_sum += tz;
-        if (with_energy) ea += m ? (i6 - 1.0f) * i6 : 0.0f;
+        if constexpr (kEnergy) {
+          const float inv_e = p.approx != 0 ? lj_newton2(r2s, seed) : inv;
+          const float i6e = __fmul_rn(__fmul_rn(inv_e, inv_e), inv_e);
+          // pinned rounding: K5 and the final_energy step sum equal bits
+          ea = __fadd_rn(ea, m ? __fmul_rn(__fsub_rn(i6e, 1.0f), i6e) : 0.0f);
+        }
       }
       red[(rg * 3 + 0) * tn + t] = cx_sum;
       red[(rg * 3 + 1) * tn + t] = cy_sum;
@@ -165,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
       p.P[(static_cast<size_t>(split) * 3 + a) * n_pad + row0 + r] = s;
     }
   }
-  if (with_energy) {
+  if constexpr (kEnergy) {
     __syncthreads();
     red[tid] = ea;
     __syncthreads();
@@ -206,15 +220,23 @@ __global__ void cull_gather(Params p, int n_split, int n_parts) {
   }
 }
 
+template <int RPT, bool kEnergy>
+cudaError_t launch_rows_mode(const Params& p, int nr, int n_split,
+                             size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cull_rows<RPT, kEnergy>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cull_rows<RPT, kEnergy><<<dim3(nr, n_split), kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 template <int RPT>
 cudaError_t launch_rows(const Params& p, int nr, int n_split, size_t smem,
                         cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cull_rows<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cull_rows<RPT><<<dim3(nr, n_split), kThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  return p.energy != nullptr
+             ? launch_rows_mode<RPT, true>(p, nr, n_split, smem, s)
+             : launch_rows_mode<RPT, false>(p, nr, n_split, smem, s);
 }
 
 }  // namespace
@@ -223,6 +245,7 @@ cudaError_t launch_rows(const Params& p, int nr, int n_split, size_t smem,
 // (2 nr + 1,) i32; rowcx: (nr,) f32; count: (1,) i32; P: (n_split, 3, n_pad)
 // f32; R: (capacity, 3, tn) f32; e_part: (nr * n_split,) f32; energy: (1,)
 // f32 or null.  tm must be 16, 32, 64 or 128 and tn a multiple of 16.
+// approx sets the force's reciprocal; the energy's is always exact.
 CHIRON_EXPORT int chiron_cull_force(
     const float* x, const float* box, const int* cols, const float* ccx,
     const int* ptr2, const float* rowcx, const int* count, float* P, float* R,

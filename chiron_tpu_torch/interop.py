@@ -16,12 +16,24 @@ from .integrators import LangevinCarry
 from .ops.lj_cull import TilePairList
 from .ops.lj_dense import box_diagonal
 from .potential import LJPotential
-from .runtime import CullCarry
+from .runtime import CullCarry, CullNPTCarry, NPTCarry
 from .topology import Topology
 
 
 def _t(a, dtype, device):
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def _f32(a, device):
+    return _t(a, np.float32, device).reshape(())
+
+
+def _i32(a, device):
+    return _t(a, np.int32, device).reshape(())
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def lj_system(sigma: float, epsilon: float, cutoff: float, masses):
@@ -44,7 +56,7 @@ def langevin_carry(x, v, F, box, device, seed: int = 0) -> LangevinCarry:
         x=_t(x, np.float32, device), v=_t(v, np.float32, device),
         F=_t(F, np.float32, device), box_vectors=box_diagonal(box, device),
         overflowed=torch.zeros((), dtype=torch.bool, device=device),
-        generator=torch.Generator(device=device).manual_seed(seed),
+        generator=_generator(device, seed),
     )
 
 
@@ -73,4 +85,43 @@ def cull_carry(x, v, F, step, box, overflowed, pairs: dict, x_anchor,
         overflowed=_t(overflowed, np.bool_, device).reshape(()),
         pairs=tile_pair_list(device=device, **pairs),
         x_anchor=_t(x_anchor, np.float32, device),
+    )
+
+
+def cull_npt_carry(x, v, F, U, step, box, overflowed, pairs: dict, x_anchor,
+                   scale_used, eval_peak, s_total, s_min_frame, vmax_scale,
+                   n_accepted, n_proposed, device,
+                   seed: int = 0) -> CullNPTCarry:
+    """A ``CullNPTCarry`` from arrays in the JAX carry's layout; ``seed``
+    seeds the generator that takes the place of the JAX key."""
+    return CullNPTCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device), U=_f32(U, device),
+        step=_t(step, np.int32, device).reshape(1, 1),
+        box_diag=box_diagonal(box, device),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
+        pairs=tile_pair_list(device=device, **pairs),
+        x_anchor=_t(x_anchor, np.float32, device),
+        scale_used=_f32(scale_used, device),
+        eval_peak=_f32(eval_peak, device), s_total=_f32(s_total, device),
+        s_min_frame=_f32(s_min_frame, device),
+        generator=_generator(device, seed),
+        vmax_scale=_f32(vmax_scale, device),
+        n_accepted=_i32(n_accepted, device),
+        n_proposed=_i32(n_proposed, device),
+    )
+
+
+def npt_carry(x, v, F, U, box, vmax_scale, n_accepted, n_proposed, step,
+              device, seed: int = 0) -> NPTCarry:
+    """An ``NPTCarry`` (dense NpT runner) from arrays in the JAX layout."""
+    return NPTCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device),
+        U=_f32(U, device), generator=_generator(device, seed),
+        box_diag=box_diagonal(box, device),
+        vmax_scale=_f32(vmax_scale, device),
+        n_accepted=_i32(n_accepted, device),
+        n_proposed=_i32(n_proposed, device),
+        step=int(step),
     )

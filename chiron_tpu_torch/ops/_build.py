@@ -44,7 +44,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _F, _F, _F, _F, _P),
-    "chiron_drift": (_P, _P, _P, _I, _I, _F, _P, _P),
+    "chiron_drift": (_P, _P, _P, _I, _I, _P, _P, _P),
 }
 
 

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import _build
+from .diff import energy_with_force_gradient
 
 _TWO_PI = 6.2831853071795864
 _MASK32 = 0xFFFFFFFF
@@ -60,8 +61,7 @@ def slab_y_key(pos3, n: int, nslab: int, L, Ly=None):
         slab = torch.clamp(torch.floor(pos3[0] / slab_w), 0, nslab - 1)
         key = slab * (2.0 * Ly) + pos3[1]
     live = torch.arange(n_pad, device=pos3.device) < n
-    return torch.where(live, key, torch.tensor(3.0e38, dtype=key.dtype,
-                                               device=key.device))
+    return torch.where(live, key, 3.0e38)
 
 
 def sort_by_key(key, pos3, payloads: Tuple[torch.Tensor, ...]):
@@ -106,19 +106,19 @@ class TilePairList(NamedTuple):
     overflowed: torch.Tensor  # () bool: capacity exceeded or shift bound broken
 
 
-def build_tile_pairs(pos3, n: int, tm: int, tn: int, box_diag, cutoff: float,
-                     slack: float, capacity: int) -> TilePairList:
-    """Build the tile-pair list from current positions (``lj_cull.py:144``).
+class _TileGeometry(NamedTuple):
+    keep: torch.Tensor   # (nr, nc) bool: the rectangles the list holds
+    hsum: torch.Tensor   # (3, nr, nc) summed bbox half-widths
+    rcen: torch.Tensor   # (3, nr) row tile centers
+    ccen: torch.Tensor   # (3, nc) col tile centers
 
-    Keeps the (row tile, col tile) rectangles whose bbox min-image distance
-    is under cutoff + slack and that can hold a pair with col rank > row
-    rank.  The ordered placement is a scatter into capacity + 1 slots, the
-    last of which takes the dropped entries and is cut off; it gives the
-    arrays the JAX package's one-hot placement gives.
-    """
+
+def _tile_geometry(pos3, n: int, tm: int, tn: int, box_diag, reach: float):
+    """The kept-rectangle selection shared by ``build_tile_pairs`` and
+    ``tile_frame_scale_floor``: rectangles whose bbox min-image distance is
+    under ``reach`` and that can hold a pair with col rank > row rank."""
     dev = pos3.device
     n_pad = pos3.shape[1]
-    box_diag = box_diag.reshape(3)
     pad_mask = torch.arange(n_pad, device=dev) < n
     pos3 = torch.where(pad_mask, pos3, pos3[:, n - 1:n])
     nr, nc = n_pad // tm, n_pad // tn
@@ -130,12 +130,30 @@ def build_tile_pairs(pos3, n: int, tm: int, tn: int, box_diag, cutoff: float,
     hsum = rhal[:, :, None] + chal[:, None, :]
     dmin = torch.clamp_min(torch.abs(dc) - hsum, 0.0)
     d2 = dmin * dmin
-    reach = cutoff + slack
     near = (d2[0] + d2[1] + d2[2]) < reach * reach
     ri = torch.arange(nr, device=dev)[:, None]
     ci = torch.arange(nc, device=dev)[None, :]
     useful = (ci * tn + (tn - 1) > ri * tm) & (ri * tm < n) & (ci * tn < n)
-    keep = near & useful
+    return _TileGeometry(near & useful, hsum, rcen, ccen)
+
+
+def build_tile_pairs(pos3, n: int, tm: int, tn: int, box_diag, cutoff: float,
+                     slack: float, capacity: int) -> TilePairList:
+    """Build the tile-pair list from current positions (``lj_cull.py:144``).
+
+    Keeps the rectangles of ``_tile_geometry`` at reach cutoff + slack.  The
+    ordered placement is a scatter into capacity + 1 slots, the last of
+    which takes the dropped entries and is cut off; it gives the arrays the
+    JAX package's one-hot placement gives.
+    """
+    dev = pos3.device
+    n_pad = pos3.shape[1]
+    box_diag = box_diag.reshape(3)
+    nr, nc = n_pad // tm, n_pad // tn
+    keep, hsum, rcen, ccen = _tile_geometry(pos3, n, tm, tn, box_diag,
+                                            cutoff + slack)
+    ri = torch.arange(nr, device=dev)[:, None]
+    ci = torch.arange(nc, device=dev)[None, :]
     dcx_raw = rcen[0][:, None] - ccen[0][None, :]
     Lx = box_diag[0]
     ccx_sh = ccen[0][None, :] + torch.round(dcx_raw / Lx) * Lx
@@ -178,8 +196,27 @@ def build_tile_pairs(pos3, n: int, tm: int, tn: int, box_diag, cutoff: float,
     )
 
 
+def tile_frame_scale_floor(pos3, n: int, tm: int, tn: int, box_diag,
+                           cutoff: float, slack: float):
+    """The least cumulative isotropic box scale the current layout's
+    constant-x-frame convention admits (``lj_cull.py:265``): () f32.
+
+    Under a rescale by ``s`` the build's bound ``hsum_x <= 0.5 Lx - reach``
+    becomes ``s hsum_x <= 0.5 s Lx - reach``, so ``s >= reach / (0.5 Lx -
+    hx_max)`` over the kept rectangles; ``+inf`` where the layout is
+    already frame-invalid (``0.5 Lx - hx_max <= 0``), which rejects every
+    shrink.  The NpT runner computes it at each rebuild.
+    """
+    box_diag = box_diag.reshape(3)
+    reach = cutoff + slack
+    keep, hsum, _, _ = _tile_geometry(pos3, n, tm, tn, box_diag, reach)
+    hx_max = torch.max(torch.where(keep, hsum[0], 0.0))
+    denom = 0.5 * box_diag[0] - hx_max
+    return torch.where(denom > 0.0, reach / denom, math.inf)
+
+
 # ---------------------------------------------------------------------------
-# Force pass (K4, and K3's force phase)
+# Force pass (K4, K5, and K3's force phase)
 # ---------------------------------------------------------------------------
 
 
@@ -250,18 +287,11 @@ def row_force_pass_plain(x3, box_diag, pairs: TilePairList, n: int, tm: int,
     return F, (4.0 * epsilon) * torch.sum(e, dtype=torch.float64).to(x3.dtype)
 
 
-def culled_force_pass(x3, box_diag, pairs: TilePairList, n: int, tm: int,
-                      tn: int, sigma: float, epsilon: float, cutoff: float,
-                      approx_recip: bool = True, with_energy: bool = False):
-    """Culled LJ force of wrapped positions ``x3`` over the tile-pair list.
-
-    Returns ((3, n_pad) force, energy or None).  On a CUDA tensor this
-    launches ``csrc/lj_cull_force.cu``; ``with_energy`` also sums the total
-    truncated-LJ energy of the listed pairs.
-    """
-    if x3.device.type == "cpu":
-        return row_force_pass_plain(x3, box_diag, pairs, n, tm, tn, sigma,
-                                    epsilon, cutoff, with_energy)
+def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
+                       tm: int, tn: int, sigma: float, epsilon: float,
+                       cutoff: float, approx_recip: bool, with_energy: bool):
+    """Check the inputs and launch ``csrc/lj_cull_force.cu``, counted under
+    ``kernel``.  Returns ((3, n_pad) force, () energy or None)."""
     _build.check_cuda(x3, "x3")
     dev = x3.device
     n_pad = x3.shape[1]
@@ -292,7 +322,7 @@ def culled_force_pass(x3, box_diag, pairs: TilePairList, n: int, tm: int,
     energy = torch.empty(1, **f32) if with_energy else None
     inv_sigma = 1.0 / sigma
     _build.launch(
-        "culled_force", "chiron_cull_force",
+        kernel, "chiron_cull_force",
         x3.data_ptr(), box_diag.data_ptr(), pairs.cols.data_ptr(),
         pairs.ccx.data_ptr(), pairs.ptr2.data_ptr(), pairs.rowcx.data_ptr(),
         pairs.count.data_ptr(), P.data_ptr(), R.data_ptr(), e_part.data_ptr(),
@@ -302,6 +332,43 @@ def culled_force_pass(x3, box_diag, pairs: TilePairList, n: int, tm: int,
         int(approx_recip), _build.stream_of(x3),
     )
     return F, (energy[0] if with_energy else None)
+
+
+def culled_force_pass(x3, box_diag, pairs: TilePairList, n: int, tm: int,
+                      tn: int, sigma: float, epsilon: float, cutoff: float,
+                      approx_recip: bool = True, with_energy: bool = False):
+    """Culled LJ force of wrapped positions ``x3`` over the tile-pair list
+    (K4, and K3's force phase).
+
+    Returns ((3, n_pad) force, energy or None).  On a CUDA tensor this
+    launches ``csrc/lj_cull_force.cu``; ``with_energy`` (K3's
+    ``final_energy`` step) also sums the total truncated-LJ energy of the
+    listed pairs, always with the exact reciprocal, while the force takes
+    ``approx_recip``'s: that energy equals ``culled_force_energy``'s bit for
+    bit.
+    """
+    if x3.device.type == "cpu":
+        return row_force_pass_plain(x3, box_diag, pairs, n, tm, tn, sigma,
+                                    epsilon, cutoff, with_energy)
+    return _cull_force_launch("culled_force", x3, box_diag, pairs, n, tm, tn,
+                              sigma, epsilon, cutoff, approx_recip,
+                              with_energy)
+
+
+def culled_force_energy(x3, box_diag, pairs: TilePairList, n: int, tm: int,
+                        tn: int, sigma: float, epsilon: float, cutoff: float):
+    """K5 (``culled_force_energy_raw``): culled force and () total
+    truncated-LJ energy in one pass, with the exact reciprocal.
+
+    On a CUDA tensor this launches ``csrc/lj_cull_force.cu`` with the
+    energy flag, counted as ``culled_force_energy``; on a CPU tensor it
+    runs ``row_force_pass_plain(with_energy=True)``.
+    """
+    if x3.device.type == "cpu":
+        return row_force_pass_plain(x3, box_diag, pairs, n, tm, tn, sigma,
+                                    epsilon, cutoff, with_energy=True)
+    return _cull_force_launch("culled_force_energy", x3, box_diag, pairs, n,
+                              tm, tn, sigma, epsilon, cutoff, False, True)
 
 
 # ---------------------------------------------------------------------------
@@ -396,10 +463,9 @@ def baoab_phase_(x, w, F, minv, sigv, box_diag, seed: int, step_offset,
 # ---------------------------------------------------------------------------
 
 
-def tile_skin_drift_bad_plain(x, anchor, n: int, slack: float, box_diag):
-    """Plain version of the latch: () bool, True when the top-2 joint
-    min-image drift from ``anchor`` exceeds ``slack`` or a live coordinate
-    is not finite."""
+def skin_drift_top2_plain(x, anchor, n: int, box_diag):
+    """() f32 sum of the two largest min-image drifts of the live lanes from
+    ``anchor`` (two lanes tied at the largest count it twice)."""
     n_pad = x.shape[1]
     valid = torch.arange(n_pad, device=x.device) < n
     L = box_diag.reshape(3, 1)
@@ -408,34 +474,57 @@ def tile_skin_drift_bad_plain(x, anchor, n: int, slack: float, box_diag):
     d2 = dxa[0] * dxa[0]
     d2 = d2 + dxa[1] * dxa[1]
     d2 = d2 + dxa[2] * dxa[2]
-    finite_ok = torch.all(torch.abs(torch.where(valid, x, 0.0)) < 3.0e38)
     d = torch.sqrt(torch.where(valid, d2, 0.0))
     m1 = torch.max(d)
     others = torch.where(d == m1, -1.0, d)
     m2 = torch.clamp_min(torch.max(others), 0.0)
     tied = torch.sum(d == m1) > 1
-    top2 = m1 + torch.where(tied, m1, m2)
-    return (top2 > slack) | ~finite_ok
+    return m1 + torch.where(tied, m1, m2)
 
 
-def tile_skin_drift_bad(x, anchor, n: int, slack: float, box_diag):
-    """The drift latch: () bool tensor on the device of ``x``."""
+def live_nonfinite(x, n: int):
+    """() bool: some live coordinate (lane < n) is not finite."""
+    return ~torch.isfinite(x[:, :n]).all()
+
+
+def tile_skin_drift_bad_plain(x, anchor, n: int, threshold, box_diag):
+    """Plain version of the latch: () bool, True when the top-2 joint
+    min-image drift from ``anchor`` exceeds ``threshold`` (a float or a
+    0-dim tensor) or a live coordinate is not finite."""
+    n_pad = x.shape[1]
+    valid = torch.arange(n_pad, device=x.device) < n
+    finite_ok = torch.all(torch.abs(torch.where(valid, x, 0.0)) < 3.0e38)
+    top2 = skin_drift_top2_plain(x, anchor, n, box_diag)
+    return (top2 > threshold) | ~finite_ok
+
+
+def tile_skin_drift_bad(x, anchor, n: int, threshold, box_diag):
+    """The drift latch: () bool tensor on the device of ``x``.
+
+    ``threshold`` is a 0-dim f32 tensor on the device, read there by the
+    kernel: the engine's ``slack_t`` in NVT, the NpT runner's remaining
+    budget.  A float is put on the device first, one more launch.
+    """
     if x.device.type == "cpu":
-        return tile_skin_drift_bad_plain(x, anchor, n, slack, box_diag)
+        return tile_skin_drift_bad_plain(x, anchor, n, threshold, box_diag)
     _build.check_cuda(x, "x")
     n_pad = x.shape[1]
     _build.require(x, "x", (3, n_pad), torch.float32)
     _build.require(anchor, "anchor", (3, n_pad), torch.float32, x.device)
     _build.require(box_diag, "box_diag", None, torch.float32, x.device)
+    if not torch.is_tensor(threshold):
+        threshold = torch.full((), threshold, dtype=torch.float32,
+                               device=x.device)
+    _build.require(threshold, "threshold", (), torch.float32, x.device)
     if box_diag.numel() != 3:
         raise ValueError("drift: the box needs 3 lengths")
-    flag = torch.empty(1, dtype=torch.float32, device=x.device)
+    flag = torch.empty((), dtype=torch.bool, device=x.device)
     _build.launch(
         "tile_skin_drift", "chiron_drift",
         x.data_ptr(), anchor.data_ptr(), box_diag.data_ptr(), n, n_pad,
-        slack, flag.data_ptr(), _build.stream_of(x),
+        threshold.data_ptr(), flag.data_ptr(), _build.stream_of(x),
     )
-    return flag[0] > 0.5
+    return flag
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +539,7 @@ class CulledLJMD:
 
     def __init__(self, n, sigma, epsilon, cutoff, masses_lane, dt, gamma, kT,
                  tm: int = 128, tn: int = 128,
-                 slack: float = 0.2, n_pad: int = None, *, device):
+                 slack: float = 0.2, n_pad: int = None, *, device="cuda"):
         self.n = n
         self.sigma, self.epsilon, self.cutoff = (
             float(sigma), float(epsilon), float(cutoff)
@@ -476,6 +565,9 @@ class CulledLJMD:
         m = m.to(self.device)
         self.minv = 1.0 / m
         self.sigv = torch.sqrt(self.kT / m)
+        # the NVT latch threshold, on the device once for every segment
+        self.slack_t = torch.full((), self.slack, dtype=f32,
+                                  device=self.device)
 
     def build_pairs(self, pos3, box_diag, capacity: int) -> TilePairList:
         return build_tile_pairs(pos3, self.n, self.tm, self.tn, box_diag,
@@ -489,14 +581,37 @@ class CulledLJMD:
             self.epsilon, self.cutoff, approx_recip,
         )[0]
 
+    def force_energy(self, pos3, box_diag, pairs: TilePairList):
+        """Force and () total truncated-LJ energy of WRAPPED positions in
+        one culled pass (K5), with the exact reciprocal, since the energy
+        feeds the NpT runner's Metropolis ratios."""
+        return culled_force_energy(
+            pos3, box_diag, pairs, self.n, self.tm, self.tn, self.sigma,
+            self.epsilon, self.cutoff,
+        )
+
+    def energy_differentiable(self, pos3, box_diag, pairs: TilePairList):
+        """Total energy over the list as a differentiable function of
+        ``pos3``: its autograd gradient is exactly ``-force`` of one exact
+        K5 pass.  The list is constant data (no gradient into it)."""
+        return energy_with_force_gradient(
+            lambda p: self.force_energy(p, box_diag, pairs), pos3)
+
     def run_segment(self, x3, v3, f3, box_diag, pairs: TilePairList, seed: int,
                     step_offset, n_steps: int, approx_recip: bool = True,
-                    drift_slack: float = None):
+                    drift_slack: float = None, final_energy: bool = False,
+                    drift_anchor=None, drift_budget=None):
         """Advance ``n_steps`` on a fixed list from (x3, v3, f3) (K3).
 
         ``step_offset`` is the (1, 1) int32 step counter of the noise
-        stream.  Returns new (x, v, F) tensors, plus the () bool drift latch
-        against the entry positions when ``drift_slack`` is given.
+        stream.  Returns new (x, v, F) tensors, then:
+
+        * the () bool drift latch, against the entry positions with
+          threshold ``drift_slack`` (the engine's ``slack_t``), or (the NpT
+          mode) against ``drift_anchor`` with the 0-dim f32 threshold
+          ``drift_budget``;
+        * with ``final_energy``, the () energy of the final configuration,
+          taken by the last step's force pass with the exact reciprocal.
         """
         if not torch.is_tensor(step_offset):
             step_offset = torch.tensor([[step_offset]], dtype=torch.int32,
@@ -505,12 +620,23 @@ class CulledLJMD:
         w = v3 - half_dt * f3 * self.minv
         x = x3.clone()
         F = f3.clone()
+        energy = None
         for s in range(n_steps):
             baoab_phase_(x, w, F, self.minv, self.sigv, box_diag, seed,
                          step_offset, s, self.dt, self.a, self.b)
-            F = self.force(x, box_diag, pairs, approx_recip)
+            F, energy = culled_force_pass(
+                x, box_diag, pairs, self.n, self.tm, self.tn, self.sigma,
+                self.epsilon, self.cutoff, approx_recip,
+                with_energy=final_energy and s == n_steps - 1,
+            )
         v = w + half_dt * F * self.minv
-        if drift_slack is None:
-            return x, v, F
-        stale = tile_skin_drift_bad(x, x3, self.n, drift_slack, box_diag)
-        return x, v, F, stale
+        out = [x, v, F]
+        if drift_anchor is not None:
+            out.append(tile_skin_drift_bad(x, drift_anchor, self.n,
+                                           drift_budget, box_diag))
+        elif drift_slack is not None:
+            out.append(tile_skin_drift_bad(x, x3, self.n, drift_slack,
+                                           box_diag))
+        if final_energy:
+            out.append(energy)
+        return tuple(out)

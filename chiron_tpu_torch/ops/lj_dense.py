@@ -116,7 +116,7 @@ class LJDense:
 
     def __init__(self, n: int, sigma: float, epsilon: float, cutoff: float,
                  tm: int = 128, tn: int = 128, n_pad: Optional[int] = None,
-                 *, device):
+                 *, device="cuda"):
         self.n = n
         self.sigma = float(sigma)
         self.epsilon = float(epsilon)

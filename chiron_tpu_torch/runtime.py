@@ -1,22 +1,26 @@
-"""Runners of the LJ-fluid NVT main path (port of ``chiron_tpu/runtime.py``).
+"""Runners of the LJ fluid in NVT and NpT (port of ``chiron_tpu/runtime.py``).
 
 ``make_fast_lj_runner`` is the dense BAOAB runner (K1 every step) that
 melts the lattice; ``make_culled_lj_runner`` is the production engine: each
 segment sorts the state by the spatial key, rebuilds the tile-pair list and
 advances S steps on the culled kernels, with the drift latch at its end.
-``run`` is a Python loop of device work: only ``init`` and ``check`` wait
-for the device.
+``make_culled_npt_lj_runner`` adds a Monte Carlo barostat to the culled
+engine (K5 energies on a rescaled list, the drift budget as device data);
+``make_npt_lj_runner`` is its dense counterpart on K1.  ``run`` is a Python
+loop of device work: only ``init`` and ``check`` wait for the device.
+Every factory runs on the card unless the caller passes ``device="cpu"``,
+where the kernels' plain versions run.
 
 Ported knobs are the production ones.  Not ported (opt-in or measured as
 losing levers in the JAX package): ``megakernel``, ``fused_rebuild``,
 ``mxu_reduce``, ``prefetch``, ``unroll``, ``sort_every``/``rebuild_every``
-above 1, and the per-call ``interpret`` flag.
+above 1, ``seed_default`` and the per-call ``interpret`` flag.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -27,8 +31,10 @@ from .ops.lj_cull import (
     CulledLJMD,
     TilePairList,
     build_tile_pairs,
+    live_nonfinite,
     slab_y_key,
     sort_by_key,
+    tile_frame_scale_floor,
 )
 from .ops.lj_dense import LJDense, box_diagonal
 
@@ -88,23 +94,33 @@ class FastLJRunner:
             generator=gen,
         )
 
-    def step(self, state: LangevinCarry, noise) -> LangevinCarry:
-        """One BAOAB step with the given (3, n_pad) standard-normal noise."""
+    def _baoa(self, x, v, F, box_diag, noise):
+        """B, A, O and A of one BAOAB step, then the wrap: the new (x, v)
+        that the step's force is taken at."""
         half = self.dt * 0.5
-        box = state.box_vectors
-        v = state.v + half * state.F / self.m_lane
-        x = state.x + half * v
+        v = v + half * F / self.m_lane
+        x = x + half * v
         v = self.a * v + self.b * self.sigma_v_lane * noise
         x = x + half * v
-        Lcol = box.reshape(3, 1)
-        x = x - torch.floor(x / Lcol) * Lcol
+        Lcol = box_diag.reshape(3, 1)
+        return x - torch.floor(x / Lcol) * Lcol, v
+
+    def _kick(self, v, F):
+        """The closing B half-kick."""
+        return v + (self.dt * 0.5) * F / self.m_lane
+
+    def step(self, state: LangevinCarry, noise) -> LangevinCarry:
+        """One BAOAB step with the given (3, n_pad) standard-normal noise."""
+        box = state.box_vectors
+        x, v = self._baoa(state.x, state.v, state.F, box, noise)
         F = self._force(x, box)
-        v = v + half * F / self.m_lane
-        return LangevinCarry(x=x, v=v, F=F, box_vectors=box,
+        return LangevinCarry(x=x, v=self._kick(v, F), F=F, box_vectors=box,
                              overflowed=state.overflowed,
                              generator=state.generator)
 
-    def run(self, state: LangevinCarry, n_steps: int) -> LangevinCarry:
+    def run(self, state, n_steps: int):
+        """``n_steps`` steps, the O-step noise drawn from the state's
+        generator."""
         for _ in range(n_steps):
             noise = torch.randn((3, self.n_pad), generator=state.generator,
                                 device=state.x.device)
@@ -131,9 +147,10 @@ def make_fast_lj_runner(
     tm: int = 512,
     exact_forces: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> FastLJRunner:
-    """Dense LJ Langevin runner on ``device``.
+    """Dense LJ Langevin runner on ``device`` (the card unless the caller
+    asks for the CPU, where the kernels' plain versions run).
 
     ``exact_forces=False`` steps with the approximate reciprocal; energies
     always use the exact one.
@@ -248,10 +265,13 @@ def _culled_engine_setup(potential, n_particles, temperature, timestep,
     return md, dense
 
 
-class CulledLJRunner:
-    """Culled tile-pair LJ runner: the N~4000 production engine
-    (``runtime.py:553-875``).  Sorting permutes particle identity, so
+class _CulledRunner:
+    """What both culled runners share: the engine, the layout that ``init``
+    resolves, and the head of every segment (the non-finite check, the sort
+    and the list rebuild).  Sorting permutes particle identity, so
     ``positions(state)`` returns the internal order."""
+
+    _INVARIANT = "culled runner invariant violated"
 
     def __init__(self, md: CulledLJMD, dense: LJDense, segment_steps: int,
                  sort_mode: str, exact_forces: bool):
@@ -264,16 +284,64 @@ class CulledLJRunner:
         self.nslab = None     # resolved from the box in init()
         self.capacity = None  # resolved from the initial list in init()
 
-    def init(self, positions, box_vectors, seed: int = 0) -> CullCarry:
+    def _start(self, positions, box_vectors, seed: int):
+        """The start of ``init``: resolve the layout, sort, build the list
+        and draw the velocities.  Returns (x3s, box_diag, pairs, generator,
+        v3)."""
         md = self.md
         self.seed = seed
         x3s, box_diag, self.nslab, self.capacity, pairs = _culled_layout_init(
             md, self.dense, positions, box_vectors, self.sort_mode, md.n,
         )
         gen = torch.Generator(device=md.device).manual_seed(seed)
-        noise = torch.randn((3, md.n_pad), generator=gen, device=md.device)
+        v3 = md.sigv * torch.randn((3, md.n_pad), generator=gen,
+                                   device=md.device)
+        return x3s, box_diag, pairs, gen, v3
+
+    def _resort(self, carry):
+        """The head of a segment: sort (x, v, F) by the spatial key and
+        rebuild the list.  Returns (xs, v, F, pairs, overflowed), where
+        ``overflowed`` adds a non-finite live coordinate and the rebuild's
+        overflow to the carry's."""
+        if self.capacity is None:
+            raise RuntimeError("call init() before running a segment")
+        md = self.md
+        box_diag = carry.box_diag
+        # before the sort, which may move a NaN key out of the live lanes
+        nonfinite = live_nonfinite(carry.x, md.n)
+        key = slab_y_key(carry.x, md.n, self.nslab, box_diag[0, 0],
+                         Ly=box_diag[0, 1])
+        xs, (v3, F3) = sort_by_key(key, carry.x, (carry.v, carry.F))
+        pairs = md.build_pairs(xs, box_diag[0], self.capacity)
+        return xs, v3, F3, pairs, carry.overflowed | nonfinite | pairs.overflowed
+
+    def check(self, state):
+        if bool(state.overflowed):
+            raise RuntimeError(
+                f"{self._INVARIANT} -- reduce segment_steps or increase "
+                "slack and re-run"
+            )
+
+    def positions(self, state):
+        return self.dense.unpad(state.x)
+
+    def velocities(self, state):
+        return self.dense.unpad(state.v)
+
+
+class CulledLJRunner(_CulledRunner):
+    """Culled tile-pair LJ runner: the N~4000 production engine
+    (``runtime.py:553-875``)."""
+
+    _INVARIANT = ("culled runner invariant violated (pair-list capacity, "
+                  "shift bound, or per-segment drift)")
+
+    def init(self, positions, box_vectors, seed: int = 0) -> CullCarry:
+        md = self.md
+        x3s, box_diag, pairs, _, v3 = self._start(positions, box_vectors,
+                                                  seed)
         return CullCarry(
-            x=x3s, v=md.sigv * noise,
+            x=x3s, v=v3,
             F=md.force(x3s, box_diag, pairs,
                        approx_recip=not self.exact_forces),
             step=torch.zeros((1, 1), dtype=torch.int32, device=md.device),
@@ -285,19 +353,15 @@ class CulledLJRunner:
 
     def _segment(self, carry: CullCarry, n_steps: int) -> CullCarry:
         md = self.md
-        box_diag = carry.box_diag
-        key = slab_y_key(carry.x, md.n, self.nslab, box_diag[0, 0],
-                         Ly=box_diag[0, 1])
-        xs, (v3, F3) = sort_by_key(key, carry.x, (carry.v, carry.F))
-        pairs = md.build_pairs(xs, box_diag[0], self.capacity)
+        xs, v3, F3, pairs, overflowed = self._resort(carry)
         x1, v1, F1, stale = md.run_segment(
-            xs, v3, F3, box_diag, pairs, seed=self.seed,
+            xs, v3, F3, carry.box_diag, pairs, seed=self.seed,
             step_offset=carry.step, n_steps=n_steps,
-            approx_recip=not self.exact_forces, drift_slack=md.slack,
+            approx_recip=not self.exact_forces, drift_slack=md.slack_t,
         )
         return CullCarry(
-            x=x1, v=v1, F=F1, step=carry.step + n_steps, box_diag=box_diag,
-            overflowed=carry.overflowed | pairs.overflowed | stale,
+            x=x1, v=v1, F=F1, step=carry.step + n_steps,
+            box_diag=carry.box_diag, overflowed=overflowed | stale,
             pairs=pairs, x_anchor=xs,
         )
 
@@ -319,22 +383,8 @@ class CulledLJRunner:
             raise RuntimeError("call init() before segment_fn()")
         return lambda carry: self._segment(carry, n_steps)
 
-    def check(self, state: CullCarry):
-        if bool(state.overflowed):
-            raise RuntimeError(
-                "culled runner invariant violated (pair-list capacity, "
-                "shift bound, or per-segment drift) -- reduce "
-                "segment_steps or increase slack and re-run"
-            )
-
     def energy(self, state: CullCarry):
         return self.dense.force_energy_t(state.x, state.box_diag)[1]
-
-    def positions(self, state: CullCarry):
-        return self.dense.unpad(state.x)
-
-    def velocities(self, state: CullCarry):
-        return self.dense.unpad(state.v)
 
 
 def make_culled_lj_runner(
@@ -351,9 +401,9 @@ def make_culled_lj_runner(
     sort_mode: str = "auto",
     exact_forces: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> CulledLJRunner:
-    """Culled tile-pair fused LJ runner on ``device``.
+    """Culled tile-pair fused LJ runner on ``device`` (the card by default).
 
     Each segment re-sorts and rebuilds the list and checks the tile-skin
     invariant at its end: if the list could have gone stale,
@@ -368,3 +418,442 @@ def make_culled_lj_runner(
         topology, tm, tn, slack, device,
     )
     return CulledLJRunner(md, dense, segment_steps, sort_mode, exact_forces)
+
+
+# ---------------------------------------------------------------------------
+# NpT: the Monte Carlo barostat of both NpT runners (runtime.py:884-925)
+# ---------------------------------------------------------------------------
+
+
+def _npt_draws(generator, device, u_prop=None, u_acc=None):
+    """An attempt's two uniforms as 0-dim f32 device tensors: the volume
+    draw in [-1, 1) and the acceptance draw, floored at 1e-38.  Both come
+    from ``generator`` (one launch) unless both are given, as the tests
+    give the JAX package's own draws."""
+    if u_prop is None or u_acc is None:
+        u = torch.rand(2, generator=generator, device=device)
+        return 2.0 * u[0] - 1.0, torch.clamp_min(u[1], 1e-38)
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.as_tensor(u_prop, **f32), torch.as_tensor(u_acc, **f32)
+
+
+def _npt_volume_proposal(box_diag, vmax_scale, u_prop):
+    """Isotropic volume proposal (reference mcmc.py:950-983): dV = u vmax V,
+    positions and box scaled by (V'/V)^(1/3).  Returns (V, V_new, s)."""
+    V = torch.prod(box_diag)
+    V_new = V + u_prop * vmax_scale * V
+    return V, V_new, torch.pow(V_new / V, 1.0 / 3.0)
+
+
+def _npt_accept(beta, P_md, n, U, U_new, V, V_new, box_ok, u_acc):
+    """McDonald-1972 NpT acceptance (reference mcmc.py:995-1000) with NaN
+    rejection (mcmc.py:428) and box-validity rejection: () bool."""
+    log_ratio = (-beta * ((U_new - U) + P_md * (V_new - V))
+                 + n * torch.log(V_new / V))
+    log_ratio = torch.where(torch.isnan(U_new) | ~box_ok, -math.inf,
+                            log_ratio)
+    return torch.log(u_acc) < log_ratio
+
+
+def _npt_autotune(vmax, n_acc, n_prop, interval: int, cap: float = 0.3):
+    """Reference barostat autotune (mcmc.py:902-911): /1.1 below 25%
+    cumulative acceptance, x1.1 above 75%, capped at ``cap``.  As in the
+    JAX package the cap binds only on the increase branch."""
+    due = (n_prop % interval) == 0
+    ratio = n_acc.to(torch.float32) / torch.clamp_min(n_prop, 1)
+    vmax = torch.where(due & (ratio < 0.25), vmax / 1.1, vmax)
+    return torch.where(due & (ratio > 0.75),
+                       torch.clamp_max(vmax * 1.1, cap), vmax)
+
+
+def _scalar(value, dtype, device):
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+@dataclass
+class CullNPTCarry:
+    """State of the culled NpT runner: the culled NVT state plus the
+    barostat's generator, statistics and the slack budget spent by volume
+    scalings since the last rebuild."""
+
+    x: torch.Tensor            # (3, n_pad)
+    v: torch.Tensor            # (3, n_pad)
+    F: torch.Tensor            # (3, n_pad)
+    U: torch.Tensor            # () f32 exact potential of x (carried)
+    step: torch.Tensor         # (1, 1) int32 cumulative MD steps
+    box_diag: torch.Tensor     # (1, 3)
+    overflowed: torch.Tensor   # () bool
+    pairs: TilePairList
+    x_anchor: torch.Tensor     # (3, n_pad) rebuild positions, rescaled
+    scale_used: torch.Tensor   # () f32 slack spent by ACCEPTED scalings
+    eval_peak: torch.Tensor    # () f32 worst slack any box-valid proposal
+    #                            EVALUATION needed, accepted or not
+    s_total: torch.Tensor      # () f32 cumulative box scale since rebuild
+    s_min_frame: torch.Tensor  # () f32 x-frame floor on s_total
+    generator: torch.Generator  # barostat draws (the JAX carry's key)
+    vmax_scale: torch.Tensor   # () f32 max relative volume change
+    n_accepted: torch.Tensor   # () int32
+    n_proposed: torch.Tensor   # () int32
+
+
+class CulledNPTRunner(_CulledRunner):
+    """NpT on the culled engine (``runtime.py:970-1288``): BAOAB
+    sub-segments of ``barostat_interval`` steps with one isotropic volume
+    attempt before each, ``segment_steps`` between list rebuilds.
+
+    A proposal rescales the live list (``ccx``, ``rowcx`` times ``s``)
+    instead of rebuilding it and charges ``|1 - s| (cutoff + slack)`` of
+    the slack; the drift latch of each sub-segment then checks the top-2
+    drift from the rescaled rebuild positions against the slack left.  Its
+    energies come from K5 (exact reciprocal); the current configuration's
+    U is carried, refreshed by each sub-segment's last force pass.  Between
+    ``init`` and ``check`` nothing waits for the device.
+    """
+
+    _INVARIANT = ("culled NpT runner invariant violated (pair-list "
+                  "capacity, shift bound, or drift+scale budget)")
+
+    def __init__(self, md: CulledLJMD, dense: LJDense, segment_steps: int,
+                 barostat_interval: int, sort_mode: str, exact_forces: bool,
+                 beta: float, P_md: float, volume_max_scale: float,
+                 autotune: bool, autotune_interval: int):
+        super().__init__(md, dense, segment_steps, sort_mode, exact_forces)
+        self.barostat_interval = barostat_interval
+        self.n_sub = segment_steps // barostat_interval
+        self.beta, self.P_md = beta, P_md
+        self.volume_max_scale = volume_max_scale
+        self.autotune, self.autotune_interval = autotune, autotune_interval
+        self.reach = md.cutoff + md.slack
+        # every evaluated box-valid shrink charges |1-s| reach, so the n_sub
+        # attempts of a segment must fit in HALF the slack (the other half
+        # is the thermal drift's); vmax is a proposal parameter, so the cap
+        # leaves detailed balance intact (runtime.py:1044-1055)
+        charge_cap = 0.5 * md.slack / self.n_sub
+        s_min_attempt = max(1e-3, 1.0 - charge_cap / self.reach)
+        self.vmax_cap = min(0.3, 1.0 - s_min_attempt ** 3)
+
+    def init(self, positions, box_vectors, seed: int = 0) -> CullNPTCarry:
+        md = self.md
+        dev = md.device
+        x3s, box_diag, pairs, gen, v3 = self._start(positions, box_vectors,
+                                                    seed)
+        # one exact pass gives the carried energy and the first force
+        F3, U0 = md.force_energy(x3s, box_diag, pairs)
+        vmax = self.volume_max_scale
+        if self.autotune:  # the engine owns vmax: start inside the envelope
+            vmax = min(vmax, self.vmax_cap)
+        f32, i32 = torch.float32, torch.int32
+        return CullNPTCarry(
+            x=x3s, v=v3, F=F3, U=U0,
+            step=torch.zeros((1, 1), dtype=i32, device=dev),
+            box_diag=box_diag, overflowed=pairs.overflowed, pairs=pairs,
+            x_anchor=x3s,
+            scale_used=_scalar(0.0, f32, dev),
+            eval_peak=_scalar(0.0, f32, dev),
+            s_total=_scalar(1.0, f32, dev),
+            s_min_frame=tile_frame_scale_floor(
+                x3s, md.n, md.tm, md.tn, box_diag, md.cutoff, md.slack),
+            generator=gen,
+            vmax_scale=_scalar(vmax, f32, dev),
+            n_accepted=_scalar(0, i32, dev),
+            n_proposed=_scalar(0, i32, dev),
+        )
+
+    def _barostat_attempt(self, carry: CullNPTCarry, u_prop=None,
+                          u_acc=None) -> CullNPTCarry:
+        """One volume attempt; the two uniforms may be given."""
+        md = self.md
+        u_prop, u_acc = _npt_draws(carry.generator, md.device, u_prop, u_acc)
+        box = carry.box_diag
+        V, V_new, s = _npt_volume_proposal(box, carry.vmax_scale, u_prop)
+        x_new = carry.x * s
+        box_new = box * s
+        pairs = carry.pairs
+        pairs_new = pairs._replace(ccx=pairs.ccx * s, rowcx=pairs.rowcx * s)
+        F_new, U_new = md.force_energy(x_new, box_new, pairs_new)
+        # the minimum image as the box shrinks, and the x-frame floor of
+        # the layout built at the last rebuild
+        s_total_new = carry.s_total * s
+        box_ok = (((0.5 * torch.min(box_new) - md.cutoff - md.slack) > 0.0)
+                  & (s_total_new >= carry.s_min_frame))
+        accept = _npt_accept(self.beta, self.P_md, md.n, carry.U, U_new, V,
+                             V_new, box_ok, u_acc)
+
+        def sel(a, b):
+            return torch.where(accept, a, b)
+
+        # a shrink moves pairs beyond reach inward by at most |1-s| reach;
+        # the decision read U_new off the rescaled list, so a rejected
+        # box-valid shrink charges the latch budget too (runtime.py:1146)
+        charge = torch.clamp_min(1.0 - s, 0.0) * self.reach
+        eval_peak = torch.maximum(
+            carry.eval_peak,
+            torch.where(box_ok, carry.scale_used + charge, carry.scale_used),
+        )
+        n_acc = carry.n_accepted + accept.to(torch.int32)
+        n_prop = carry.n_proposed + 1
+        vmax = carry.vmax_scale
+        if self.autotune:
+            vmax = _npt_autotune(vmax, n_acc, n_prop, self.autotune_interval,
+                                 cap=self.vmax_cap)
+        return replace(
+            carry,
+            x=sel(x_new, carry.x), F=sel(F_new, carry.F), U=sel(U_new, carry.U),
+            box_diag=sel(box_new, box),
+            pairs=pairs._replace(ccx=sel(pairs_new.ccx, pairs.ccx),
+                                 rowcx=sel(pairs_new.rowcx, pairs.rowcx)),
+            x_anchor=sel(carry.x_anchor * s, carry.x_anchor),
+            scale_used=carry.scale_used + torch.where(accept, charge, 0.0),
+            eval_peak=eval_peak,
+            s_total=sel(s_total_new, carry.s_total),
+            vmax_scale=vmax, n_accepted=n_acc, n_proposed=n_prop,
+        )
+
+    def segment(self, carry: CullNPTCarry, draws=None) -> CullNPTCarry:
+        """One segment: sort, rebuild, floor, then ``n_sub`` rounds of an
+        attempt and a sub-segment.  ``draws`` may give each attempt's
+        (u_prop, u_acc)."""
+        md = self.md
+        xs, v3, F3, pairs, overflowed = self._resort(carry)
+        zero = torch.zeros((), dtype=torch.float32, device=md.device)
+        carry = replace(
+            carry, x=xs, v=v3, F=F3, overflowed=overflowed, pairs=pairs,
+            x_anchor=xs, scale_used=zero, eval_peak=zero, s_total=zero + 1.0,
+            s_min_frame=tile_frame_scale_floor(
+                xs, md.n, md.tm, md.tn, carry.box_diag, md.cutoff, md.slack),
+        )
+        for k in range(self.n_sub):
+            carry = self._barostat_attempt(
+                carry, *(draws[k] if draws is not None else ()))
+            x1, v1, F1, stale, U1 = md.run_segment(
+                carry.x, carry.v, carry.F, carry.box_diag, carry.pairs,
+                seed=self.seed, step_offset=carry.step,
+                n_steps=self.barostat_interval,
+                approx_recip=not self.exact_forces,
+                final_energy=True, drift_anchor=carry.x_anchor,
+                # against the WORST evaluated scaling, not just the accepted
+                drift_budget=md.slack - carry.eval_peak,
+            )
+            carry = replace(carry, x=x1, v=v1, F=F1, U=U1,
+                            overflowed=carry.overflowed | stale,
+                            step=carry.step + self.barostat_interval)
+        return carry
+
+    def run(self, state: CullNPTCarry, n_steps: int) -> CullNPTCarry:
+        if n_steps % self.segment_steps != 0:
+            raise ValueError(
+                f"n_steps must be a multiple of segment_steps "
+                f"({self.segment_steps})"
+            )
+        for _ in range(n_steps // self.segment_steps):
+            state = self.segment(state)
+        return state
+
+    def volume(self, state: CullNPTCarry):
+        return torch.prod(state.box_diag)
+
+    def acceptance(self, state: CullNPTCarry) -> float:
+        prop = int(state.n_proposed)
+        return int(state.n_accepted) / prop if prop else 0.0
+
+    def energy(self, state: CullNPTCarry):
+        return self.md.force_energy(state.x, state.box_diag, state.pairs)[1]
+
+
+def make_culled_npt_lj_runner(
+    potential,
+    n_particles: int,
+    temperature=300.0 * units.kelvin,
+    pressure=1.0 * units.atmosphere,
+    timestep=2.0 * units.femtoseconds,
+    collision_rate=1.0 / units.picoseconds,
+    topology=None,
+    tm: int = 128,
+    tn: int = 256,
+    slack: float = 0.2,
+    segment_steps: int = 50,
+    barostat_interval: int = 25,
+    volume_max_scale: float = 0.01,
+    autotune: bool = True,
+    autotune_interval: int = 20,
+    sort_mode: str = "auto",
+    exact_forces: bool = False,
+    *,
+    device="cuda",
+) -> CulledNPTRunner:
+    """NpT on the culled tile-pair engine, on ``device`` (the card by
+    default): Langevin BAOAB with a McDonald-1972 Monte Carlo barostat
+    attempt every ``barostat_interval`` steps (reference chiron/mcmc.py:
+    985-1000, autotune :902-911).  ``segment_steps`` must be a multiple of
+    ``barostat_interval`` and ``run``'s step count of ``segment_steps``.
+    Volume moves leave velocities untouched.
+    """
+    if segment_steps % barostat_interval != 0:
+        raise ValueError("segment_steps must be a multiple of barostat_interval")
+    if sort_mode not in ("auto", "x", "slab"):
+        raise ValueError(f"sort_mode {sort_mode!r}: use 'auto', 'x' or 'slab'")
+    md, dense = _culled_engine_setup(
+        potential, n_particles, temperature, timestep, collision_rate,
+        topology, tm, tn, slack, device,
+    )
+    return CulledNPTRunner(
+        md, dense, segment_steps, barostat_interval, sort_mode, exact_forces,
+        beta=1.0 / md.kT, P_md=units.pressure_to_md(pressure),
+        volume_max_scale=volume_max_scale, autotune=autotune,
+        autotune_interval=autotune_interval,
+    )
+
+
+@dataclass
+class NPTCarry:
+    """State of the dense NpT runner (lane layout)."""
+
+    x: torch.Tensor            # (3, n_pad)
+    v: torch.Tensor            # (3, n_pad)
+    F: torch.Tensor            # (3, n_pad)
+    U: torch.Tensor            # () f32 potential of x, fresh ONLY on steps
+    #                            that feed a barostat attempt
+    generator: torch.Generator  # noise and barostat draws (the JAX key)
+    box_diag: torch.Tensor     # (1, 3)
+    vmax_scale: torch.Tensor   # () f32 max relative volume change
+    n_accepted: torch.Tensor   # () int32
+    n_proposed: torch.Tensor   # () int32
+    step: int                  # cumulative MD steps, known on the host
+
+
+class NPTRunner(FastLJRunner):
+    """Dense NpT on K1 (``runtime.py:1624-1814``): the dense runner's BAOAB
+    step and a volume attempt every ``barostat_interval`` steps.  The steps
+    that feed an attempt take the exact force and energy; the others the
+    force alone, with the approximate reciprocal unless ``exact_forces``.
+    The step count is a host integer, so that choice costs no device
+    sync."""
+
+    def __init__(self, op: LJDense, masses_1d, kT: float, dt: float,
+                 gamma: float, P_md: float, barostat_interval: int,
+                 volume_max_scale: float, autotune: bool,
+                 autotune_interval: int, exact_forces: bool):
+        super().__init__(op, masses_1d, kT, dt, gamma, exact_forces)
+        self.beta, self.P_md = 1.0 / kT, P_md
+        self.barostat_interval = barostat_interval
+        self.volume_max_scale = volume_max_scale
+        self.autotune, self.autotune_interval = autotune, autotune_interval
+
+    def init(self, positions, box_vectors, seed: int = 0) -> NPTCarry:
+        op = self.op
+        dev = op.device
+        x3 = op.pad_positions(positions)
+        box_diag = box_diagonal(box_vectors, dev)
+        if float(box_diag.min()) <= 2.0 * op.cutoff:
+            raise ValueError(
+                "NpT runner requires min(box) > 2*cutoff for minimum-image "
+                "validity; shrink the cutoff or use a larger box"
+            )
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        v3 = self.sigma_v_lane * torch.randn((3, self.n_pad), generator=gen,
+                                             device=dev)
+        F3, U0 = op.force_energy_t(x3, box_diag)
+        return NPTCarry(
+            x=x3, v=v3, F=F3, U=U0, generator=gen, box_diag=box_diag,
+            vmax_scale=_scalar(self.volume_max_scale, torch.float32, dev),
+            n_accepted=_scalar(0, torch.int32, dev),
+            n_proposed=_scalar(0, torch.int32, dev), step=0,
+        )
+
+    def _barostat_attempt(self, carry: NPTCarry, u_prop=None,
+                          u_acc=None) -> NPTCarry:
+        op = self.op
+        u_prop, u_acc = _npt_draws(carry.generator, op.device, u_prop, u_acc)
+        V, V_new, s = _npt_volume_proposal(carry.box_diag, carry.vmax_scale,
+                                           u_prop)
+        x_new = carry.x * s
+        box_new = carry.box_diag * s
+        # carry.U is fresh: the step that scheduled this attempt took it
+        F_new, U_new = op.force_energy_t(x_new, box_new)
+        box_ok = torch.min(box_new) > 2.0 * op.cutoff
+        accept = _npt_accept(self.beta, self.P_md, op.n, carry.U, U_new, V,
+                             V_new, box_ok, u_acc)
+        n_acc = carry.n_accepted + accept.to(torch.int32)
+        n_prop = carry.n_proposed + 1
+        vmax = carry.vmax_scale
+        if self.autotune:
+            vmax = _npt_autotune(vmax, n_acc, n_prop, self.autotune_interval)
+        return replace(
+            carry,
+            x=torch.where(accept, x_new, carry.x),
+            F=torch.where(accept, F_new, carry.F),
+            U=torch.where(accept, U_new, carry.U),
+            box_diag=torch.where(accept, box_new, carry.box_diag),
+            vmax_scale=vmax, n_accepted=n_acc, n_proposed=n_prop,
+        )
+
+    def step(self, carry: NPTCarry, noise, u_prop=None, u_acc=None) -> NPTCarry:
+        """One BAOAB step with the given (3, n_pad) standard-normal noise,
+        then the attempt when the step closes an interval (its draws may
+        be given)."""
+        box = carry.box_diag
+        x, v = self._baoa(carry.x, carry.v, carry.F, box, noise)
+        step = carry.step + 1
+        attempt = step % self.barostat_interval == 0
+        if attempt:
+            F, U = self.op.force_energy_t(x, box)
+        else:
+            F, U = self._force(x, box), carry.U
+        carry = replace(carry, x=x, v=self._kick(v, F), F=F, U=U, step=step)
+        if attempt:
+            carry = self._barostat_attempt(carry, u_prop, u_acc)
+        return carry
+
+    def check(self, state: NPTCarry):
+        """Raise if the state went non-finite: a NaN blow-up otherwise
+        freezes the barostat silently (every proposal is rejected)."""
+        ok = bool(torch.isfinite(state.U) & torch.isfinite(state.x).all()
+                  & torch.isfinite(state.v).all())
+        if not ok:
+            raise RuntimeError(
+                "dense NpT runner state is non-finite (diverged MD; the "
+                "barostat has been rejecting every proposal) -- reduce the "
+                "timestep and re-run"
+            )
+
+    def volume(self, state: NPTCarry):
+        return torch.prod(state.box_diag)
+
+    def acceptance(self, state: NPTCarry) -> float:
+        prop = int(state.n_proposed)
+        return int(state.n_accepted) / prop if prop else 0.0
+
+    def energy(self, state: NPTCarry):
+        return self.op.force_energy_t(state.x, state.box_diag)[1]
+
+
+def make_npt_lj_runner(
+    potential,
+    n_particles: int,
+    temperature=300.0 * units.kelvin,
+    pressure=1.0 * units.atmosphere,
+    timestep=2.0 * units.femtoseconds,
+    collision_rate=1.0 / units.picoseconds,
+    topology=None,
+    tm: int = 512,
+    barostat_interval: int = 25,
+    volume_max_scale: float = 0.01,
+    autotune: bool = True,
+    autotune_interval: int = 20,
+    exact_forces: bool = False,
+    *,
+    device="cuda",
+) -> NPTRunner:
+    """Dense NpT runner on ``device`` (the card by default): BAOAB with an
+    isotropic McDonald-1972 volume attempt every ``barostat_interval``
+    steps and the reference autotune rule (cap 0.3).  Dense-engine domain
+    (N up to ~8k); volume moves leave velocities untouched."""
+    if topology is None:
+        topology = potential.topology
+    kT, dt, gamma = _md_constants(temperature, timestep, collision_rate)
+    op = LJDense(n_particles, potential.sigma, potential.epsilon,
+                 potential.cutoff, tm=tm, tn=tm, device=device)
+    return NPTRunner(op, topology.masses(), kT, dt, gamma,
+                     units.pressure_to_md(pressure), barostat_interval,
+                     volume_max_scale, autotune, autotune_interval,
+                     exact_forces)

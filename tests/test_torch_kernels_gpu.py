@@ -17,7 +17,11 @@ from chiron_tpu_torch import units
 from chiron_tpu_torch.ops import _build
 from chiron_tpu_torch.ops import lj_cull as lc
 from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy, lj_dense_plain
-from chiron_tpu_torch.runtime import make_culled_lj_runner
+from chiron_tpu_torch.runtime import (
+    make_culled_lj_runner,
+    make_culled_npt_lj_runner,
+    make_npt_lj_runner,
+)
 from chiron_tpu_torch.testsystems import LennardJonesFluid
 
 pytestmark = pytest.mark.gpu
@@ -118,6 +122,83 @@ def test_segment_is_bitwise_repeatable_and_counted(carry):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert dict(_build.launches) == {"baoab": 16, "culled_force": 16,
                                      "tile_skin_drift": 2}
+
+
+def test_k5_force_energy_kernel_matches_plain(carry):
+    runner, c0, pot = carry
+    md = runner.md
+    args = (c0.x, c0.box_diag, c0.pairs, N, md.tm, md.tn, pot.sigma,
+            pot.epsilon, pot.cutoff)
+    Fp, Ep = lc.row_force_pass_plain(*args, with_energy=True)
+    _build.reset_launch_counts()
+    Fk, Ek = lc.culled_force_energy(*args)
+    assert dict(_build.launches) == {"culled_force_energy": 1}
+    err = (Fk - Fp)[:, :N].abs()
+    assert float(err.max()) < 0.05
+    assert float(torch.quantile(err.flatten(), 0.99)) / float(Fp.abs().max()) < 1e-5
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    # the differentiable surface: autograd gives the kernel's force
+    pos = c0.x.clone().requires_grad_(True)
+    md.energy_differentiable(pos, c0.box_diag, c0.pairs).backward()
+    assert torch.equal(pos.grad, -Fk)
+
+
+def test_exact_energy_mode_equals_k5_bitwise(carry):
+    """K3's final_energy step (approximate force, with the energy): the
+    force of a force-only pass and the energy of a K5 pass, bit for bit."""
+    runner, c0, pot = carry
+    md = runner.md
+    args = (c0.x, c0.box_diag, c0.pairs, N, md.tm, md.tn, pot.sigma,
+            pot.epsilon, pot.cutoff)
+    F_mix, E_mix = lc.culled_force_pass(*args, approx_recip=True,
+                                        with_energy=True)
+    F_approx, _ = lc.culled_force_pass(*args, approx_recip=True)
+    _, E_k5 = lc.culled_force_energy(*args)
+    assert torch.equal(F_mix, F_approx)
+    assert torch.equal(E_mix, E_k5)
+    # and run_segment's carried energy is K5's on its final configuration
+    x1, _, _, E_seg = md.run_segment(c0.x, c0.v, c0.F, c0.box_diag, c0.pairs,
+                                     seed=3, step_offset=0, n_steps=4,
+                                     final_energy=True)
+    assert torch.equal(E_seg, md.force_energy(x1, c0.box_diag, c0.pairs)[1])
+
+
+def test_budgeted_drift_kernel_matches_plain(carry):
+    runner, c0, _ = carry
+    c1 = runner.segment_fn(8)(c0)
+    top2 = float(lc.skin_drift_top2_plain(c1.x, c1.x_anchor, N, c0.box_diag))
+    nan = c1.x.clone()
+    nan[0, 7] = float("nan")
+    for x, scale, expect in ((c1.x, 0.999, True), (c1.x, 1.001, False),
+                             (nan, 1.001, True)):
+        budget = torch.tensor(top2 * scale, device=c0.x.device)
+        k = lc.tile_skin_drift_bad(x, c1.x_anchor, N, budget, c0.box_diag)
+        p = lc.tile_skin_drift_bad_plain(x, c1.x_anchor, N, budget,
+                                         c0.box_diag)
+        assert bool(k) == bool(p) == expect, (scale, expect)
+
+
+def test_npt_runners_never_wait_for_the_device(carry):
+    """Between init and check the NpT runners queue device work only:
+    under the sync debug mode, any host synchronisation raises."""
+    runner, c0, pot = carry
+    kw = dict(potential=pot, n_particles=N, temperature=120.0 * units.kelvin,
+              pressure=100.0 * units.atmosphere, barostat_interval=25,
+              device=c0.x.device)
+    npt = make_culled_npt_lj_runner(slack=0.2, segment_steps=50, **kw)
+    dense = make_npt_lj_runner(**kw)
+    pos = runner.positions(c0)
+    st, ds = npt.init(pos, c0.box_diag, seed=4), dense.init(pos, c0.box_diag)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = npt.run(st, 50)
+        ds = dense.run(ds, 25)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    npt.check(st)
+    dense.check(ds)
+    assert int(st.n_proposed) == 2 and int(ds.n_proposed) == 1
 
 
 def test_kernel_wrappers_refuse_bad_inputs(carry):

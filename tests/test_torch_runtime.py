@@ -159,3 +159,31 @@ def test_culled_runner_rejects_mixed_masses_and_thin_boxes():
     with pytest.raises(ValueError, match="inapplicable"):
         r.init(small.positions.value_in_unit_system(tu.md_unit_system),
                small.box_vectors.value_in_unit_system(tu.md_unit_system))
+
+
+def test_nan_x_coordinate_latches_as_in_jax():
+    """The input of tests/test_lj_cull.py:286 (N=1000, rho*=0.3, one 5-step
+    segment, NaN at x[0, 5]): JAX latches, and so does the port.  The pure-x
+    sort moves the NaN key past the padding sentinel, out of the live lanes,
+    so the port checks the live coordinates before it sorts."""
+    def run(rt, ts, units, **kw):
+        fluid = ts.LennardJonesFluid(nparticles=N, reduced_density=0.3)
+        md = units.md_unit_system
+        r = rt.make_culled_lj_runner(
+            potential=fluid.potential, n_particles=N, topology=fluid.topology,
+            temperature=120.0 * units.kelvin, tm=8, tn=16, segment_steps=5,
+            **kw)
+        st = r.init(fluid.positions.value_in_unit_system(md),
+                    fluid.box_vectors.value_in_unit_system(md), seed=1)
+        return r, st
+
+    jr, js = run(jrt, jts, ju)
+    js.x = js.x.at[0, 5].set(jnp.nan)
+    js = jr.run(js, 5)
+    tr, ts = run(trt, tts, tu, device="cpu")
+    ts.x[0, 5] = float("nan")
+    ts = tr.run(ts, 5)
+    assert bool(js.overflowed) and bool(ts.overflowed)
+    for r, s in ((jr, js), (tr, ts)):
+        with pytest.raises(RuntimeError, match="invariant violated"):
+            r.check(s)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the port's N=4000 NVT and NpT paths goes, on one NVIDIA
-GPU.
+"""Where the time of the port's LJ paths goes, on one NVIDIA GPU: NVT and NpT
+at N=4000, the band runner at N=100,000 and the strip runner at N=4000.
 
     python3 chip_profile.py
 
@@ -17,15 +17,27 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    each dense one, after a warm-up of the same length: wall per step
    (profiler on), device busy per step (the union of the kernel, memcpy and
    memset intervals), the device's idle share, and the top device rows with
-   their time per launch.
+   their time per launch;
+4. the band runner (``make_lj_runner(engine="auto")`` at N=100,000, melted
+   from the lattice by 2000 band steps) and the culled runner (S=50, slack
+   0.2, as ``benchmarks/large_n.py`` tunes it above 16k), both started from
+   the melted state: 500-step windows in the order band, culled, culled,
+   band; then, from the band state and one noise seed, 500-step windows of
+   the band runner (a sorted candidate every step, chosen on the device)
+   against a copy that reads ``stale`` on the host and sorts only when it
+   holds, twice in the order device, host, host, device, with their end
+   states required equal; then profiler rows of 50 band and 100 culled steps; and
+   400 steps of the strip runner at N=4000 from the culled NVT state.
 
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
+import copy
 import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 N = 4000
 SEED = 1234
@@ -35,6 +47,10 @@ WINDOW_STEPS = {"culled": 3000, "dense": 1000, "culled_npt": 3000,
 PROFILE_STEPS = {"culled": 400, "dense": 100, "culled_npt": 400,
                  "dense_npt": 100}
 TOP_ROWS = 14
+N_BAND = 100_000
+BAND_MELT_STEPS = 2000
+BIG_WINDOW_STEPS = 500
+BIG_PROFILE_STEPS = {"band": 50, "culled_100k": 100, "strip": 400}
 
 
 def _card():
@@ -88,6 +104,25 @@ def _profile(label, fn, steps):
               f"us/launch  {name[:90]}")
 
 
+def _host_checked(band):
+    """A copy of the band runner whose step reads ``stale`` on the host (one
+    sync a step) and sorts only when it holds, counting those re-sorts.  It
+    shares the runner's calibrated band."""
+
+    class HostChecked(type(band)):
+        resorts = 0
+
+        def _resort(self, x, v, state, stale):
+            if not bool(stale):
+                return x, v, state.ref_x, state.overflowed
+            self.resorts += 1
+            return self._sorted(x, v, state)
+
+    hc = copy.copy(band)
+    hc.__class__ = HostChecked
+    return hc
+
+
 def main():
     import torch
 
@@ -101,6 +136,7 @@ def main():
         make_culled_lj_runner,
         make_culled_npt_lj_runner,
         make_fast_lj_runner,
+        make_lj_runner,
         make_npt_lj_runner,
     )
     from chiron_tpu_torch.testsystems import LennardJonesFluid
@@ -156,6 +192,65 @@ def main():
 
     for label, steps in PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
+
+    # the large-N engines: band against culled at N=100,000, and the strip
+    big = LennardJonesFluid(nparticles=N_BAND, reduced_density=0.8)
+    bbox = big.box_vectors.value_in_unit_system(units.md_unit_system)
+    bcommon = dict(common, potential=big.potential, n_particles=N_BAND,
+                   topology=big.topology)
+    band = make_lj_runner(box_vectors=bbox, **bcommon)
+    bs = band.init(big.positions.value_in_unit_system(units.md_unit_system),
+                   bbox, seed=SEED)
+    bs = band.run(bs, BAND_MELT_STEPS)
+    band.check(bs)
+    melted = band.positions(bs)
+    culled_big = make_culled_lj_runner(slack=0.2, segment_steps=50, **bcommon)
+    state["band"] = band.init(melted, bbox, seed=SEED)
+    state["culled_100k"] = culled_big.init(melted, bbox, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"N={N_BAND}: band {type(band).__name__} w={band.band.w} "
+          f"(recalibrated on the melted state), culled nslab="
+          f"{culled_big.nslab} capacity={culled_big.capacity} count="
+          f"{int(state['culled_100k'].pairs.count)}")
+    runs.update(band=band.run, culled_100k=culled_big.run)
+    for label in ("band", "culled_100k", "culled_100k", "band"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(label, BIG_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"N={N_BAND} {label} {BIG_WINDOW_STEPS}-step window: "
+              f"{sec:.6f} s, {BIG_WINDOW_STEPS / sec:.1f} steps/s")
+    band.check(state["band"])
+    culled_big.check(state["culled_100k"])
+    # the re-sort chosen on the device (the runner) against a host branch,
+    # from one state: the same steps, so the same re-sorts
+    hc = _host_checked(band)
+    start = state["band"]
+    ends = {}
+    for label, r in (("device choice", band), ("host check", hc),
+                     ("host check", hc), ("device choice", band)) * 2:
+        s = replace(start, generator=torch.Generator(dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = r.run(s, BIG_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        ends.setdefault(label, s)
+        print(f"N={N_BAND} band re-sort by {label}: {BIG_WINDOW_STEPS}-step "
+              f"window {sec:.6f} s, {BIG_WINDOW_STEPS / sec:.1f} steps/s")
+    print(f"N={N_BAND} band re-sorts in the window: "
+          f"{hc.resorts // 4} of {BIG_WINDOW_STEPS} steps")
+    a, b = ends.values()
+    if not all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("x", "v", "F", "ref_x", "overflowed")):
+        raise RuntimeError("the two re-sort choices reached different states")
+    strip = make_lj_runner(engine="strip", box_vectors=box, **common)
+    state["strip"] = strip.init(melt, box, seed=SEED)
+    runs["strip"] = strip.run
+    for label, steps in BIG_PROFILE_STEPS.items():
+        _profile(label, lambda: advance(label, steps), steps)
+    strip.check(state["strip"])
     print(f"card after: {_card()}")
     return 0
 

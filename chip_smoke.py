@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LJ-fluid NVT and NpT paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's LJ-fluid paths once on one NVIDIA GPU: NVT and
+NpT at N=4000, the band engine at N=100,000 and the halo-strip engine.
 
     python3 chip_smoke.py
 
@@ -11,11 +12,14 @@ Phases (any failure raises, and the script exits nonzero):
    main path's shapes (N=4000, n_pad=4096, tiles 128 x 256), on a
    configuration melted by 1000 dense steps, and time both with CUDA events:
    K1, the culled force (K4, K3's force phase), K5 and K3's exact-energy
-   final step, BAOAB, and the drift latch with the slack and with a budget
-   on either side of the measured drift;
-4. run one culled segment, and one NpT segment with the barostat's
-   generator restored in between, twice from one carry: the results must be
-   bitwise equal (no float atomics anywhere);
+   final step, BAOAB, the drift latch with the slack and with a budget
+   on either side of the measured drift, and K7 on the strip layout of that
+   state (its force, force and energy, and BAOAB phase with the halo
+   refresh).  K6 is held to its plain version at the end of phase 7, on the
+   band layout of the N=100,000 fluid;
+4. run one culled segment, one NpT segment with the barostat's generator
+   restored in between, and one strip segment, twice from one carry: the
+   results must be bitwise equal (no float atomics anywhere);
 5. the NVT main path of ``bench.py`` on the port, with launch counts reset
    just before it: ``LennardJonesFluid(4000, 0.8)``, 1000 dense BAOAB steps
    at 120 K and 2 fs, then the culled runner (S=40, slack 0.15) for 3000
@@ -27,13 +31,31 @@ Phases (any failure raises, and the script exits nonzero):
    slack 0.2) for 3000 steps, then the dense NpT runner for 500 steps; 120
    and 20 attempts, ``check()`` clean, the carried energy equal to a fresh
    K5 pass within 1e-6, K5 within 1e-5 of the f64 oracle, T_kin within 5%,
-   and all five kernels launched.
+   and all five kernels launched;
+7. the band path, counted: ``make_lj_runner(engine="auto")`` on
+   ``LennardJonesFluid(100000, 0.8)`` must return the band runner; from the
+   lattice, 2000 steps to melt and thermalise, then a timed 1000-step
+   window; ``check()`` clean, the runner's K1 energy finite, T_kin within
+   5%, K6's force and K1 launched (the counts are read here).  Then the K1
+   energy within 1e-5 of K6's single-count energy, K6 against its plain
+   version on that state, and a repeated band step (through the re-sort and
+   without it) bitwise equal;
+8. the strip path, counted: ``make_lj_runner(engine="strip")`` at N=4000
+   from phase 5's state (S=50, slack 0.3) for 3000 steps; ``check()``
+   clean, ``strip_baoab``, the strip force, the latch and K1 launched (the
+   counts are read after the runner's ``energy``); the K1 and K7 energies
+   within 1e-5 of the f64 oracle, T_kin within 5%; and ``engine="auto"``
+   returns the dense runner at N=1000 and the culled runner at N=4000.
 
-The ``kernels`` line gives each kernel's launches in phase 6 (and in phase 5
-under ``launches_by_path``), its error and times, and its bound: the larger
-of the f32 operations its function needs over 67 TFLOP/s and its bytes (each
-input read once, each output written once) over 3.35 TB/s, from this run's
-shapes, list and pairs within the cutoff.
+The ``kernels`` line gives each kernel's launches on the four counted paths
+(phases 5-8, under ``launches_by_path``; ``launches`` is their sum), its
+error and times, and its bound.  K6's and K7's energy passes run on no
+runner's path (both runners take their energy from K1, as in the JAX
+package): they are held to their plain versions in [3] and [7] and show
+no launches.  The bound is the larger of the f32 operations its
+function needs over 67 TFLOP/s and its bytes (each input read once, each
+output written once) over 3.35 TB/s, from this run's shapes, list and pairs
+within the cutoff.
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -45,6 +67,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 N = 4000
 DENSITY = 0.8
@@ -60,21 +83,38 @@ NPT_SEGMENT = 50
 NPT_SLACK = 0.2
 NPT_STEPS = 3000
 DENSE_NPT_STEPS = 500
+N_BAND = 100_000
+BAND_MELT_STEPS = 2000
+BAND_STEPS = 1000
+STRIP_STEPS = 3000
+# the kernels each counted path must launch.  No runner takes K6's or K7's
+# energy pass (the band and strip runners take their energy from K1, as the
+# JAX runners do): those two are held to their plain versions and listed
+# with no launches on any path.
+PATH_KERNELS = {
+    "nvt": ("lj_dense", "culled_force", "baoab", "tile_skin_drift"),
+    "npt": ("lj_dense", "culled_force", "culled_force_energy", "baoab",
+            "tile_skin_drift"),
+    "band": ("band_force", "lj_dense"),
+    "strip": ("strip_baoab", "strip_force", "tile_skin_drift", "lj_dense"),
+}
+OFF_PATH = ("band_force_energy", "strip_force_energy")
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): f32 outside the
 # tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # f32 operations a pair that the functions need (an FMA is 2).  Every
-# candidate pair takes the distance test: for K1 the three minimum-image
-# axes (subtract, scale, round, FMA: 5 each), r^2 (5) and the compare (1);
-# for the culled passes, whose x fold is done once a particle, dx (1), the
-# y and z trunc folds (5 each), r^2 and the compare.  Only the pairs within
+# candidate pair takes the distance test: for K1 and K6 the three
+# minimum-image axes (subtract, scale, round, FMA: 5 each), r^2 (5) and the
+# compare (1); for the culled passes, whose x fold is done once a particle,
+# and for K7, whose halo carries the x image, dx (1), the y and z folds (5
+# each), r^2 and the compare.  Only the pairs within
 # the cutoff take the LJ term: the reciprocal (1), i6 (2), the coefficient
 # (3), three force products and six sums into both particles; the energy
 # adds (i6 - 1) i6 and its sum.  The kernels run without branches and take
 # the LJ term on every candidate pair: that is their cost, not the bound.
-TEST_FLOPS = {"lj_dense": 21, "culled": 17}
+TEST_FLOPS = {"lj_dense": 21, "culled": 17, "band": 21, "strip": 17}
 LJ_FLOPS = 15
 ENERGY_FLOPS = 3
 # per lane: BAOAB's kick, drifts, wrap and half a Box-Muller pair; the
@@ -136,6 +176,27 @@ def _pairs_in_cutoff(x3, box_diag, n, cutoff):
     return count
 
 
+def _pairs_in_band(x3, box_diag, n, cutoff, w, chunk=512):
+    """Pairs of x-sorted live particles closer than the cutoff (f64), each
+    counted at its cyclic rank distance in [1, w]: every such pair while
+    the band runner's ``check()`` is clean."""
+    import torch
+
+    pos = x3[:, :n].T.double()
+    L = box_diag.reshape(3).double()
+    count = 0
+    for r0 in range(0, n, chunk):
+        rows = torch.arange(r0, min(r0 + chunk, n), device=pos.device)
+        cols = torch.arange(r0 + 1, r0 + chunk + w, device=pos.device) % n
+        d = pos[rows, None, :] - pos[None, cols, :]
+        d = d - L * torch.round(d / L)
+        r2 = (d * d).sum(-1)
+        delta = (cols[None, :] - rows[:, None]) % n
+        inside = (delta >= 1) & (delta <= w) & (r2 < cutoff * cutoff)
+        count += int(inside.sum())
+    return count
+
+
 def main():
     import torch
 
@@ -145,13 +206,20 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chiron_tpu_torch import units
     from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.ops import lj_band as lb
     from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.ops import lj_strip as ls
     from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy, lj_dense_plain
     from chiron_tpu_torch.oracles import lj_dense_oracle
     from chiron_tpu_torch.runtime import (
+        BandRunner,
+        CulledLJRunner,
+        FastLJRunner,
+        StripRunner,
         make_culled_lj_runner,
         make_culled_npt_lj_runner,
         make_fast_lj_runner,
+        make_lj_runner,
         make_npt_lj_runner,
     )
     from chiron_tpu_torch.testsystems import LennardJonesFluid
@@ -391,6 +459,100 @@ def main():
         replaces="chiron_tpu/ops/lj_cull.py:984", max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
+    # K7: the halo-strip kernels on the strip layout of the melted state
+    strip = make_lj_runner(engine="strip", box_vectors=box, **common)
+    _require(isinstance(strip, StripRunner), f"strip engine {type(strip)}")
+    s0 = strip.init(fast.positions(fs), box, seed=7)
+    smd = strip.md
+    H, tm = smd.H, smd.tm
+    sargs = (s0.x, box_diag, N, tm, H, sig, eps, cut)
+    print(f"    strip layout: tm={tm}, H={H}, n_pad={smd.n_pad}, strip width "
+          f"{tm + H}")
+    Fp, Ep = ls.strip_force_plain(*sargs, with_energy=True)
+    Fk, Ek = ls.strip_force_energy(*sargs)
+    Fa = ls.strip_force(*sargs, approx_recip=True)
+    scale = float(Fp.abs().max())
+    diff = (Fk - Fp)[:, :N].abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+    err_a = float((Fa - Fk).abs().max()) / scale
+    e_rel = abs(float(Ek) - float(Ep)) / abs(float(Ep))
+    _, e_k1 = lj_dense_force_energy(
+        torch.where(strip.valid, s0.x[:, :n_pad], 0.0), box_diag, N, sig, eps,
+        cut)
+    e_rel_k1 = abs(float(Ek) - float(e_k1)) / abs(float(e_k1))
+    _require(err < 0.05 and p99 < 1e-5, f"K7 force err {err}, p99 {p99}")
+    _require(float(Fk[:, N:].abs().max()) == 0.0, "K7 force padding")
+    _require(err_a < 1e-4, f"K7 approx vs exact rel err {err_a}")
+    _require(e_rel < 1e-5 and e_rel_k1 < 1e-5,
+             f"K7 energy rel err {e_rel} (plain), {e_rel_k1} (K1)")
+    in_cut = _pairs_in_cutoff(s0.x, box_diag, N, cut)
+    nr = n_pad // tm
+    slots = n_pad * (tm + H) - nr * tm * (tm + 1) // 2
+    xe_bytes = 3 * (n_pad + H) * 4
+    for name, energy, line in (("strip_force", False, 477),
+                               ("strip_force_energy", True, 526)):
+        def call(energy=energy):
+            if energy:
+                return ls.strip_force_energy(*sargs)
+            return ls.strip_force(*sargs, approx_recip=True)
+
+        ms = _cuda_ms(call)
+        plain_ms = _cuda_ms(lambda energy=energy: ls.strip_force_plain(
+            *sargs, with_energy=energy), reps=5)
+        bound_ms, bound_by = _bound(
+            slots * TEST_FLOPS["strip"]
+            + in_cut * (LJ_FLOPS + (ENERGY_FLOPS if energy else 0)),
+            xe_bytes + 12 + lane_bytes + (4 if energy else 0))
+        _report(f"{name} (exact vs plain, max abs tol 0.05)", err, 0.05, ms,
+                plain_ms)
+        results[name] = dict(
+            source="chiron_tpu_torch/csrc/lj_strip.cu",
+            replaces=f"chiron_tpu/ops/lj_strip.py:{line}", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"  strip force p99 rel err {p99:.3e} (tolerance 1e-5), approx vs "
+          f"exact rel {err_a:.3e} (1e-4), energy rel {e_rel:.3e} to plain "
+          f"and {e_rel_k1:.3e} to K1 (1e-5)")
+    print(f"    pairs: {slots} strip slots ({nr} row tiles x {tm + H} "
+          f"columns, less the leading triangles), {in_cut} within the "
+          f"cutoff; bound {results['strip_force']['bound_ms'] * 1e3:.3f} us "
+          f"({results['strip_force']['bound_by']})")
+
+    # K7's BAOAB phase with the halo refresh, in place on copies
+    w0 = s0.v - (0.5 * smd.dt) * s0.F * smd.minv
+    box1 = box_diag.reshape(-1)
+    xk, wk = s0.x.clone(), w0.clone()
+
+    def strip_phase():
+        ls.strip_baoab_(xk, wk, s0.F, smd.minv, smd.sigv, box1, SEED,
+                        s0.step, 3, N, H, smd.dt, smd.a, smd.b)
+
+    strip_phase()
+    xp, wp = ls.strip_baoab_plain(s0.x, w0, s0.F, smd.minv, smd.sigv, box1,
+                                  SEED, 3, N, H, smd.dt, smd.a, smd.b)
+    ex = float((xk - xp)[:, :N].abs().max())
+    ew = float((wk - wp).abs().max())
+    halo_x = float((xk[0, n_pad:] - (xk[0, :H] + box1[0])).abs().max())
+    _require(ex < 1e-5 and ew < 1e-4, f"strip baoab x err {ex}, v err {ew}")
+    _require(halo_x < 1e-4 and torch.equal(xk[1:, n_pad:], xk[1:, :H]),
+             f"strip halo is not the shifted center ({halo_x})")
+    ms = _cuda_ms(strip_phase)
+    plain_ms = _cuda_ms(lambda: ls.strip_baoab_plain(
+        s0.x, w0, s0.F, smd.minv, smd.sigv, box1, SEED, 3, N, H, smd.dt,
+        smd.a, smd.b))
+    print(f"  strip_baoab position err {ex:.3e} (tolerance 1e-5), halo equal "
+          f"to the shifted center ({halo_x:.1e} on x)")
+    _report("strip_baoab (velocity vs plain, tol 1e-4)", ew, 1e-4, ms,
+            plain_ms)
+    # reads x, w, F, 1/m, sigma_v, box, step; writes x with its halo, w
+    bound_ms, bound_by = _bound(3 * n_pad * LANE_FLOPS["baoab"],
+                                4 * lane_bytes + 2 * n_pad * 4 + 16
+                                + xe_bytes)
+    results["strip_baoab"] = dict(
+        source="chiron_tpu_torch/csrc/lj_strip.cu",
+        replaces="chiron_tpu/ops/lj_strip.py:308", max_abs_err=max(ex, ew),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
     # ---- 4. determinism ----
     seg = runner.segment_fn(SEGMENT)
     a, b = seg(c0), seg(c0)
@@ -410,8 +572,13 @@ def main():
                  "vmax_scale", "eval_peak"):
         _require(torch.equal(getattr(a, name), getattr(b, name)),
                  f"repeated NpT segment differs in {name}")
-    print("[4] a repeated culled segment, and a repeated NpT segment with its "
-          "generator restored, are bitwise identical")
+    a, b = strip.segment(s0, 50), strip.segment(s0, 50)
+    for name in ("x", "v", "F", "step", "overflowed"):
+        _require(torch.equal(getattr(a, name), getattr(b, name)),
+                 f"repeated strip segment differs in {name}")
+    print("[4] a repeated culled segment, a repeated NpT segment with its "
+          "generator restored, and a repeated strip segment are bitwise "
+          "identical")
 
     # ---- 5. the NVT main path, counted ----
     _build.reset_launch_counts()
@@ -444,11 +611,11 @@ def main():
 
     def t_kin(v):
         v = v.double()
-        return m * float((v * v).sum()) / (3 * N * units.kB_MD)
+        return m * float((v * v).sum()) / (3 * v.shape[0] * units.kB_MD)
 
     t5 = t_kin(runner.velocities(st))
     _require(abs(t5 - T_KELVIN) / T_KELVIN < 0.05, f"T_kin {t5}")
-    for name in ("lj_dense", "culled_force", "baoab", "tile_skin_drift"):
+    for name in PATH_KERNELS["nvt"]:
         _require(nvt_counts.get(name, 0) > 0, f"kernel {name} never launched")
     print(f"[5] NVT main path: check() passed, energy {energy:.6f} kJ/mol "
           f"(f64 oracle rel err {e_rel:.2e}), T_kin {t5:.3f} K, "
@@ -497,9 +664,6 @@ def main():
     _require(e_rel < 1e-5, f"NpT K5 energy rel err vs f64 oracle {e_rel}")
     t6 = t_kin(npt.velocities(ns))
     _require(abs(t6 - T_KELVIN) / T_KELVIN < 0.05, f"NpT T_kin {t6}")
-    for name in results:
-        _require(npt_counts.get(name, 0) > 0,
-                 f"kernel {name} never launched on the NpT path")
     print(f"[6] NpT ({P_ATM:g} atm, {T_KELVIN:g} K, attempt every "
           f"{NPT_INTERVAL} steps, S={NPT_SEGMENT}, slack {NPT_SLACK}): "
           f"check() passed; culled: {n_acc}/{n_prop} accepted "
@@ -511,14 +675,166 @@ def main():
     print(f"    culled NpT {npt_rate:.1f} steps/s, dense NpT "
           f"{dense_npt_rate:.1f} steps/s (N={N}, {smi})")
 
-    kernels = [dict(
-        name=name, route="cuda", source=r["source"], replaces=r["replaces"],
-        launches=npt_counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-        bound_by=r["bound_by"], library_ms=None,
-        launches_by_path={"nvt": nvt_counts.get(name, 0),
-                          "npt": npt_counts[name]},
-    ) for name, r in results.items()]
+    # ---- 7. the band path at full size, counted ----
+    big = LennardJonesFluid(nparticles=N_BAND, reduced_density=DENSITY)
+    bbox = big.box_vectors.value_in_unit_system(units.md_unit_system)
+    bpos = big.positions.value_in_unit_system(units.md_unit_system)
+    bcommon = dict(common, potential=big.potential, n_particles=N_BAND,
+                   topology=big.topology)
+    _build.reset_launch_counts()
+    br = make_lj_runner(box_vectors=bbox, **bcommon)
+    _require(isinstance(br, BandRunner), f"auto at N={N_BAND}: {type(br)}")
+    bs = br.init(bpos, bbox, seed=SEED)
+    bs = br.run(bs, BAND_MELT_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs = br.run(bs, BAND_STEPS)
+    torch.cuda.synchronize()
+    band_rate = BAND_STEPS / (time.perf_counter() - t0)
+    br.check(bs)
+    e_k1 = float(br.energy(bs))
+    band_counts = dict(_build.launches)
+    _, e_k6 = br.band.force_energy(bs.x, bs.box_diag)
+    e_k6 = float(e_k6)
+    e_rel = abs(e_k1 - e_k6) / abs(e_k6)
+    _require(math.isfinite(e_k1) and e_rel < 1e-5,
+             f"band energy K1 {e_k1} vs K6 {e_k6}")
+    t7 = t_kin(br.velocities(bs))
+    _require(abs(t7 - T_KELVIN) / T_KELVIN < 0.05, f"band T_kin {t7}")
+    band, w, btm = br.band, br.band.w, br.band.tm
+    bn_pad = br.n_pad
+    slots = bn_pad * lb.n_band_tiles(w, btm, bn_pad // btm) * btm
+    print(f"[7] band path (N={N_BAND}, L={float(bs.box_diag[0, 0]):.3f} nm, "
+          f"n_pad={bn_pad}, tm={btm}, w={w}, {slots} band slots a step): "
+          f"check() passed, energy K1 {e_k1:.3f} vs K6 {e_k6:.3f} kJ/mol "
+          f"(rel {e_rel:.2e}), T_kin {t7:.3f} K, launches {band_counts}")
+    print(f"    band {band_rate:.1f} steps/s over {BAND_STEPS} steps after "
+          f"{BAND_MELT_STEPS} from the lattice (N={N_BAND}, {smi})")
+
+    # K6 against its plain version on the band layout, then determinism
+    bargs = (bs.x, bs.box_diag, N_BAND, w, sig, eps, cut, btm)
+    Fp, Ep = lb.band_force_plain(*bargs, with_energy=True)
+    Fk, Ek = lb.band_force_energy(*bargs)
+    Fa = lb.band_force(*bargs)
+    scale = float(Fp.abs().max())
+    diff = (Fk - Fp)[:, :N_BAND].abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+    err_a = float((Fa - Fk).abs().max()) / scale
+    e_rel = abs(float(Ek) - float(Ep)) / abs(float(Ep))
+    e_rel_k1 = abs(float(Ek) - e_k1) / abs(e_k1)
+    _require(err < 0.05 and p99 < 1e-5, f"K6 force err {err}, p99 {p99}")
+    _require(float(Fk[:, N_BAND:].abs().max()) == 0.0, "K6 force padding")
+    _require(err_a < 1e-4, f"K6 approx vs exact rel err {err_a}")
+    _require(e_rel < 1e-5 and e_rel_k1 < 1e-5,
+             f"K6 energy rel err {e_rel} (plain), {e_rel_k1} (K1)")
+    noise = torch.randn(bs.x.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    stale = replace(bs, ref_x=bs.ref_x - 2.0 * band.margin)
+    for carry, what in ((bs, "in order"), (stale, "through the re-sort")):
+        a, b = br.step(carry, noise), br.step(carry, noise)
+        for name in ("x", "v", "F", "ref_x", "overflowed"):
+            _require(torch.equal(getattr(a, name), getattr(b, name)),
+                     f"repeated band step {what} differs in {name}")
+    _require(not torch.equal(br.step(stale, noise).ref_x, bs.ref_x),
+             "the stale carry was not re-sorted")
+    in_cut = _pairs_in_band(bs.x, bs.box_diag, N_BAND, cut, w)
+    lane_bytes = 3 * bn_pad * 4
+    for name, energy, line in (("band_force", False, 160),
+                               ("band_force_energy", True, 188)):
+        def call(energy=energy):
+            if energy:
+                return lb.band_force_energy(*bargs)
+            return lb.band_force(*bargs)
+
+        ms = _cuda_ms(call)
+        plain_ms = _cuda_ms(lambda energy=energy: lb.band_force_plain(
+            *bargs, with_energy=energy), reps=2)
+        bound_ms, bound_by = _bound(
+            N_BAND * w * TEST_FLOPS["band"]
+            + in_cut * (LJ_FLOPS + (ENERGY_FLOPS if energy else 0)),
+            2 * lane_bytes + 12 + (4 if energy else 0))
+        _report(f"{name} (exact vs plain, max abs tol 0.05)", err, 0.05, ms,
+                plain_ms)
+        results[name] = dict(
+            source="chiron_tpu_torch/csrc/lj_band.cu",
+            replaces=f"chiron_tpu/ops/lj_band.py:{line}", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"  K6 (band layout at the end of [7]): p99 rel err {p99:.3e} "
+          f"(tolerance 1e-5), approx vs exact rel {err_a:.3e} (1e-4), energy "
+          f"rel {e_rel:.3e} to plain and {e_rel_k1:.3e} to K1 (1e-5); a "
+          f"repeated step, in order and through the re-sort, is bitwise "
+          f"identical")
+    print(f"    pairs: {N_BAND * w} band distance tests (n x w), {in_cut} "
+          f"within the cutoff; bound "
+          f"{results['band_force']['bound_ms'] * 1e3:.3f} us "
+          f"({results['band_force']['bound_by']})")
+    del Fp, Fk, Fa, diff, bs, br
+
+    # ---- 8. the strip path, counted ----
+    _build.reset_launch_counts()
+    sr = make_lj_runner(engine="strip", box_vectors=box, **common)
+    ss = sr.init(melt, box, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss = sr.run(ss, STRIP_STEPS)
+    torch.cuda.synchronize()
+    strip_rate = STRIP_STEPS / (time.perf_counter() - t0)
+    sr.check(ss)
+    energy = float(sr.energy(ss))
+    strip_counts = dict(_build.launches)
+    # K7 on the layout the next segment would take: re-sorted, the halo
+    # rebuilt (a particle that wrapped in x mid-segment has lost its strip
+    # pairs until then, in the JAX package too)
+    centre = torch.where(sr.valid, ss.x[:, :sr.md.n_pad], ls._PAD_X)
+    _, e_k7 = sr.md.force_energy(
+        sr.md.extend(ls.sort_by_key_strip(centre, ())[0], ss.box_diag),
+        ss.box_diag)
+    e_k7 = float(e_k7)
+    _, e64 = lj_dense_oracle(sr.positions(ss).double(),
+                             torch.as_tensor(box, device=dev).double(), sig,
+                             eps, cut)
+    e_rel = abs(energy - float(e64)) / abs(float(e64))
+    e_rel7 = abs(e_k7 - float(e64)) / abs(float(e64))
+    _require(math.isfinite(energy) and e_rel < 1e-5 and e_rel7 < 1e-5,
+             f"strip energy rel err vs f64 oracle {e_rel} (K1), {e_rel7} (K7)")
+    t8 = t_kin(sr.velocities(ss))
+    _require(abs(t8 - T_KELVIN) / T_KELVIN < 0.05, f"strip T_kin {t8}")
+    small = LennardJonesFluid(nparticles=1000, reduced_density=DENSITY)
+    auto_small = make_lj_runner(
+        box_vectors=small.box_vectors.value_in_unit_system(
+            units.md_unit_system),
+        **dict(common, potential=small.potential, n_particles=1000,
+               topology=small.topology))
+    auto_mid = make_lj_runner(box_vectors=box, **common)
+    _require(type(auto_small) is FastLJRunner
+             and type(auto_mid) is CulledLJRunner,
+             f"auto picks {type(auto_small)} at N=1000, {type(auto_mid)} at "
+             f"N={N}")
+    print(f"[8] strip path (N={N}, S={sr.segment_steps}, slack "
+          f"{sr.md.slack}, H={sr.md.H}): check() passed, energy K1 "
+          f"{energy:.6f}, K7 {e_k7:.6f} kJ/mol (f64 oracle rel {e_rel:.2e}, "
+          f"{e_rel7:.2e}), T_kin {t8:.3f} K, launches {strip_counts}; auto "
+          f"picks FastLJRunner at N=1000 and CulledLJRunner at N={N}")
+    print(f"    strip {strip_rate:.1f} steps/s (N={N}, {smi})")
+
+    counts = {"nvt": nvt_counts, "npt": npt_counts, "band": band_counts,
+              "strip": strip_counts}
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            _require(counts[path].get(name, 0) > 0,
+                     f"kernel {name} never launched on the {path} path")
+    kernels = []
+    for name, r in results.items():
+        by_path = {path: c.get(name, 0) for path, c in counts.items()}
+        _require(name in OFF_PATH or sum(by_path.values()) > 0,
+                 f"kernel {name} never launched")
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], launches=sum(by_path.values()),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            launches_by_path=by_path))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,17 +22,6 @@
 
 namespace {
 
-constexpr float kTwoPi = 6.2831853071795864f;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t z) {
-  z = z ^ (z >> 16);
-  z = z * 0x85EBCA6Bu;
-  z = z ^ (z >> 13);
-  z = z * 0xC2B2AE35u;
-  z = z ^ (z >> 16);
-  return z;
-}
-
 __global__ void baoab_phase(float* __restrict__ x, float* __restrict__ w,
                             float* __restrict__ F,
                             const float* __restrict__ minv,
@@ -48,15 +37,8 @@ __global__ void baoab_phase(float* __restrict__ x, float* __restrict__ w,
   const int col = lane - row * half;
   const uint32_t step = static_cast<uint32_t>(s) +
                         static_cast<uint32_t>(step_offset[0]);
-  const uint32_t base = seed * 0x9E3779B9u + step * 0x85EBCA6Bu;
-  const uint32_t ul = static_cast<uint32_t>(lane);
-  const uint32_t c1 = (ul * 2u) * 0x9E3779B9u + base;
-  const uint32_t c2 = (ul * 2u + 1u) * 0x9E3779B9u + base;
-  float u1 = static_cast<float>(static_cast<int>(mix32(c1) >> 8)) *
-             (1.0f / 16777216.0f);
-  const float u2 = static_cast<float>(static_cast<int>(mix32(c2) >> 8)) *
-                   (1.0f / 16777216.0f);
-  u1 = fmaxf(u1, 1e-7f);
+  float u1, u2;
+  lane_uniforms(seed, step, static_cast<uint32_t>(lane), u1, u2);
   const float r = sqrtf(-2.0f * logf(u1));
   const float theta = kTwoPi * u2;
   const float noise[2] = {r * cosf(theta), r * sinf(theta)};

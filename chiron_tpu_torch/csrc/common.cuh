@@ -42,3 +42,136 @@ __device__ __forceinline__ void kahan_add(float& acc, float& comp, float term) {
   comp = (t - acc) - y;
   acc = t;
 }
+
+// The O-step noise of the JAX MD kernels (lj_cull.py:545, lj_strip.py:215):
+// splitmix32 counters 2 lane and 2 lane + 1, times 0x9E3779B9, plus
+// seed 0x9E3779B9 + step 0x85EBCA6B; the finaliser below; (mix >> 8) 2^-24.
+// The callers differ in how lanes are numbered and which Box-Muller
+// branches they keep.
+constexpr float kTwoPi = 6.2831853071795864f;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t z) {
+  z = z ^ (z >> 16);
+  z = z * 0x85EBCA6Bu;
+  z = z ^ (z >> 13);
+  z = z * 0xC2B2AE35u;
+  z = z ^ (z >> 16);
+  return z;
+}
+
+// The uniform pair of `lane` at `step`, u1 clamped at 1e-7 for the log.
+__device__ __forceinline__ void lane_uniforms(uint32_t seed, uint32_t step,
+                                              uint32_t lane, float& u1,
+                                              float& u2) {
+  const uint32_t base = seed * 0x9E3779B9u + step * 0x85EBCA6Bu;
+  const uint32_t c1 = (lane * 2u) * 0x9E3779B9u + base;
+  const uint32_t c2 = (lane * 2u + 1u) * 0x9E3779B9u + base;
+  u1 = fmaxf(static_cast<float>(static_cast<int>(mix32(c1) >> 8)) *
+                 (1.0f / 16777216.0f),
+             1e-7f);
+  u2 = static_cast<float>(static_cast<int>(mix32(c2) >> 8)) *
+       (1.0f / 16777216.0f);
+}
+
+// The tiled pair passes (lj_cull_force.cu, lj_band.cu, lj_strip.cu) run
+// kThreads threads a block as kRG row groups by kCG column groups.  A block
+// writes partial sums to slots of its own, and a gather kernel adds them
+// per particle.  Every sum below has one order, so a repeated call is
+// bitwise identical.
+namespace pair_pass {
+
+constexpr int kRG = 16;              // row groups per block
+constexpr int kCG = 16;              // column groups per block
+constexpr int kThreads = kRG * kCG;  // 256
+
+// After a column tile of width w: red[kRG][3][w] holds each row group's
+// column sums; write their total over the row groups to R (3 x w).
+__device__ __forceinline__ void store_col_partials(const float* red, int w,
+                                                   float* R) {
+  for (int t = threadIdx.x; t < w; t += kThreads) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float s = 0.0f;
+      for (int g = 0; g < kRG; ++g) s += red[(g * 3 + a) * w + t];
+      R[a * w + t] = s;
+    }
+  }
+}
+
+// After the last column tile: the thread's RPT row sums go through
+// red[kCG][3][tm], and their total over the column groups to P (three rows
+// of stride n_pad, starting at the row tile's first row).
+template <int RPT>
+__device__ __forceinline__ void store_row_partials(
+    float* red, int tm, const float (&fx)[RPT], const float (&fy)[RPT],
+    const float (&fz)[RPT], float* P, int n_pad) {
+  const int rg = threadIdx.x / kCG, cg = threadIdx.x % kCG;
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int r = rg * RPT + u;
+    red[(cg * 3 + 0) * tm + r] = fx[u];
+    red[(cg * 3 + 1) * tm + r] = fy[u];
+    red[(cg * 3 + 2) * tm + r] = fz[u];
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < tm; r += kThreads) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float s = 0.0f;
+      for (int g = 0; g < kCG; ++g) s += red[(g * 3 + a) * tm + r];
+      P[static_cast<size_t>(a) * n_pad + r] = s;
+    }
+  }
+}
+
+// The block's energy: the threads' sums, Kahan-added in thread order, to
+// *out.
+__device__ __forceinline__ void store_energy_partial(float* red, float e,
+                                                     float* out) {
+  __syncthreads();
+  red[threadIdx.x] = e;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float acc = 0.0f, comp = 0.0f;
+    for (int t = 0; t < kThreads; ++t) kahan_add(acc, comp, red[t]);
+    *out = acc - comp;
+  }
+}
+
+// In the gather: particle q's row partials from the n_split blocks of its
+// row tile, in block order.
+__device__ __forceinline__ void sum_row_partials(const float* P, int n_split,
+                                                 int n_pad, int q,
+                                                 float (&f)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float s = 0.0f;
+    for (int sp = 0; sp < n_split; ++sp)
+      s += P[(static_cast<size_t>(sp) * 3 + a) * n_pad + q];
+    f[a] = s;
+  }
+}
+
+// The call's energy: the blocks' partials, Kahan-added in order.
+__device__ __forceinline__ float sum_energy_partials(const float* e_part,
+                                                     int n_parts) {
+  float acc = 0.0f, comp = 0.0f;
+  for (int k = 0; k < n_parts; ++k) kahan_add(acc, comp, e_part[k]);
+  return acc - comp;
+}
+
+// Launch a pass kernel of kThreads threads with `smem` bytes of dynamic
+// shared memory (more than the default 48 KB needs the attribute).
+template <typename Params>
+cudaError_t launch_pass(void (*kernel)(Params), dim3 grid, size_t smem,
+                        cudaStream_t s, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace pair_pass

@@ -38,11 +38,9 @@
 // that step's energy equals a K5 pass on the same list bit for bit.
 #include "common.cuh"
 
-namespace {
+using namespace pair_pass;
 
-constexpr int kRG = 16;              // row groups per block
-constexpr int kCG = 16;              // column groups per block
-constexpr int kThreads = kRG * kCG;  // 256
+namespace {
 
 struct Params {
   const float* x;       // (3, n_pad) wrapped positions
@@ -151,44 +149,13 @@ __global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
       red[(rg * 3 + 2) * tn + t] = cz_sum;
     }
     __syncthreads();
-    float* Rk = p.R + static_cast<size_t>(k) * 3 * tn;
-    for (int t = tid; t < tn; t += kThreads) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float s = 0.0f;
-        for (int g = 0; g < kRG; ++g) s += red[(g * 3 + a) * tn + t];
-        Rk[a * tn + t] = s;
-      }
-    }
+    store_col_partials(red, tn, p.R + static_cast<size_t>(k) * 3 * tn);
   }
-
-  __syncthreads();
-#pragma unroll
-  for (int u = 0; u < RPT; ++u) {
-    const int r = rg * RPT + u;
-    red[(cg * 3 + 0) * tm + r] = fx[u];
-    red[(cg * 3 + 1) * tm + r] = fy[u];
-    red[(cg * 3 + 2) * tm + r] = fz[u];
-  }
-  __syncthreads();
-  for (int r = tid; r < tm; r += kThreads) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float s = 0.0f;
-      for (int g = 0; g < kCG; ++g) s += red[(g * 3 + a) * tm + r];
-      p.P[(static_cast<size_t>(split) * 3 + a) * n_pad + row0 + r] = s;
-    }
-  }
-  if constexpr (kEnergy) {
-    __syncthreads();
-    red[tid] = ea;
-    __syncthreads();
-    if (tid == 0) {
-      float acc = 0.0f, comp = 0.0f;
-      for (int t = 0; t < kThreads; ++t) kahan_add(acc, comp, red[t]);
-      p.e_part[i * n_split + split] = acc - comp;
-    }
-  }
+  store_row_partials<RPT>(
+      red, tm, fx, fy, fz, p.P + static_cast<size_t>(split) * 3 * n_pad + row0,
+      n_pad);
+  if constexpr (kEnergy)
+    store_energy_partial(red, ea, p.e_part + i * n_split + split);
 }
 
 __global__ void cull_gather(Params p, int n_split, int n_parts) {
@@ -196,13 +163,7 @@ __global__ void cull_gather(Params p, int n_split, int n_parts) {
   if (q >= p.n_pad) return;
   const int c = q / p.tn, t = q - c * p.tn;
   float f[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float s = 0.0f;
-    for (int sp = 0; sp < n_split; ++sp)
-      s += p.P[(static_cast<size_t>(sp) * 3 + a) * p.n_pad + q];
-    f[a] = s;
-  }
+  sum_row_partials(p.P, n_split, p.n_pad, q, f);
   const int count = p.count[0];
   for (int k = 0; k < count; ++k) {
     if (p.cols[k] != c) continue;
@@ -213,30 +174,17 @@ __global__ void cull_gather(Params p, int n_split, int n_parts) {
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) p.F[a * p.n_pad + q] = p.eps_scale * f[a];
-  if (p.energy != nullptr && q == 0) {
-    float acc = 0.0f, comp = 0.0f;
-    for (int k = 0; k < n_parts; ++k) kahan_add(acc, comp, p.e_part[k]);
-    p.energy[0] = p.e_scale * (acc - comp);
-  }
-}
-
-template <int RPT, bool kEnergy>
-cudaError_t launch_rows_mode(const Params& p, int nr, int n_split,
-                             size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cull_rows<RPT, kEnergy>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cull_rows<RPT, kEnergy><<<dim3(nr, n_split), kThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  if (p.energy != nullptr && q == 0)
+    p.energy[0] = p.e_scale * sum_energy_partials(p.e_part, n_parts);
 }
 
 template <int RPT>
 cudaError_t launch_rows(const Params& p, int nr, int n_split, size_t smem,
                         cudaStream_t s) {
+  const dim3 grid(nr, n_split);
   return p.energy != nullptr
-             ? launch_rows_mode<RPT, true>(p, nr, n_split, smem, s)
-             : launch_rows_mode<RPT, false>(p, nr, n_split, smem, s);
+             ? launch_pass(cull_rows<RPT, true>, grid, smem, s, p)
+             : launch_pass(cull_rows<RPT, false>, grid, smem, s, p);
 }
 
 }  // namespace

@@ -16,7 +16,7 @@ from .integrators import LangevinCarry
 from .ops.lj_cull import TilePairList
 from .ops.lj_dense import box_diagonal
 from .potential import LJPotential
-from .runtime import CullCarry, CullNPTCarry, NPTCarry
+from .runtime import BandCarry, CullCarry, CullNPTCarry, NPTCarry, StripCarry
 from .topology import Topology
 
 
@@ -124,4 +124,29 @@ def npt_carry(x, v, F, U, box, vmax_scale, n_accepted, n_proposed, step,
         n_accepted=_i32(n_accepted, device),
         n_proposed=_i32(n_proposed, device),
         step=int(step),
+    )
+
+
+def band_carry(x, v, F, ref_x, box, overflowed, device,
+               seed: int = 0) -> BandCarry:
+    """A ``BandCarry`` from arrays in the JAX carry's layout; ``seed``
+    seeds the generator that takes the place of the JAX key."""
+    return BandCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device), ref_x=_t(ref_x, np.float32, device),
+        box_diag=box_diagonal(box, device),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
+        generator=_generator(device, seed),
+    )
+
+
+def strip_carry(x, v, F, step, box, overflowed, device) -> StripCarry:
+    """A ``StripCarry`` from arrays in the JAX carry's layout (``x`` the
+    (3, n_pad + H) extended positions)."""
+    return StripCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device),
+        step=_t(step, np.int32, device).reshape(1, 1),
+        box_diag=box_diagonal(box, device),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
     )

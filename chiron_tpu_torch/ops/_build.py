@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``csrc/`` and bind them with ctypes.
 
-``library()`` compiles every ``csrc/*.cu`` with one ``nvcc`` call into a
-shared library with a plain C interface, under ``_build/<hash>/`` beside the
-package (listed in ``.gitignore``), and loads it.  The directory name is a
+``library()`` compiles every ``csrc/*.cu`` into an object file, one ``nvcc``
+process for each source, all started together, links them into a shared
+library with a plain C interface under ``_build/<hash>/`` beside the package
+(listed in ``.gitignore``), and loads it.  The directory name is a
 hash of the sources and the flags, so an edited source never loads a stale
 library and a fresh checkout builds on first use.  A missing ``nvcc``, a
 failed build and a nonzero error code from a launch all raise.
@@ -29,9 +30,12 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libchiron_kernels.so"
+# the tiled pair passes (csrc/common.cuh) split each row tile's work over
+# this many blocks
+PASS_SPLIT = 4
 
 launches: collections.Counter = collections.Counter()
 
@@ -45,6 +49,14 @@ _SIGNATURES = {
     "chiron_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _F, _F, _F, _F, _P),
     "chiron_drift": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "chiron_band_force": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _I, _P),
+    "chiron_strip_baoab": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _I, _I, _F, _F, _F, _F, _P),
+    "chiron_strip_force": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _I, _P),
 }
 
 
@@ -84,16 +96,38 @@ def library() -> ctypes.CDLL:
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
+        tag = os.getpid()
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = (f"$ {' '.join(cmd)}\n# {seconds:.1f} s, exit {proc.returncode}\n"
-               f"{proc.stdout}{proc.stderr}")
+        jobs = []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], False
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{out}")
+            failed |= proc.returncode != 0
+        if not failed:
+            tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n"
+                       f"{proc.stdout}{proc.stderr}")
+            failed = proc.returncode != 0
+        log.append(f"# {time.perf_counter() - t0:.1f} s in all")
+        log = "".join(log)
         (out_dir / "build.log").write_text(log)
-        if proc.returncode != 0:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
             raise RuntimeError(f"nvcc failed building the kernels:\n{log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
@@ -132,6 +166,22 @@ def require(t, name: str, shape=None, dtype=None, device=None):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def pass_buffers(n_pad: int, n_row_tiles: int, n_slots: int, width: int,
+                 with_energy: bool, device):
+    """Outputs and scratch of a tiled pair pass: the (3, n_pad) force, the
+    row partials (PASS_SPLIT, 3, n_pad), the column partials (n_slots, 3,
+    width), the energy partials (n_row_tiles PASS_SPLIT,) and the (1,)
+    energy or None."""
+    import torch
+
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((3, n_pad), **f32),
+            torch.empty((PASS_SPLIT, 3, n_pad), **f32),
+            torch.empty((n_slots, 3, width), **f32),
+            torch.empty(n_row_tiles * PASS_SPLIT, **f32),
+            torch.empty(1, **f32) if with_energy else None)
 
 
 def check_cuda(t, name: str):

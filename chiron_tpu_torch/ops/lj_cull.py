@@ -30,8 +30,6 @@ from .diff import energy_with_force_gradient
 
 _TWO_PI = 6.2831853071795864
 _MASK32 = 0xFFFFFFFF
-# row-tile entry ranges are split over this many blocks of the force kernel
-FORCE_SPLIT = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -314,12 +312,8 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
             f"multiple of 16 up to 512, both dividing n_pad, and 3 box "
             f"lengths (got tm={tm}, tn={tn}, n_pad={n_pad})"
         )
-    f32 = dict(dtype=torch.float32, device=dev)
-    F = torch.empty((3, n_pad), **f32)
-    P = torch.empty((FORCE_SPLIT, 3, n_pad), **f32)
-    R = torch.empty((capacity, 3, tn), **f32)
-    e_part = torch.empty(nr * FORCE_SPLIT, **f32)
-    energy = torch.empty(1, **f32) if with_energy else None
+    F, P, R, e_part, energy = _build.pass_buffers(n_pad, nr, capacity, tn,
+                                                  with_energy, dev)
     inv_sigma = 1.0 / sigma
     _build.launch(
         kernel, "chiron_cull_force",
@@ -327,7 +321,7 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
         pairs.ccx.data_ptr(), pairs.ptr2.data_ptr(), pairs.rowcx.data_ptr(),
         pairs.count.data_ptr(), P.data_ptr(), R.data_ptr(), e_part.data_ptr(),
         F.data_ptr(), None if energy is None else energy.data_ptr(),
-        n, n_pad, tm, tn, FORCE_SPLIT, inv_sigma, 1.0 / inv_sigma,
+        n, n_pad, tm, tn, _build.PASS_SPLIT, inv_sigma, 1.0 / inv_sigma,
         (cutoff / sigma) ** 2, 48.0 * epsilon / sigma, 4.0 * epsilon,
         int(approx_recip), _build.stream_of(x3),
     )
@@ -391,25 +385,36 @@ def _mix32(z):
     return z ^ (z >> 16)
 
 
-def splitmix_counters(seed: int, step: int, n_pad: int, device="cpu"):
-    """The two splitmix32 counters of every (3, n_pad/2) lane at ``step``,
-    as int64 tensors holding uint32 values (``_baoab_phase``'s stream)."""
-    half = n_pad // 2
-    lane = torch.arange(3 * half, dtype=torch.int64, device=device).reshape(3, half)
+def lane_counters(seed: int, step: int, shape, device="cpu"):
+    """The two splitmix32 counters, 2 lane and 2 lane + 1, of every lane of
+    ``shape`` (numbered in row-major order) at ``step``, as int64 tensors
+    holding uint32 values (the JAX MD kernels' noise stream)."""
+    lane = torch.arange(shape[0] * shape[1], dtype=torch.int64,
+                        device=device).reshape(shape)
     base = ((seed & _MASK32) * 0x9E3779B9 + (step & _MASK32) * 0x85EBCA6B) & _MASK32
     c1 = ((lane * 2) * 0x9E3779B9 + base) & _MASK32
     c2 = ((lane * 2 + 1) * 0x9E3779B9 + base) & _MASK32
     return c1, c2
 
 
-def splitmix_noise_plain(seed: int, step: int, n_pad: int, device="cpu"):
-    """The (3, n_pad) standard-normal O-step noise of one step: two-output
-    Box-Muller on half the lanes (cos half | sin half)."""
-    c1, c2 = splitmix_counters(seed, step, n_pad, device)
+def counter_uniforms(c1, c2):
+    """The f32 uniform pair (mix >> 8) 2^-24 of the counters, u1 clamped at
+    1e-7 for the log."""
     scale = 1.0 / 16777216.0
     u1 = (_mix32(c1) >> 8).to(torch.int32).to(torch.float32) * scale
     u2 = (_mix32(c2) >> 8).to(torch.int32).to(torch.float32) * scale
-    u1 = torch.clamp_min(u1, 1e-7)
+    return torch.clamp_min(u1, 1e-7), u2
+
+
+def splitmix_counters(seed: int, step: int, n_pad: int, device="cpu"):
+    """The counters of every (3, n_pad/2) lane (``_baoab_phase``'s stream)."""
+    return lane_counters(seed, step, (3, n_pad // 2), device)
+
+
+def splitmix_noise_plain(seed: int, step: int, n_pad: int, device="cpu"):
+    """The (3, n_pad) standard-normal O-step noise of one step: two-output
+    Box-Muller on half the lanes (cos half | sin half)."""
+    u1, u2 = counter_uniforms(*splitmix_counters(seed, step, n_pad, device))
     r = torch.sqrt(-2.0 * torch.log(u1))
     theta = _TWO_PI * u2
     return torch.cat([r * torch.cos(theta), r * torch.sin(theta)], dim=1)

@@ -1,5 +1,9 @@
 """Runners of the LJ fluid in NVT and NpT (port of ``chiron_tpu/runtime.py``).
 
+``make_lj_runner`` picks one of four NVT engines by size and box, as the JAX
+package does: dense below N = 2048, culled up to 80,000, band above, and the
+halo-strip engine when asked for by name.
+
 ``make_fast_lj_runner`` is the dense BAOAB runner (K1 every step) that
 melts the lattice; ``make_culled_lj_runner`` is the production engine: each
 segment sorts the state by the spatial key, rebuilds the tile-pair list and
@@ -10,6 +14,11 @@ engine (K5 energies on a rescaled list, the drift budget as device data);
 loop of device work: only ``init`` and ``check`` wait for the device.
 Every factory runs on the card unless the caller passes ``device="cpu"``,
 where the kernels' plain versions run.
+
+``make_band_lj_runner`` steps x-sorted state on the band force (K6) and
+re-sorts when a particle has drifted past the margin, chosen on the device;
+``make_strip_lj_runner`` re-sorts at every segment and steps on the
+halo-strip kernels (K7).
 
 Ported knobs are the production ones.  Not ported (opt-in or measured as
 losing levers in the JAX package): ``megakernel``, ``fused_rebuild``,
@@ -35,8 +44,11 @@ from .ops.lj_cull import (
     slab_y_key,
     sort_by_key,
     tile_frame_scale_floor,
+    tile_skin_drift_bad,
 )
+from .ops.lj_band import LJBand, band_width_needed, sort_by_x
 from .ops.lj_dense import LJDense, box_diagonal
+from .ops.lj_strip import _PAD_X, StripLJMD, sort_by_key_strip
 
 
 def _md_constants(temperature, timestep, collision_rate):
@@ -238,18 +250,24 @@ def _culled_layout_init(md: CulledLJMD, dense: LJDense, positions,
     return x3s, box_diag, nslab, capacity, pairs
 
 
+def _uniform_masses(topology, engine: str) -> np.ndarray:
+    """The masses, which an engine that sorts particles needs identical."""
+    masses = np.asarray(topology.masses())
+    if not np.allclose(masses, masses[0]):
+        raise ValueError(
+            f"the {engine} runner permutes particle order and therefore "
+            "requires identical masses"
+        )
+    return masses
+
+
 def _culled_engine_setup(potential, n_particles, temperature, timestep,
                          collision_rate, topology, tm, tn, slack, device):
     """The CulledLJMD engine and the dense energy op on a common padding
     (``runtime.py:510-550``).  Returns (md, dense)."""
     if topology is None:
         topology = potential.topology
-    masses_host = topology.masses()
-    if not np.allclose(masses_host, masses_host[0]):
-        raise ValueError(
-            "the culled runner permutes particle order and therefore "
-            "requires identical masses"
-        )
+    masses_host = _uniform_masses(topology, "culled")
     kT, dt, gamma = _md_constants(temperature, timestep, collision_rate)
     gran = math.lcm(128, tm, tn)
     common_pad = gran * ((n_particles + gran - 1) // gran)
@@ -857,3 +875,326 @@ def make_npt_lj_runner(
                      units.pressure_to_md(pressure), barostat_interval,
                      volume_max_scale, autotune, autotune_interval,
                      exact_forces)
+
+
+# ---------------------------------------------------------------------------
+# The band engine (K6) and the halo-strip engine (K7)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BandCarry:
+    """State of the band runner in the x-sorted (3, n_pad) layout."""
+
+    x: torch.Tensor           # (3, n_pad)
+    v: torch.Tensor           # (3, n_pad)
+    F: torch.Tensor           # (3, n_pad)
+    ref_x: torch.Tensor       # (n_pad,) x at the last sort
+    box_diag: torch.Tensor    # (1, 3)
+    overflowed: torch.Tensor  # () bool: the band width outgrew w
+    generator: torch.Generator  # O-step noise (the JAX carry's key)
+
+
+class BandRunner(FastLJRunner):
+    """Banded LJ Langevin runner for large N (``runtime.py:208-362``): the
+    dense runner's BAOAB step and ``run`` loop on the band force (K6), with
+    ``dense`` kept for ``energy`` and the padding helpers.
+
+    Each step re-sorts the whole state when some live particle's cyclic x
+    drift since the last sort has reached ``margin``: the JAX ``lax.cond``
+    as a choice on the device.  Sorting permutes particle identity:
+    ``positions(state)`` returns the internal order.
+    """
+
+    def __init__(self, band: LJBand, dense: LJDense, mass: float, kT: float,
+                 dt: float, gamma: float):
+        super().__init__(dense, np.full(band.n, mass), kT, dt, gamma,
+                         exact_forces=False)
+        self.band, self.dense = band, dense
+        # every lane, padding included, takes the one mass and sigma_v, as
+        # in JAX: the padding lanes drift and take noise like live ones
+        self.m_lane = torch.full_like(self.m_lane, mass)
+        self.sigma_v_lane = torch.full_like(
+            self.m_lane, float(np.float32(np.sqrt(kT / mass))))
+        self.valid = torch.arange(self.n_pad, device=band.device) < self.n
+
+    def init(self, positions, box_vectors, seed: int = 0) -> BandCarry:
+        """Sort, calibrate the band width from the sorted start, and draw
+        the velocities (on every lane, padding included, as in JAX)."""
+        band, dev = self.band, self.band.device
+        box_diag = box_diagonal(box_vectors, dev)
+        x3s, _ = sort_by_x(self.dense.pad_positions(positions), (), self.n)
+        band.calibrate(x3s, float(box_diag[0, 0]))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        v3 = self.sigma_v_lane * torch.randn((3, self.n_pad), generator=gen,
+                                             device=dev)
+        return BandCarry(
+            x=x3s, v=v3, F=band.force(x3s, box_diag), ref_x=x3s[0].clone(),
+            box_diag=box_diag,
+            overflowed=torch.zeros((), dtype=torch.bool, device=dev),
+            generator=gen,
+        )
+
+    def _sorted(self, x, v, state: BandCarry):
+        """(x, v, ref_x, overflowed) re-sorted by x, with the band width the
+        sorted state needs checked against w."""
+        xs, (vs,) = sort_by_x(x, (v,), self.n)
+        w_needed = band_width_needed(
+            torch.where(self.valid, xs[0], 3.0e38), self.n, self.band.reach,
+            state.box_diag[0, 0])
+        return xs, vs, xs[0], state.overflowed | (w_needed > self.band.w)
+
+    def _resort(self, x, v, state: BandCarry, stale):
+        """(x, v, ref_x, overflowed) after the re-sort where ``stale`` holds:
+        the sorted candidate, chosen on the device, so that no step waits
+        for the host (a host branch on ``stale`` won or lost by 2-4% with
+        the host's speed, ``PERF.md`` §6)."""
+        xs, vs, ref_x, overflowed = self._sorted(x, v, state)
+        return (torch.where(stale, xs, x), torch.where(stale, vs, v),
+                torch.where(stale, ref_x, state.ref_x),
+                torch.where(stale, overflowed, state.overflowed))
+
+    def step(self, state: BandCarry, noise) -> BandCarry:
+        """One BAOAB step with the given (3, n_pad) standard-normal noise,
+        with the re-sort where the state went stale."""
+        if self.band.w is None:
+            raise RuntimeError("call init() before stepping")
+        box = state.box_diag
+        Lx = box[0, 0]
+        x, v = self._baoa(state.x, state.v, state.F, box, noise)
+        dx = x[0] - state.ref_x
+        dx = dx - Lx * torch.round(dx / Lx)
+        stale = torch.any(torch.where(self.valid, torch.abs(dx), 0.0)
+                          >= self.band.margin)
+        x, v, ref_x, overflowed = self._resort(x, v, state, stale)
+        F = self.band.force(x, box)
+        return BandCarry(x=x, v=self._kick(v, F), F=F, ref_x=ref_x,
+                         box_diag=box, overflowed=overflowed,
+                         generator=state.generator)
+
+    def check(self, state: BandCarry):
+        if bool(state.overflowed):
+            raise RuntimeError(
+                "band runner invariant violated (band width exceeded the "
+                "calibrated w after a density fluctuation) -- increase "
+                "margin and re-run"
+            )
+
+    def energy(self, state: BandCarry):
+        return self.dense.force_energy_t(state.x, state.box_diag)[1]
+
+
+def make_band_lj_runner(
+    potential,
+    n_particles: int,
+    temperature=300.0 * units.kelvin,
+    timestep=2.0 * units.femtoseconds,
+    collision_rate=1.0 / units.picoseconds,
+    topology=None,
+    tm: int = 256,
+    margin: float = 0.15,
+    *,
+    device="cuda",
+) -> BandRunner:
+    """Banded (x-sorted) LJ Langevin runner for large N on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    if topology is None:
+        topology = potential.topology
+    mass = float(_uniform_masses(topology, "banded")[0])
+    kT, dt, gamma = _md_constants(temperature, timestep, collision_rate)
+    band = LJBand(n_particles, potential.sigma, potential.epsilon,
+                  potential.cutoff, margin=margin, tm=tm, device=device)
+    dense_tile = min(512, tm if tm >= 128 else 128)
+    dense = LJDense(n_particles, potential.sigma, potential.epsilon,
+                    potential.cutoff, tm=dense_tile, tn=dense_tile,
+                    n_pad=band.n_pad, device=device)
+    return BandRunner(band, dense, mass, kT, dt, gamma)
+
+
+@dataclass
+class StripCarry:
+    """State of the halo-strip runner in the x-sorted extended layout."""
+
+    x: torch.Tensor           # (3, n_pad + H) extended positions
+    v: torch.Tensor           # (3, n_pad)
+    F: torch.Tensor           # (3, n_pad)
+    step: torch.Tensor        # (1, 1) int32 cumulative step count
+    box_diag: torch.Tensor    # (1, 3)
+    overflowed: torch.Tensor  # () bool: band width or drift violation
+
+
+class StripRunner:
+    """Halo-strip LJ runner (``runtime.py:1308-1497``): every segment
+    re-sorts the state by x, checks the band width against the halo, and
+    advances S steps on K7; its drift latch (the top-2 joint drift from the
+    sort against the slack, or a live coordinate not finite) and the band
+    check latch into ``overflowed``.  Sorting permutes particle identity:
+    ``positions(state)`` returns the internal order."""
+
+    def __init__(self, md: StripLJMD, dense: LJDense, segment_steps: int,
+                 halo_headroom: float, exact_forces: bool):
+        self.md, self.dense = md, dense
+        self.segment_steps = segment_steps
+        self.halo_headroom = halo_headroom
+        self.exact_forces = exact_forces
+        self.seed = None  # the noise seed, set by init()
+        self.valid = torch.arange(md.n_pad, device=md.device) < md.n
+        self.reach = md.cutoff + md.slack
+
+    def _width(self, x3s, Lx):
+        return band_width_needed(torch.where(self.valid, x3s[0], 3.0e38),
+                                 self.md.n, self.reach, Lx)
+
+    def init(self, positions, box_vectors, seed: int = 0) -> StripCarry:
+        """Sort, fix the halo from the band width with headroom, draw the
+        velocities and take the first force."""
+        md = self.md
+        self.seed = seed
+        x3 = torch.where(self.valid, self.dense.pad_positions(positions),
+                         _PAD_X)
+        box_diag = box_diagonal(box_vectors, md.device)
+        x3s, _ = sort_by_key_strip(x3, ())
+        W = int(self._width(x3s, float(box_diag[0, 0])))
+        md.set_halo(int(W * self.halo_headroom) + md.tm + (md.n_pad - md.n))
+        xe = md.extend(x3s, box_diag)
+        gen = torch.Generator(device=md.device).manual_seed(seed)
+        v3 = md.sigv * torch.randn((3, md.n_pad), generator=gen,
+                                   device=md.device)
+        return StripCarry(
+            x=xe, v=v3,
+            F=md.force(xe, box_diag, approx_recip=not self.exact_forces),
+            step=torch.zeros((1, 1), dtype=torch.int32, device=md.device),
+            box_diag=box_diag,
+            overflowed=torch.zeros((), dtype=torch.bool, device=md.device),
+        )
+
+    def segment(self, state: StripCarry, n_steps: int) -> StripCarry:
+        """One segment: the sort, the band check, ``n_steps`` steps on K7
+        and the drift latch (the scan body of ``runtime.py:1412-1459``)."""
+        if self.seed is None:
+            raise RuntimeError("call init() before running a segment")
+        md = self.md
+        n, n_pad = md.n, md.n_pad
+        box = state.box_diag
+        center = state.x[:, :n_pad]
+        # before the sort, which may move a NaN key out of the live lanes
+        nonfinite = live_nonfinite(center, n)
+        center = torch.where(self.valid, center, _PAD_X)
+        x3s, (v3, F3) = sort_by_key_strip(center, (state.v, state.F))
+        # pad slots sit between rank n-1 and the halo, so a wrap-crossing
+        # row needs an array window of W + (n_pad - n)
+        overflowed = (state.overflowed | nonfinite
+                      | (self._width(x3s, box[0, 0]) + (n_pad - n) > md.H))
+        xe1, v1, F1 = md.run_segment(
+            md.extend(x3s, box), v3, F3, box, self.seed, state.step, n_steps,
+            approx_recip=not self.exact_forces)
+        drift_bad = tile_skin_drift_bad(xe1[:, :n_pad].contiguous(), x3s, n,
+                                        md.slack_t, box)
+        return StripCarry(x=xe1, v=v1, F=F1, step=state.step + n_steps,
+                          box_diag=box, overflowed=overflowed | drift_bad)
+
+    def run(self, state: StripCarry, n_steps: int) -> StripCarry:
+        """Whole segments of ``segment_steps``, then one for the rest."""
+        n_seg, rem = divmod(n_steps, self.segment_steps)
+        for _ in range(n_seg):
+            state = self.segment(state, self.segment_steps)
+        if rem:
+            state = self.segment(state, rem)
+        return state
+
+    def check(self, state: StripCarry):
+        if bool(state.overflowed):
+            raise RuntimeError(
+                "strip runner invariant violated (band width or per-segment "
+                "drift) -- reduce segment_steps or increase slack and re-run"
+            )
+
+    def energy(self, state: StripCarry):
+        center = torch.where(self.valid, state.x[:, :self.md.n_pad], 0.0)
+        return self.dense.force_energy_t(center, state.box_diag)[1]
+
+    def positions(self, state: StripCarry):
+        return state.x[:, :self.md.n].T
+
+    def velocities(self, state: StripCarry):
+        return state.v[:, :self.md.n].T
+
+
+def make_strip_lj_runner(
+    potential,
+    n_particles: int,
+    temperature=300.0 * units.kelvin,
+    timestep=2.0 * units.femtoseconds,
+    collision_rate=1.0 / units.picoseconds,
+    topology=None,
+    tm: int = 128,
+    slack: float = 0.3,
+    segment_steps: int = 50,
+    halo_headroom: float = 1.3,
+    exact_forces: bool = False,
+    *,
+    device="cuda",
+) -> StripRunner:
+    """Halo-strip LJ runner on ``device`` (the card by default); the noise
+    seed is ``init``'s."""
+    if topology is None:
+        topology = potential.topology
+    masses = _uniform_masses(topology, "strip")
+    kT, dt, gamma = _md_constants(temperature, timestep, collision_rate)
+    md = StripLJMD(n_particles, potential.sigma, potential.epsilon,
+                   potential.cutoff, masses_lane=masses,
+                   dt=dt, gamma=gamma, kT=kT, tm=tm, slack=slack,
+                   device=device)
+    dense = LJDense(n_particles, potential.sigma, potential.epsilon,
+                    potential.cutoff, tm=128, tn=128, n_pad=md.n_pad,
+                    device=device)
+    return StripRunner(md, dense, segment_steps, halo_headroom, exact_forces)
+
+
+def make_lj_runner(
+    potential,
+    n_particles: int,
+    box_vectors=None,
+    temperature=300.0 * units.kelvin,
+    timestep=2.0 * units.femtoseconds,
+    collision_rate=1.0 / units.picoseconds,
+    topology=None,
+    engine: str = "auto",
+    *,
+    device="cuda",
+    **kwargs,
+):
+    """The LJ engine for the system (``runtime.py:1536-1597``), on
+    ``device`` (the card by default).
+
+    ``engine="auto"`` takes the dense runner below N = 2048, for
+    non-uniform masses, or when the narrowest box side is at most
+    2.6 (cutoff + 0.3); the culled runner up to N = 80,000; the band runner
+    above.  ``"dense"``, ``"culled"``, ``"strip"`` and ``"band"`` choose
+    directly; ``kwargs`` go to the chosen factory.
+    """
+    if topology is None:
+        topology = potential.topology
+    masses = np.asarray(topology.masses())
+    uniform = bool(np.allclose(masses, masses[0]))
+    if engine == "auto":
+        wide_enough = True
+        if box_vectors is not None:
+            box = np.asarray(units.strip_md(box_vectors, units.nanometer))
+            wide_enough = float(np.diagonal(box).min()) > 2.6 * (
+                potential.cutoff + 0.3)
+        if n_particles < 2048 or not uniform or not wide_enough:
+            engine = "dense"
+        elif n_particles <= 80_000:
+            engine = "culled"
+        else:
+            engine = "band"
+    factories = {"dense": make_fast_lj_runner, "culled": make_culled_lj_runner,
+                 "strip": make_strip_lj_runner, "band": make_band_lj_runner}
+    if engine not in factories:
+        raise ValueError(
+            f"unknown engine {engine!r}; pick auto/dense/culled/strip/band")
+    return factories[engine](
+        potential=potential, n_particles=n_particles, topology=topology,
+        temperature=temperature, timestep=timestep,
+        collision_rate=collision_rate, device=device, **kwargs)

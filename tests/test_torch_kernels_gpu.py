@@ -9,6 +9,8 @@ GPU machine run them with
 They import no jax, so they run where jax is not installed.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -209,3 +211,132 @@ def test_kernel_wrappers_refuse_bad_inputs(carry):
     with pytest.raises(ValueError, match="dtype"):
         lj_dense_force_energy(c0.x.double(), c0.box_diag, N, pot.sigma,
                               pot.epsilon, pot.cutoff)
+
+
+def _jittered_fluid(n, seed=1):
+    fluid = LennardJonesFluid(nparticles=n, reduced_density=0.8)
+    md = units.md_unit_system
+    rng = np.random.default_rng(seed)
+    box = fluid.box_vectors.value_in_unit_system(md)
+    pos = fluid.positions.value_in_unit_system(md)
+    pos = ((pos + rng.normal(0, 0.01, pos.shape)) % box[0, 0]).astype(np.float32)
+    return fluid, pos, box
+
+
+@pytest.fixture(scope="module")
+def band_state(cuda):
+    from chiron_tpu_torch.runtime import make_band_lj_runner
+
+    n = 20000
+    fluid, pos, box = _jittered_fluid(n)
+    runner = make_band_lj_runner(
+        fluid.potential, n_particles=n, topology=fluid.topology,
+        temperature=120.0 * units.kelvin, device=cuda)
+    return runner, runner.init(pos, box, seed=2), fluid.potential
+
+
+def test_band_kernel_matches_plain(band_state):
+    from chiron_tpu_torch.ops import lj_band as lb
+
+    runner, st, pot = band_state
+    band = runner.band
+    args = (st.x, st.box_diag, band.n, band.w, pot.sigma, pot.epsilon,
+            pot.cutoff, band.tm)
+    Fp, Ep = lb.band_force_plain(*args, with_energy=True)
+    _build.reset_launch_counts()
+    Fk, Ek = lb.band_force_energy(*args)
+    Fa = lb.band_force(*args, approx_recip=True)
+    assert dict(_build.launches) == {"band_force_energy": 1, "band_force": 1}
+    scale = float(Fp.abs().max())
+    err = (Fk - Fp)[:, :band.n].abs()
+    assert float(err.max()) < 0.05
+    assert float(torch.quantile(err.flatten()[::7], 0.99)) / scale < 1e-5
+    assert float((Fa - Fk).abs().max()) / scale < 1e-4
+    assert float(Fk[:, band.n:].abs().max()) == 0.0
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    _, E1 = lj_dense_force_energy(st.x, st.box_diag, band.n, pot.sigma,
+                                  pot.epsilon, pot.cutoff)
+    assert abs(float(Ek) - float(E1)) / abs(float(E1)) < 1e-5
+    # bitwise repeatable, and the differentiable surface
+    assert torch.equal(lb.band_force(*args, approx_recip=True), Fa)
+    assert torch.equal(lb.band_force_energy(*args)[1], Ek)
+    pos = st.x.clone().requires_grad_(True)
+    band.energy_differentiable(pos, st.box_diag).backward()
+    assert torch.equal(pos.grad, -Fk)
+
+
+def test_band_step_is_bitwise_repeatable_and_never_waits(band_state):
+    runner, st, _ = band_state
+    noise = torch.randn(st.x.shape, device=st.x.device,
+                        generator=torch.Generator(st.x.device).manual_seed(5))
+    # an offset anchor forces the re-sort on the device-chosen path
+    stale = dataclasses.replace(st, ref_x=st.ref_x - 1.0)
+    for s in (st, stale):
+        a, b = runner.step(s, noise), runner.step(s, noise)
+        for name in ("x", "v", "F", "ref_x", "overflowed"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert not torch.equal(runner.step(stale, noise).ref_x, st.ref_x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = runner.run(st, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    runner.check(out)
+
+
+@pytest.fixture(scope="module")
+def strip_state(cuda):
+    from chiron_tpu_torch.runtime import make_strip_lj_runner
+
+    n = 4000
+    fluid, pos, box = _jittered_fluid(n)
+    runner = make_strip_lj_runner(
+        potential=fluid.potential, n_particles=n, topology=fluid.topology,
+        temperature=120.0 * units.kelvin, device=cuda)
+    return runner, runner.init(pos, box, seed=2), fluid.potential
+
+
+def test_strip_kernels_match_plain(strip_state):
+    from chiron_tpu_torch.ops import lj_strip as ls
+
+    runner, st, pot = strip_state
+    md = runner.md
+    n, n_pad, H = md.n, md.n_pad, md.H
+    args = (st.x, st.box_diag, n, md.tm, H, pot.sigma, pot.epsilon, pot.cutoff)
+    Fp, Ep = ls.strip_force_plain(*args, with_energy=True)
+    _build.reset_launch_counts()
+    Fk, Ek = ls.strip_force_energy(*args)
+    Fa = ls.strip_force(*args, approx_recip=True)
+    assert dict(_build.launches) == {"strip_force_energy": 1, "strip_force": 1}
+    scale = float(Fp.abs().max())
+    err = (Fk - Fp)[:, :n].abs()
+    assert float(err.max()) < 0.05
+    assert float(torch.quantile(err.flatten(), 0.99)) / scale < 1e-5
+    assert float((Fa - Fk).abs().max()) / scale < 1e-4
+    assert float(Fk[:, n:].abs().max()) == 0.0
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    # one BAOAB phase with the halo refresh
+    w = st.v - (0.5 * md.dt) * st.F * md.minv
+    xk, wk = st.x.clone(), w.clone()
+    step = torch.full((1, 1), 40, dtype=torch.int32, device=st.x.device)
+    box = st.box_diag.reshape(-1)
+    ls.strip_baoab_(xk, wk, st.F, md.minv, md.sigv, box, 77, step, 3, n, H,
+                    md.dt, md.a, md.b)
+    xp, wp = ls.strip_baoab_plain(st.x, w, st.F, md.minv, md.sigv, box, 77,
+                                  43, n, H, md.dt, md.a, md.b)
+    assert float((xk - xp)[:, :n].abs().max()) < 1e-5
+    assert float((wk - wp).abs().max()) < 1e-4
+    assert float((xk[0, n_pad:] - (xk[0, :H] + box[0])).abs().max()) < 1e-4
+    assert torch.equal(xk[1:, n_pad:], xk[1:, :H])
+
+
+def test_strip_segment_is_bitwise_repeatable_and_counted(strip_state):
+    runner, st, _ = strip_state
+    _build.reset_launch_counts()
+    a, b = runner.segment(st, 8), runner.segment(st, 8)
+    for name in ("x", "v", "F", "step", "overflowed"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert dict(_build.launches) == {"strip_baoab": 16, "strip_force": 16,
+                                     "tile_skin_drift": 2}
+    runner.check(a)

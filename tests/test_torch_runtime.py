@@ -187,3 +187,53 @@ def test_nan_x_coordinate_latches_as_in_jax():
     for r, s in ((jr, js), (tr, ts)):
         with pytest.raises(RuntimeError, match="invariant violated"):
             r.check(s)
+
+
+def _engine_cases():
+    """(label, n, rho, extra mass, box_vectors given): small, mid-size,
+    large, non-uniform masses, a narrow box."""
+    return [("small", 1000, 0.8, False, True), ("mid", 4000, 0.8, False, True),
+            ("large", 100_000, 0.8, False, False),
+            ("masses", 4000, 0.8, True, True), ("narrow", 2100, 3.0, False, True)]
+
+
+@pytest.mark.parametrize("label,n,rho,extra_mass,with_box", _engine_cases())
+def test_make_lj_runner_picks_the_jax_engine(label, n, rho, extra_mass,
+                                             with_box):
+    names = {"LangevinRunner": "FastLJRunner",
+             "CulledRunner": "CulledLJRunner",
+             "BandRunner": "BandRunner", "StripRunner": "StripRunner"}
+    picked = []
+    for rt, ts, units, kw in ((jrt, jts, ju, {}), (trt, tts, tu,
+                                                   {"device": "cpu"})):
+        fluid = ts.LennardJonesFluid(nparticles=2048 if n > 4000 else n,
+                                     reduced_density=rho)
+        if extra_mass:
+            fluid.topology.add_atom("x", "C")
+        box = None
+        if with_box:
+            box = fluid.box_vectors.value_in_unit_system(units.md_unit_system)
+        r = rt.make_lj_runner(fluid.potential, n + extra_mass, box_vectors=box,
+                              topology=fluid.topology,
+                              temperature=120.0 * units.kelvin, **kw)
+        picked.append(type(r).__name__)
+    assert names[picked[0]] == picked[1]
+    expect = {"small": "FastLJRunner", "mid": "CulledLJRunner",
+              "large": "BandRunner", "masses": "FastLJRunner",
+              "narrow": "FastLJRunner"}[label]
+    assert picked[1] == expect
+
+
+def test_make_lj_runner_by_name_and_unknown_name():
+    fluid, _, box = _setup(tts, tu)
+    kw = dict(potential=fluid.potential, n_particles=N, box_vectors=box,
+              topology=fluid.topology, device="cpu")
+    for engine, cls, extra in (("dense", trt.FastLJRunner, {}),
+                               ("culled", trt.CulledLJRunner, {"tm": 8}),
+                               ("strip", trt.StripRunner, {"tm": 8}),
+                               ("band", trt.BandRunner, {"tm": 64})):
+        r = trt.make_lj_runner(engine=engine, **kw, **extra)
+        assert type(r) is cls, engine
+    assert trt.make_lj_runner(engine="band", **kw).band.device.type == "cpu"
+    with pytest.raises(ValueError, match="unknown engine"):
+        trt.make_lj_runner(engine="cells", **kw)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's LJ paths goes, on one NVIDIA GPU: NVT and NpT
-at N=4000, the band runner at N=100,000 and the strip runner at N=4000.
+at N=4000, the band runner at N=100,000, the strip runner at N=4000 and the
+spatial runners at N=100,000.
 
     python3 chip_profile.py
 
@@ -27,7 +28,12 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    against a copy that reads ``stale`` on the host and sorts only when it
    holds, twice in the order device, host, host, device, with their end
    states required equal; then profiler rows of 50 band and 100 culled steps; and
-   400 steps of the strip runner at N=4000 from the culled NVT state.
+   400 steps of the strip runner at N=4000 from the culled NVT state;
+5. the spatial runners on a mesh of this process alone, from the same
+   melted N=100,000 state: windows of the banded one (500 steps, S=25) and
+   the dense one (100 steps) in the order band, dense, dense, band,
+   profiler rows of 50 and 10 steps, and of three calls each of the sharded
+   force with the energy and of the runners' energy (K2).
 
 Without a CUDA device it exits nonzero before measuring anything.
 """
@@ -50,7 +56,10 @@ TOP_ROWS = 14
 N_BAND = 100_000
 BAND_MELT_STEPS = 2000
 BIG_WINDOW_STEPS = 500
-BIG_PROFILE_STEPS = {"band": 50, "culled_100k": 100, "strip": 400}
+BIG_PROFILE_STEPS = {"band": 50, "culled_100k": 100, "strip": 400,
+                     "spatial_band": 50, "spatial_dense": 10}
+SPATIAL_WINDOW_STEPS = {"spatial_band": 500, "spatial_dense": 100}
+ONE_SHOT_CALLS = 3
 
 
 def _card():
@@ -74,19 +83,27 @@ def _busy_us(intervals):
 
 
 def _profile(label, fn, steps):
+    """Profile one call of ``fn`` after a warm-up call.  The warm-up runs
+    inside the profiler's own warm-up phase, and the recorded call starts
+    10 ms after it: a trace opened right before a launch dropped the first
+    device records, which lost whole one-kernel calls.  The step's own
+    annotation on the device timeline is not device work."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.01)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
     if not device:
         raise RuntimeError(f"{label}: the profiler recorded no device time")
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in device)
@@ -132,6 +149,12 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chiron_tpu_torch import units
     from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.parallel import (
+        make_replica_mesh,
+        make_sharded_lj_force,
+        make_spatial_band_lj_runner,
+        make_spatial_lj_runner,
+    )
     from chiron_tpu_torch.runtime import (
         make_culled_lj_runner,
         make_culled_npt_lj_runner,
@@ -245,12 +268,46 @@ def main():
     if not all(torch.equal(getattr(a, k), getattr(b, k))
                for k in ("x", "v", "F", "ref_x", "overflowed")):
         raise RuntimeError("the two re-sort choices reached different states")
+    # the spatial runners on a mesh of this process alone, from the same
+    # melted state
+    mesh = make_replica_mesh(axis_name="spatial", device=dev)
+    skw = {k: v for k, v in bcommon.items() if k != "device"}
+    sband = make_spatial_band_lj_runner(mesh, segment_steps=25, **skw)
+    sdense = make_spatial_lj_runner(mesh, **skw)
+    state["spatial_band"] = sband.init(melted, bbox, seed=SEED)
+    state["spatial_dense"] = sdense.init(melted, bbox, seed=SEED)
+    runs.update(spatial_band=sband.run, spatial_dense=sdense.run)
+    print(f"N={N_BAND} spatial band w={sband.w}, n_pad={sband.n_pad}")
+    for label in ("spatial_band", "spatial_dense", "spatial_dense",
+                  "spatial_band"):
+        steps = SPATIAL_WINDOW_STEPS[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(label, steps)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"N={N_BAND} {label} {steps}-step window: {sec:.6f} s, "
+              f"{steps / sec:.2f} steps/s")
+    sband.check(state["spatial_band"])
     strip = make_lj_runner(engine="strip", box_vectors=box, **common)
     state["strip"] = strip.init(melt, box, seed=SEED)
     runs["strip"] = strip.run
     for label, steps in BIG_PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
     strip.check(state["strip"])
+    # the one-shot calls of the spatial path: the sharded force with the
+    # energy (K8a's energy instantiation) and the runners' energy (K2)
+    pot = big.potential
+    sf = make_sharded_lj_force(mesh, N_BAND, pot.sigma, pot.epsilon,
+                               pot.cutoff, axis_name="spatial")
+    p3 = sf.op.pad_positions(melted)
+    bd = state["spatial_band"].box_diag
+    calls = ONE_SHOT_CALLS
+    _profile("sharded force_energy",
+             lambda: [sf.force_energy(p3, bd) for _ in range(calls)], calls)
+    _profile("spatial energy (K2)",
+             lambda: [sband.energy(state["spatial_band"])
+                      for _ in range(calls)], calls)
     print(f"card after: {_card()}")
     return 0
 

@@ -45,10 +45,23 @@ Phases (any failure raises, and the script exits nonzero):
    clean, ``strip_baoab``, the strip force, the latch and K1 launched (the
    counts are read after the runner's ``energy``); the K1 and K7 energies
    within 1e-5 of the f64 oracle, T_kin within 5%; and ``engine="auto"``
-   returns the dense runner at N=1000 and the culled runner at N=4000.
+   returns the dense runner at N=1000 and the culled runner at N=4000;
+9. the spatial path at world size 1 (a mesh of this process alone), counted,
+   from phase 7's melted N=100,000 state (tm 256): ``make_sharded_lj_force``
+   (force, ``force_energy``, ``energy_differentiable``), the banded spatial
+   runner for 500 steps (S=25) and the dense spatial runner for 100.  Then
+   the sharded force within 1e-5 of K2's (``LJDense(triangle=False)``) and
+   its energy too, ``-grad`` equal to its force bit for bit, K2 within 1e-5
+   of its plain version; K8a (force, and force with the slab energy) and
+   K8b within 1e-5 (max and 99th percentile, relative to the largest force)
+   of their plain versions, with 4 slabs at offsets 0, r, 2r, 3r
+   concatenating to the 1-slab result bit for bit; both runners
+   ``check()``-clean or finite with T_kin within 5%, a repeated band
+   segment bitwise equal; and one band segment in a 1-rank NCCL group equal
+   bit for bit to the group-free one (the gathers run on the card).
 
-The ``kernels`` line gives each kernel's launches on the four counted paths
-(phases 5-8, under ``launches_by_path``; ``launches`` is their sum), its
+The ``kernels`` line gives each kernel's launches on the five counted paths
+(phases 5-9, under ``launches_by_path``; ``launches`` is their sum), its
 error and times, and its bound.  K6's and K7's energy passes run on no
 runner's path (both runners take their energy from K1, as in the JAX
 package): they are held to their plain versions in [3] and [7] and show
@@ -87,6 +100,10 @@ N_BAND = 100_000
 BAND_MELT_STEPS = 2000
 BAND_STEPS = 1000
 STRIP_STEPS = 3000
+SPATIAL_TM = 256
+SPATIAL_SEGMENT = 25
+SPATIAL_BAND_STEPS = 500
+SPATIAL_DENSE_STEPS = 100
 # the kernels each counted path must launch.  No runner takes K6's or K7's
 # energy pass (the band and strip runners take their energy from K1, as the
 # JAX runners do): those two are held to their plain versions and listed
@@ -97,6 +114,8 @@ PATH_KERNELS = {
             "tile_skin_drift"),
     "band": ("band_force", "lj_dense"),
     "strip": ("strip_baoab", "strip_force", "tile_skin_drift", "lj_dense"),
+    "spatial": ("lj_dense_square", "row_slab_force", "row_slab_force_energy",
+                "row_band_force"),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -159,6 +178,13 @@ def _bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _slab_pairs(n, off, rows):
+    """Unordered pairs of the n live particles with at least one end in
+    rows [off, off + rows): the distance tests a slab's force needs."""
+    m = max(0, min(n, off + rows) - off)
+    return m * (m - 1) // 2 + m * (n - m)
+
+
 def _pairs_in_cutoff(x3, box_diag, n, cutoff):
     """Unordered pairs of live particles closer than the cutoff (f64)."""
     import torch
@@ -211,6 +237,14 @@ def main():
     from chiron_tpu_torch.ops import lj_strip as ls
     from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy, lj_dense_plain
     from chiron_tpu_torch.oracles import lj_dense_oracle
+    from chiron_tpu_torch.parallel import spatial as sp
+    from chiron_tpu_torch.parallel import distributed as pdist
+    from chiron_tpu_torch.parallel import (
+        make_replica_mesh,
+        make_sharded_lj_force,
+        make_spatial_band_lj_runner,
+        make_spatial_lj_runner,
+    )
     from chiron_tpu_torch.runtime import (
         BandRunner,
         CulledLJRunner,
@@ -769,6 +803,8 @@ def main():
           f"within the cutoff; bound "
           f"{results['band_force']['bound_ms'] * 1e3:.3f} us "
           f"({results['band_force']['bound_by']})")
+    # phase 9 starts from this melted, band-sorted state
+    big_melt, big_box, big_w, big_in_cut = br.positions(bs), bs.box_diag, w, in_cut
     del Fp, Fk, Fa, diff, bs, br
 
     # ---- 8. the strip path, counted ----
@@ -818,8 +854,214 @@ def main():
           f"picks FastLJRunner at N=1000 and CulledLJRunner at N={N}")
     print(f"    strip {strip_rate:.1f} steps/s (N={N}, {smi})")
 
+    # ---- 9. the spatial path at full width, world size 1, counted ----
+    mesh = make_replica_mesh(axis_name="spatial", device=dev)
+    skw = dict(potential=big.potential, n_particles=N_BAND,
+               topology=big.topology, temperature=T_KELVIN * units.kelvin,
+               timestep=2.0 * units.femtoseconds, tm=SPATIAL_TM)
+    _build.reset_launch_counts()
+    sf = make_sharded_lj_force(mesh, N_BAND, sig, eps, cut,
+                               axis_name="spatial", tm=SPATIAL_TM)
+    pos3 = sf.op.pad_positions(big_melt)
+    F_sh = sf(pos3, big_box)
+    F_fe, E_fe = sf.force_energy(pos3, big_box)
+    p_grad = pos3.clone().requires_grad_(True)
+    sf.energy_differentiable(p_grad, big_box).backward()
+    sbr = make_spatial_band_lj_runner(mesh, segment_steps=SPATIAL_SEGMENT,
+                                      **skw)
+    sbs = sbr.init(big_melt, bbox, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sbs = sbr.run(sbs, SPATIAL_BAND_STEPS)
+    torch.cuda.synchronize()
+    sband_rate = SPATIAL_BAND_STEPS / (time.perf_counter() - t0)
+    sbr.check(sbs)
+    e_sband = float(sbr.energy(sbs))
+    sdr = make_spatial_lj_runner(mesh, **skw)
+    sds = sdr.init(big_melt, bbox, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sds = sdr.run(sds, SPATIAL_DENSE_STEPS)
+    torch.cuda.synchronize()
+    sdense_rate = SPATIAL_DENSE_STEPS / (time.perf_counter() - t0)
+    e_sdense = float(sdr.energy(sds))
+    spatial_counts = dict(_build.launches)
+
+    t9b, t9d = t_kin(sbr.velocities(sbs)), t_kin(sdr.velocities(sds))
+    _require(math.isfinite(e_sband) and abs(t9b - T_KELVIN) / T_KELVIN < 0.05,
+             f"spatial band energy {e_sband}, T_kin {t9b}")
+    _require(math.isfinite(e_sdense) and abs(t9d - T_KELVIN) / T_KELVIN < 0.05
+             and bool(torch.isfinite(sds.x).all()),
+             f"spatial dense energy {e_sdense}, T_kin {t9d}")
+    sn_pad = sf.n_pad
+    print(f"[9] spatial path (N={N_BAND}, world size 1, n_pad={sn_pad}, "
+          f"tm={SPATIAL_TM}): band runner (S={SPATIAL_SEGMENT}, w={sbr.w}) "
+          f"check() passed, energy (K2) {e_sband:.3f} kJ/mol, T_kin "
+          f"{t9b:.3f} K; dense runner energy {e_sdense:.3f} kJ/mol, T_kin "
+          f"{t9d:.3f} K; launches {spatial_counts}")
+    print(f"    spatial band {sband_rate:.1f} steps/s over "
+          f"{SPATIAL_BAND_STEPS} steps, spatial dense {sdense_rate:.2f} "
+          f"steps/s over {SPATIAL_DENSE_STEPS} (N={N_BAND}, {smi})")
+
+    # the sharded force against K2, and K2 against its plain version
+    lane_bytes = 3 * sn_pad * 4
+    F2, E2 = sf.op.force_energy_t(pos3, big_box)
+    scale = float(F2.abs().max())
+    err_sh = float((F_sh - F2).abs().max()) / scale
+    e_rel_sh = abs(float(E_fe) - float(E2)) / abs(float(E2))
+    grad_diff = float((p_grad.grad + F_fe).abs().max())
+    _require(err_sh < 1e-5 and float((F_fe - F2).abs().max()) / scale < 1e-5,
+             f"sharded force rel err {err_sh}")
+    _require(e_rel_sh < 1e-5, f"sharded energy rel err {e_rel_sh}")
+    _require(grad_diff == 0.0, f"-grad(energy) != force ({grad_diff})")
+    Fp, Ep = lj_dense_plain(pos3, big_box, N_BAND, sig, eps, cut)
+    diff = (F2 - Fp).abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / float(Fp.abs().max())
+    e_rel = abs(float(E2) - float(Ep)) / abs(float(Ep))
+    _require(err / float(Fp.abs().max()) < 1e-5 and e_rel < 1e-5,
+             f"K2 force rel err {err}, energy rel err {e_rel}")
+    ms = _cuda_ms(lambda: sf.op.force_energy_t(pos3, big_box), reps=5)
+    plain_ms = _cuda_ms(lambda: lj_dense_plain(pos3, big_box, N_BAND, sig,
+                                               eps, cut), reps=1)
+    bound_ms, bound_by = _bound(
+        N_BAND * (N_BAND - 1) // 2 * TEST_FLOPS["lj_dense"]
+        + big_in_cut * (LJ_FLOPS + ENERGY_FLOPS), 2 * lane_bytes + 16)
+    print(f"  sharded force vs K2: rel err {err_sh:.3e} (tolerance 1e-5), "
+          f"energy rel {e_rel_sh:.3e} (1e-5), max |grad E + F| {grad_diff}; "
+          f"K2 bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    _report(f"lj_dense_square (K2, exact, with energy; p99 rel {p99:.3e}, "
+            f"energy rel {e_rel:.3e}; rel tol 1e-5)", err, "1e-5 rel", ms,
+            plain_ms)
+    results["lj_dense_square"] = dict(
+        source="chiron_tpu_torch/csrc/lj_dense.cu",
+        replaces="chiron_tpu/ops/lj_dense.py:340", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del Fp, diff, F2, F_sh, F_fe, p_grad
+
+    # K8a at 4 row slabs and at one, against the plain version
+    r4 = sn_pad // 4
+    a8 = (N_BAND, sig, eps, cut)
+    for name, energy in (("row_slab_force", False),
+                         ("row_slab_force_energy", True)):
+        F1, E1 = sp.row_slab_force(pos3, pos3, big_box, 0, *a8,
+                                   with_energy=energy)
+        diffs, e_rels, parts, scale = [], [], [], 0.0
+        for k in range(4):
+            rows = pos3[:, k * r4:(k + 1) * r4].contiguous()
+            Fk, Ek = sp.row_slab_force(rows, pos3, big_box, k * r4, *a8,
+                                       with_energy=energy)
+            Fq, Eq = sp.row_slab_force_plain(rows, pos3, big_box, k * r4,
+                                             *a8, with_energy=energy)
+            parts.append(Fk)
+            diffs.append((Fk - Fq).abs())
+            scale = max(scale, float(Fq.abs().max()))
+            if energy:
+                e_rels.append(abs(float(Ek) - float(Eq)) / abs(float(Eq)))
+        diff = torch.cat(diffs, dim=1)
+        err = float(diff.max())
+        p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+        _require(err / scale < 1e-5 and p99 < 1e-5,
+                 f"{name} rel err {err / scale}, p99 {p99}")
+        _require(all(e < 1e-5 for e in e_rels), f"{name} slab energies {e_rels}")
+        _require(torch.equal(torch.cat(parts, dim=1), F1),
+                 f"{name}: 4 slabs differ from one")
+        _require(float(F1[:, N_BAND:].abs().max()) == 0.0, f"{name} padding")
+        ms = _cuda_ms(lambda energy=energy: sp.row_slab_force(
+            pos3, pos3, big_box, 0, *a8, with_energy=energy), reps=5)
+        plain_ms = _cuda_ms(lambda energy=energy: sp.row_slab_force_plain(
+            pos3, pos3, big_box, 0, *a8, with_energy=energy), reps=1)
+        # the timed call is one slab of every row: each pair with a live
+        # row in the slab is needed once, here n(n-1)/2 of them, as for K2
+        tests = _slab_pairs(N_BAND, 0, sn_pad)
+        bound_ms, bound_by = _bound(
+            tests * TEST_FLOPS["lj_dense"]
+            + big_in_cut * (LJ_FLOPS + (ENERGY_FLOPS if energy else 0)),
+            3 * lane_bytes + 12 + (4 if energy else 0))
+        _report(f"{name} (K8a vs plain, rel tol 1e-5; p99 rel {p99:.3e}; "
+                f"slab energies rel {max(e_rels, default=0.0):.3e}; 4 slabs "
+                f"= 1 slab bit for bit)", err, "1e-5 rel", ms, plain_ms)
+        print(f"    pairs: {tests} distance tests (the pairs with a live row "
+              f"in the slab), {big_in_cut} LJ terms; bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+        results[name] = dict(
+            source="chiron_tpu_torch/csrc/spatial.cu",
+            replaces="chiron_tpu/parallel/spatial.py:126", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del F1, parts, diffs, diff
+
+    # K8b on the band runner's layout, at 4 row slabs and at one
+    xb, sbox, sw, stm = sbs.x, sbs.box_diag, sbr.w, sbr.tm
+    b8 = (N_BAND, sw, stm, sig, eps, cut)
+    Fb = sp.row_band_force(xb, sbox, 0, sn_pad, *b8)
+    parts = [sp.row_band_force(xb, sbox, k * r4, r4, *b8) for k in range(4)]
+    Fq = sp.row_band_force_plain(xb, sbox, 0, sn_pad, N_BAND, sw, sig, eps,
+                                 cut)
+    scale = float(Fq.abs().max())
+    diff = (Fb - Fq).abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+    _require(err / scale < 1e-5 and p99 < 1e-5,
+             f"K8b rel err {err / scale}, p99 {p99}")
+    _require(torch.equal(torch.cat(parts, dim=1), Fb), "K8b: 4 slabs != one")
+    K, nbt = sp.band_window(N_BAND, sn_pad, stm, sw)
+    ms = _cuda_ms(lambda: sp.row_band_force(xb, sbox, 0, sn_pad, *b8))
+    plain_ms = _cuda_ms(lambda: sp.row_band_force_plain(
+        xb, sbox, 0, sn_pad, N_BAND, sw, sig, eps, cut), reps=1)
+    # one slab of every row: each band pair is needed once (n x w), as for K6
+    in_band = _pairs_in_band(xb, sbox, N_BAND, cut, sw)
+    bound_ms, bound_by = _bound(
+        N_BAND * sw * TEST_FLOPS["band"] + in_band * LJ_FLOPS,
+        2 * lane_bytes + 12)
+    _report(f"row_band_force (K8b vs plain, rel tol 1e-5; p99 rel "
+            f"{p99:.3e}; 4 slabs = 1 slab bit for bit)", err, "1e-5 rel", ms,
+            plain_ms)
+    print(f"    pairs: {N_BAND * sw} band distance tests (n x w), "
+          f"{in_band} LJ terms; the kernel's window {nbt} tiles of "
+          f"{stm} (K={K}), {sn_pad * nbt * stm} slots; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    results["row_band_force"] = dict(
+        source="chiron_tpu_torch/csrc/spatial.cu",
+        replaces="chiron_tpu/parallel/spatial.py:547", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del Fb, parts, Fq, diff
+
+    # a repeated band segment, and one in a 1-rank NCCL group, bit for bit
+    noise = torch.randn((SPATIAL_SEGMENT, 3, sn_pad), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    a, b = sbr.segment(sbs, noise), sbr.segment(sbs, noise)
+    for name in ("x", "v", "F", "overflowed"):
+        _require(torch.equal(getattr(a, name), getattr(b, name)),
+                 f"repeated spatial band segment differs in {name}")
+    alone = make_spatial_band_lj_runner(mesh, segment_steps=SPATIAL_SEGMENT,
+                                        **skw)
+    a = alone.segment(alone.init(big_melt, bbox, seed=SEED), noise)
+    store_path = _build.BUILD_ROOT / f"nccl_store.{os.getpid()}"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    _require(pdist.initialize_cluster(
+        num_processes=1, process_id=0, device=dev,
+        store=torch.distributed.FileStore(str(store_path), 1)),
+        "NCCL group not initialised")
+    try:
+        gmesh = make_replica_mesh(axis_name="spatial", device=dev)
+        _require(gmesh.group is not None, "the mesh has no process group")
+        grouped = make_spatial_band_lj_runner(
+            gmesh, segment_steps=SPATIAL_SEGMENT, **skw)
+        g = grouped.segment(grouped.init(big_melt, bbox, seed=SEED), noise)
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    for name in ("x", "v", "F", "overflowed"):
+        _require(torch.equal(getattr(a, name), getattr(g, name)),
+                 f"the NCCL-group segment differs in {name}")
+    print("  a repeated spatial band segment is bitwise identical, and one "
+          "segment in a 1-rank NCCL group equals the group-free one bit for "
+          "bit")
+    del a, b, g, sbs, sds, noise
+
     counts = {"nvt": nvt_counts, "npt": npt_counts, "band": band_counts,
-              "strip": strip_counts}
+              "strip": strip_counts, "spatial": spatial_counts}
     for path, names in PATH_KERNELS.items():
         for name in names:
             _require(counts[path].get(name, 0) > 0,

@@ -21,8 +21,8 @@ def __getattr__(name):
     import importlib
 
     submodules = {
-        "integrators", "interop", "ops", "oracles", "potential", "runtime",
-        "testsystems",
+        "integrators", "interop", "ops", "oracles", "parallel", "potential",
+        "runtime", "testsystems",
     }
     if name in submodules:
         return importlib.import_module(f".{name}", __name__)

@@ -15,6 +15,7 @@ from . import units
 from .integrators import LangevinCarry
 from .ops.lj_cull import TilePairList
 from .ops.lj_dense import box_diagonal
+from .parallel.spatial import SpatialBandCarry, SpatialCarry
 from .potential import LJPotential
 from .runtime import BandCarry, CullCarry, CullNPTCarry, NPTCarry, StripCarry
 from .topology import Topology
@@ -137,6 +138,36 @@ def band_carry(x, v, F, ref_x, box, overflowed, device,
         box_diag=box_diagonal(box, device),
         overflowed=_t(overflowed, np.bool_, device).reshape(()),
         generator=_generator(device, seed),
+    )
+
+
+def _host_int(a) -> int:
+    return int(np.asarray(a).reshape(-1)[0])
+
+
+def spatial_carry(carry, device, seed: int = 0) -> SpatialCarry:
+    """A ``SpatialCarry`` from a carry whose fields ``x``, ``v``, ``F``,
+    ``step`` and ``box_diag`` hold arrays in the JAX layout (a JAX
+    ``SpatialCarry`` as it is: numpy reads its arrays); ``seed`` seeds the
+    generator that takes the place of the JAX key."""
+    return SpatialCarry(
+        x=_t(carry.x, np.float32, device), v=_t(carry.v, np.float32, device),
+        F=_t(carry.F, np.float32, device), step=_host_int(carry.step),
+        box_diag=box_diagonal(np.asarray(carry.box_diag), device),
+        generator=_generator(device, seed),
+    )
+
+
+def spatial_band_carry(carry, device, seed: int = 0) -> SpatialBandCarry:
+    """A ``SpatialBandCarry`` from a carry with the fields of the JAX
+    ``SpatialBandCarry`` (``x``, ``v``, ``F``, ``step``, ``box_diag``,
+    ``overflowed``), as ``spatial_carry``."""
+    return SpatialBandCarry(
+        x=_t(carry.x, np.float32, device), v=_t(carry.v, np.float32, device),
+        F=_t(carry.F, np.float32, device), step=_host_int(carry.step),
+        box_diag=box_diagonal(np.asarray(carry.box_diag), device),
+        generator=_generator(device, seed),
+        overflowed=_t(carry.overflowed, np.bool_, device).reshape(()),
     )
 
 

@@ -57,6 +57,10 @@ _SIGNATURES = {
     "chiron_strip_force": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _I, _P),
+    "chiron_row_slab_force": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
+    "chiron_row_band_force": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
 }
 
 

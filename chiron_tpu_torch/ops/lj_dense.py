@@ -5,7 +5,11 @@ replacing ``_make_triangle_kernel``): all-pairs minimum-image LJ in the
 (3, n_pad) f32 lane layout, with the approximate or the Newton-refined
 reciprocal and an optional energy.  On a CPU tensor it runs
 ``lj_dense_plain``, the same function in plain PyTorch.  ``LJDense`` has the
-surface of ``LJDensePallas``.
+surface of ``LJDensePallas``; with ``triangle=False`` it stands for K2, the
+JAX square kernel (``_make_kernel``), which computes the same function and
+runs on the same CUDA kernel.  ``lj_rows_plain`` is the pair math of any
+rows against every column, shared by the plain versions here and in
+``parallel/spatial.py``.
 """
 
 from __future__ import annotations
@@ -34,40 +38,66 @@ def box_diagonal(box, device) -> torch.Tensor:
     return b.reshape(1, 3).contiguous()
 
 
-def lj_dense_plain(pos3, box_diag, n: int, sigma: float, epsilon: float,
-                   cutoff: float, with_energy: bool = True):
-    """Plain version of K1: returns ((3, n_pad) force, energy or None).
+def lj_rows_plain(rows3, pos3, box_diag, off: int, n: int, sigma: float,
+                  epsilon: float, cutoff: float, with_energy: bool = True,
+                  keep=None):
+    """The dense pair math for rows ``off ..`` of the lane layout, in plain
+    PyTorch: returns ((3, rows) force, () float64 energy or None).
 
-    Mirrors ``_lj_tile_math``: minimum image by floor(d/L + 1/2), r^2
-    clamped at 1e-4 sigma^2, coef = 24 eps (2 s12 - s6) / r^2, every pair
-    of live particles once from each side (the energy is halved).  The
-    reciprocal is the exact division, which the kernel's Newton-refined
-    reciprocal matches to an ulp; the energy is summed in float64.
+    ``rows3`` holds the rows' positions and ``pos3`` every column's.  Each
+    row meets every live column but itself (and, with ``keep(rid, cid)``,
+    only where that bool grid holds); the energy sums each pair from its
+    row's side.  Mirrors ``_lj_tile_math``: minimum image by
+    floor(d/L + 1/2), r^2 clamped at 1e-4 sigma^2, coef = 24 eps (2 s12 -
+    s6) / r^2, the exact division (which the kernels' Newton-refined
+    reciprocal matches to an ulp).  Rows go in chunks of at most 2^25 pair
+    slots, so that memory stays bounded at large N.
     """
-    n_pad = pos3.shape[1]
+    dev = pos3.device
+    n_rows, n_pad = rows3.shape[1], pos3.shape[1]
+    chunk = max(1, (1 << 25) // n_pad)
     sigma2 = sigma * sigma
     eps4 = 4.0 * epsilon
     L = box_diag.reshape(3, 1, 1)
     inv_L = 1.0 / L
-    d = pos3[:, :, None] - pos3[:, None, :]
-    d = d - L * torch.floor(d * inv_L + 0.5)
-    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    ids = torch.arange(n_pad, device=pos3.device)
-    pair = (ids[:, None] < n) & (ids[None, :] < n) & (ids[:, None] != ids[None, :])
-    m = (r2 < cutoff * cutoff) & pair
-    r2s = torch.clamp_min(r2, 1e-4 * sigma2)
-    inv = 1.0 / r2s
-    inv_r2 = sigma2 * inv
-    i6 = inv_r2 * inv_r2 * inv_r2
-    i12 = i6 * i6
-    zero = torch.zeros((), dtype=pos3.dtype, device=pos3.device)
-    coef = torch.where(m, (6.0 * eps4) * (2.0 * i12 - i6) * inv, zero)
-    force = torch.sum(coef[None] * d, dim=2)
+    cid = torch.arange(n_pad, device=dev)
+    zero = torch.zeros((), dtype=pos3.dtype, device=dev)
+    force = torch.empty((3, n_rows), dtype=pos3.dtype, device=dev)
+    energy = torch.zeros((), dtype=torch.float64, device=dev)
+    for r0 in range(0, n_rows, chunk):
+        rows = rows3[:, r0:r0 + chunk]
+        rid = off + r0 + torch.arange(rows.shape[1], device=dev)
+        d = rows[:, :, None] - pos3[:, None, :]
+        d = d - L * torch.floor(d * inv_L + 0.5)
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        pair = ((rid[:, None] < n) & (cid[None, :] < n)
+                & (rid[:, None] != cid[None, :]))
+        if keep is not None:
+            pair = pair & keep(rid[:, None], cid[None, :])
+        m = (r2 < cutoff * cutoff) & pair
+        r2s = torch.clamp_min(r2, 1e-4 * sigma2)
+        inv = 1.0 / r2s
+        inv_r2 = sigma2 * inv
+        i6 = inv_r2 * inv_r2 * inv_r2
+        i12 = i6 * i6
+        coef = torch.where(m, (6.0 * eps4) * (2.0 * i12 - i6) * inv, zero)
+        force[:, r0:r0 + rows.shape[1]] = torch.sum(coef[None] * d, dim=2)
+        if with_energy:
+            e = torch.where(m, eps4 * (i12 - i6), zero)
+            energy = energy + torch.sum(e, dtype=torch.float64)
+    return force, (energy if with_energy else None)
+
+
+def lj_dense_plain(pos3, box_diag, n: int, sigma: float, epsilon: float,
+                   cutoff: float, with_energy: bool = True):
+    """Plain version of K1 (and K2): returns ((3, n_pad) force, energy or
+    None), every pair of live particles once from each side (the energy,
+    summed in float64, is halved); see ``lj_rows_plain``."""
+    force, energy = lj_rows_plain(pos3, pos3, box_diag, 0, n, sigma, epsilon,
+                                  cutoff, with_energy)
     if not with_energy:
         return force, None
-    e = torch.where(m, eps4 * (i12 - i6), zero)
-    energy = 0.5 * torch.sum(e, dtype=torch.float64)
-    return force, energy.to(pos3.dtype)
+    return force, (0.5 * energy).to(pos3.dtype)
 
 
 def lj_dense_force_energy(pos3, box_diag, n: int, sigma: float,
@@ -79,6 +109,13 @@ def lj_dense_force_energy(pos3, box_diag, n: int, sigma: float,
     ``box_diag`` holds the three box lengths on the device of ``pos3``.
     Returns ((3, n_pad) force with zero padding columns, () energy or None).
     """
+    return _dense_launch("lj_dense", pos3, box_diag, n, sigma, epsilon,
+                         cutoff, approx_recip, with_energy)
+
+
+def _dense_launch(counter, pos3, box_diag, n, sigma, epsilon, cutoff,
+                  approx_recip, with_energy):
+    """``lj_dense_force_energy``, its launch counted under ``counter``."""
     if pos3.device.type == "cpu":
         return lj_dense_plain(pos3, box_diag, n, sigma, epsilon, cutoff,
                               with_energy)
@@ -97,7 +134,7 @@ def lj_dense_force_energy(pos3, box_diag, n: int, sigma: float,
     sigma2 = sigma * sigma
     eps4 = 4.0 * epsilon
     _build.launch(
-        "lj_dense", "chiron_lj_dense",
+        counter, "chiron_lj_dense",
         pos3.data_ptr(), box_diag.data_ptr(), force.data_ptr(),
         e_part.data_ptr(), energy.data_ptr(), n, n_pad, sigma2, 6.0 * eps4,
         eps4, cutoff * cutoff, 1e-4 * sigma2, int(approx_recip),
@@ -111,24 +148,31 @@ class LJDense:
     surface on K1.
 
     ``tm``/``tn`` only set the padding (n_pad is a multiple of both, as in
-    the JAX package, so that the runners share one state shape).
+    the JAX package, so that the runners share one state shape).  The JAX
+    package has two kernels for this function: the triangle (K1, the
+    default) and, with ``triangle=False``, the square kernel (K2) that
+    visits every pair from both sides.  ``csrc/lj_dense.cu`` already visits
+    every pair from both sides, so both run it; ``triangle`` only names the
+    surface and the launch count (``lj_dense`` or ``lj_dense_square``).
     """
 
     def __init__(self, n: int, sigma: float, epsilon: float, cutoff: float,
                  tm: int = 128, tn: int = 128, n_pad: Optional[int] = None,
-                 *, device="cuda"):
+                 triangle: bool = True, *, device="cuda"):
         self.n = n
         self.sigma = float(sigma)
         self.epsilon = float(epsilon)
         self.cutoff = float(cutoff)
         self.n_pad = _round_up(n_pad if n_pad is not None else n, max(tm, tn))
         self.tm, self.tn = tm, tn
+        self.triangle = triangle
         self.device = torch.device(device)
 
     def _fe(self, pos3, box_diag, approx_recip, with_energy):
-        return lj_dense_force_energy(
-            pos3, box_diag, self.n, self.sigma, self.epsilon, self.cutoff,
-            approx_recip=approx_recip, with_energy=with_energy,
+        return _dense_launch(
+            "lj_dense" if self.triangle else "lj_dense_square", pos3,
+            box_diag, self.n, self.sigma, self.epsilon, self.cutoff,
+            approx_recip, with_energy,
         )
 
     def force_only_t(self, pos3, box_diag, approx_recip: bool = True):

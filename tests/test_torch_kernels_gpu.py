@@ -340,3 +340,167 @@ def test_strip_segment_is_bitwise_repeatable_and_counted(strip_state):
     assert dict(_build.launches) == {"strip_baoab": 16, "strip_force": 16,
                                      "tile_skin_drift": 2}
     runner.check(a)
+
+
+@pytest.fixture(scope="module")
+def spatial_state(cuda):
+    """The banded spatial runner on a one-process mesh at N=20,000 (tm 256,
+    n_pad 20,224: four slabs of 5,056 rows), and its first state."""
+    from chiron_tpu_torch.parallel import (make_replica_mesh,
+                                           make_spatial_band_lj_runner)
+
+    n = 20000
+    fluid, pos, box = _jittered_fluid(n)
+    mesh = make_replica_mesh(axis_name="spatial", device=cuda)
+    kw = dict(potential=fluid.potential, n_particles=n,
+              temperature=120.0 * units.kelvin,
+              timestep=2.0 * units.femtoseconds, topology=fluid.topology)
+    runner = make_spatial_band_lj_runner(mesh, **kw)
+    return runner, runner.init(pos, box, seed=2), kw
+
+
+def _p99(diff, scale):
+    return float(torch.quantile(diff.flatten()[::7], 0.99)) / scale
+
+
+def test_row_slab_kernel_matches_plain_and_slabs_concatenate(spatial_state):
+    from chiron_tpu_torch.parallel import spatial as sp
+
+    runner, st, kw = spatial_state
+    pot, n, n_pad = kw["potential"], runner.n, runner.n_pad
+    x, box = st.x, st.box_diag
+    args = (n, pot.sigma, pot.epsilon, pot.cutoff)
+    r = n_pad // 4
+    Fp, Ep = sp.row_slab_force_plain(x, x, box, 0, *args, with_energy=True)
+    _build.reset_launch_counts()
+    F1, E1 = sp.row_slab_force(x, x, box, 0, *args, with_energy=True)
+    Ff, _ = sp.row_slab_force(x, x, box, 0, *args)
+    slabs = [sp.row_slab_force(x[:, k * r:(k + 1) * r].contiguous(), x, box,
+                               k * r, *args, with_energy=True)
+             for k in range(4)]
+    slabs_f = [sp.row_slab_force(x[:, k * r:(k + 1) * r].contiguous(), x,
+                                 box, k * r, *args)[0] for k in range(4)]
+    assert dict(_build.launches) == {"row_slab_force_energy": 5,
+                                     "row_slab_force": 5}
+    scale = float(Fp.abs().max())
+    for F in (F1, Ff):
+        diff = (F - Fp).abs()
+        assert float(diff.max()) / scale < 1e-5 and _p99(diff, scale) < 1e-5
+    assert float(F1[:, n:].abs().max()) == 0.0
+    assert abs(float(E1) - float(Ep)) / abs(float(Ep)) < 1e-5
+    assert torch.equal(torch.cat([s[0] for s in slabs], dim=1), F1)
+    assert torch.equal(torch.cat(slabs_f, dim=1), Ff)
+    E4 = sum(float(s[1]) for s in slabs)
+    assert abs(E4 - float(E1)) / abs(float(E1)) < 1e-6
+    # and one slab's energy against its plain version (the padded slab)
+    _, Ep3 = sp.row_slab_force_plain(x[:, 3 * r:], x, box, 3 * r, *args,
+                                     with_energy=True)
+    assert abs(float(slabs[3][1]) - float(Ep3)) / abs(float(Ep3)) < 1e-5
+
+
+def test_row_band_kernel_matches_plain_and_slabs_concatenate(spatial_state):
+    from chiron_tpu_torch.parallel import spatial as sp
+
+    runner, st, kw = spatial_state
+    pot, n, n_pad, w, tm = (kw["potential"], runner.n, runner.n_pad,
+                            runner.w, runner.tm)
+    x, box = st.x, st.box_diag
+    args = (n, w)
+    lj = (pot.sigma, pot.epsilon, pot.cutoff)
+    r = n_pad // 4
+    _build.reset_launch_counts()
+    F1 = sp.row_band_force(x, box, 0, n_pad, *args, tm, *lj)
+    slabs = [sp.row_band_force(x, box, k * r, r, *args, tm, *lj)
+             for k in range(4)]
+    assert dict(_build.launches) == {"row_band_force": 5}
+    Fp = sp.row_band_force_plain(x, box, 0, n_pad, *args, *lj)
+    scale = float(Fp.abs().max())
+    diff = (F1 - Fp).abs()
+    assert float(diff.max()) / scale < 1e-5 and _p99(diff, scale) < 1e-5
+    assert torch.equal(torch.cat(slabs, dim=1), F1)
+    assert torch.equal(st.F, F1)  # the runner's force at init
+    # the band holds every pair within the cutoff: K2's force
+    F2, _ = runner.op.force_energy_t(x, box)
+    assert float((F1 - F2).abs().max()) / scale < 1e-5
+
+
+def test_k2_and_the_sharded_force_on_the_card(spatial_state):
+    from chiron_tpu_torch.parallel import make_replica_mesh, make_sharded_lj_force
+
+    runner, st, kw = spatial_state
+    pot, n = kw["potential"], runner.n
+    x, box = st.x, st.box_diag
+    _build.reset_launch_counts()
+    F2, E2 = runner.op.force_energy_t(x, box)
+    assert dict(_build.launches) == {"lj_dense_square": 1}
+    Fp, Ep = lj_dense_plain(x, box, n, pot.sigma, pot.epsilon, pot.cutoff)
+    scale = float(Fp.abs().max())
+    assert float((F2 - Fp).abs().max()) / scale < 1e-5
+    assert abs(float(E2) - float(Ep)) / abs(float(Ep)) < 1e-5
+    f = make_sharded_lj_force(make_replica_mesh(device=x.device), n,
+                              pot.sigma, pot.epsilon, pot.cutoff)
+    assert f.n_pad == runner.n_pad
+    F, E = f.force_energy(x, box)
+    assert float((F - F2).abs().max()) / scale < 1e-5
+    assert abs(float(E) - float(E2)) / abs(float(E2)) < 1e-5
+    assert torch.equal(f(x, box), F)
+    p = x.clone().requires_grad_(True)
+    f.energy_differentiable(p, box).backward()
+    assert torch.equal(p.grad, -F)
+
+
+def test_spatial_runners_never_wait_and_repeat_bitwise(spatial_state):
+    from chiron_tpu_torch.parallel import make_replica_mesh, make_spatial_lj_runner
+
+    runner, st, kw = spatial_state
+    dev = st.x.device
+    dense = make_spatial_lj_runner(
+        make_replica_mesh(axis_name="spatial", device=dev), **kw)
+    ds = dense.init(runner.positions(st), st.box_diag, seed=5)
+    noise = torch.randn((runner.segment_steps, 3, runner.n_pad), device=dev,
+                        generator=torch.Generator(dev).manual_seed(6))
+    a, b = runner.segment(st, noise), runner.segment(st, noise)
+    for name in ("x", "v", "F", "overflowed"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    a, b = dense.step(ds, noise[0]), dense.step(ds, noise[0])
+    assert torch.equal(a.x, b.x) and torch.equal(a.v, b.v)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bs = runner.run(st, 2 * runner.segment_steps)
+        ds = dense.run(ds, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    runner.check(bs)
+    assert torch.isfinite(ds.x).all() and torch.isfinite(ds.v).all()
+
+
+def test_spatial_band_segment_in_a_one_rank_nccl_group(spatial_state,
+                                                       tmp_path):
+    """The collectives on the card: a 1-rank NCCL group runs the gathers
+    and reaches the group-free state bit for bit."""
+    import torch.distributed as dist
+
+    from chiron_tpu_torch.parallel import (distributed, make_replica_mesh,
+                                           make_spatial_band_lj_runner)
+
+    runner, st, kw = spatial_state
+    dev = st.x.device
+    noise = torch.randn((runner.segment_steps, 3, runner.n_pad), device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+    alone = runner.segment(st, noise)
+    pos = runner.positions(st)
+    assert distributed.initialize_cluster(
+        num_processes=1, process_id=0, device=dev,
+        store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_replica_mesh(axis_name="spatial", device=dev)
+        assert mesh.group is not None and mesh.size == 1
+        grouped = make_spatial_band_lj_runner(mesh, **kw)
+        g0 = grouped.init(pos, st.box_diag, seed=2)
+        assert grouped.w == runner.w and torch.equal(g0.F, st.F)
+        g1 = grouped.segment(g0, noise)
+    finally:
+        dist.destroy_process_group()
+    for name in ("x", "v", "F", "overflowed"):
+        assert torch.equal(getattr(g1, name), getattr(alone, name)), name

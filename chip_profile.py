@@ -33,7 +33,13 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    melted N=100,000 state: windows of the banded one (500 steps, S=25) and
    the dense one (100 steps) in the order band, dense, dense, band,
    profiler rows of 50 and 10 steps, and of three calls each of the sharded
-   force with the energy and of the runners' energy (K2).
+   force with the energy and of the runners' energy (K2);
+6. the last three kernels' paths at N=4000, each started from the culled
+   NVT state: ``FusedLJMD`` (K9, calls of 100 steps with ``step_offset``)
+   and the culled runner (S=40, slack 0.15) with ``fused_rebuild`` (K10)
+   and with ``megakernel`` (K11, pure x, P=16): 3000-step windows beside
+   the default culled runner's, in the order default, fused_rebuild,
+   megakernel, fused and back, then profiler rows of 400 steps of each.
 
 Without a CUDA device it exits nonzero before measuring anything.
 """
@@ -59,6 +65,10 @@ BIG_WINDOW_STEPS = 500
 BIG_PROFILE_STEPS = {"band": 50, "culled_100k": 100, "strip": 400,
                      "spatial_band": 50, "spatial_dense": 10}
 SPATIAL_WINDOW_STEPS = {"spatial_band": 500, "spatial_dense": 100}
+NEW_PATHS = ("culled", "fused_rebuild", "megakernel", "fused")
+NEW_WINDOW_STEPS = 3000
+NEW_PROFILE_STEPS = 400
+FUSED_CALL = 100
 ONE_SHOT_CALLS = 3
 
 
@@ -149,6 +159,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chiron_tpu_torch import units
     from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy
+    from chiron_tpu_torch.ops.lj_md_fused import FusedLJMD
     from chiron_tpu_torch.parallel import (
         make_replica_mesh,
         make_sharded_lj_force,
@@ -156,6 +168,7 @@ def main():
         make_spatial_lj_runner,
     )
     from chiron_tpu_torch.runtime import (
+        _md_constants,
         make_culled_lj_runner,
         make_culled_npt_lj_runner,
         make_fast_lj_runner,
@@ -215,6 +228,50 @@ def main():
 
     for label, steps in PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
+
+    # the last three kernels' paths from the culled NVT state
+    start = runner.positions(state["culled"])
+    extra = {}
+    for path in ("fused_rebuild", "megakernel"):
+        r = make_culled_lj_runner(slack=0.15, segment_steps=40, sort_mode="x",
+                                  **{path: True}, **common)
+        state[path] = r.init(start, box, seed=SEED)
+        runs[path] = r.run
+        extra[path] = r
+    pot = fluid.potential
+    kT, dt, gamma = _md_constants(common["temperature"], common["timestep"],
+                                  1.0 / units.picoseconds)
+    md9 = FusedLJMD(N, pot.sigma, pot.epsilon, pot.cutoff,
+                    fluid.topology.masses(), dt, gamma, kT, device=dev)
+    c = state["culled"]
+    state["fused"] = (c.x, c.v, lj_dense_force_energy(
+        c.x, c.box_diag, N, pot.sigma, pot.epsilon, pot.cutoff,
+        approx_recip=True, with_energy=False)[0], 0)
+
+    def fused_run(st, steps):
+        x, v, F, k = st
+        for _ in range(steps // FUSED_CALL):
+            x, v, F = md9.run(x, v, F, c.box_diag, SEED, FUSED_CALL,
+                              step_offset=k)
+            k += FUSED_CALL
+        return x, v, F, k
+
+    runs["fused"] = fused_run
+    print(f"new paths: {[(p, extra[p].path) for p in extra]}, FusedLJMD "
+          f"n_pad {md9.n_pad}")
+    for label in NEW_PATHS + NEW_PATHS[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(label, NEW_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{label} {NEW_WINDOW_STEPS}-step window: {sec:.6f} s, "
+              f"{NEW_WINDOW_STEPS / sec:.1f} steps/s")
+    for path, r in extra.items():
+        r.check(state[path])
+    for label in NEW_PATHS[1:]:
+        _profile(label, lambda: advance(label, NEW_PROFILE_STEPS),
+                 NEW_PROFILE_STEPS)
 
     # the large-N engines: band against culled at N=100,000, and the strip
     big = LennardJonesFluid(nparticles=N_BAND, reduced_density=0.8)

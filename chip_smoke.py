@@ -58,10 +58,29 @@ Phases (any failure raises, and the script exits nonzero):
    concatenating to the 1-slab result bit for bit; both runners
    ``check()``-clean or finite with T_kin within 5%, a repeated band
    segment bitwise equal; and one band segment in a 1-rank NCCL group equal
-   bit for bit to the group-free one (the gathers run on the card).
+   bit for bit to the group-free one (the gathers run on the card);
+10. the last three TPU kernels, each with its path, from phase 5's melted
+   state: (a) K9, ``FusedLJMD`` at n_pad 4096 against its plain version
+   (F after 1 step within 1e-4 of the largest force, x after 3 steps within
+   1e-5 nm), a repeated run bitwise equal, then, counted, 1000 steps in
+   segments of 100 with ``step_offset``: K1's energy within 1e-5 of the f64
+   oracle, T_kin within 5%; (b) K10, ``sort_build`` bitwise equal to its
+   plain version on every output at nslab 0 and 4, then, counted, the
+   culled runner with ``fused_rebuild`` (S=40, slack 0.15) for 3000 steps
+   on the kernel path: ``check()`` clean, energy within 1e-5 of the oracle,
+   T_kin within 5%; (c) K11, its ``tile_build`` and ``mega_repair`` bitwise
+   equal to their plain versions, a P=0 ``mega_segment`` from a freshly
+   sorted state bitwise equal to the classic kernel path, a P=16 one a pure
+   permutation of it with the padding unmoved, the segment within 1e-5 nm of
+   its plain version over 5 steps, then, counted, the culled runner with
+   ``megakernel`` (pure x, S=40, slack 0.15, P=16) for 3000 steps:
+   ``check()`` clean, energy within 1e-5 of the oracle, T_kin within 5%,
+   the share of neighbouring live lanes in cyclic x order above one half
+   and held from the first segment to the last; then 400 steps at P=256
+   passes with more than 95% of them in order.
 
-The ``kernels`` line gives each kernel's launches on the five counted paths
-(phases 5-9, under ``launches_by_path``; ``launches`` is their sum), its
+The ``kernels`` line gives each kernel's launches on the eight counted
+paths (phases 5-10, under ``launches_by_path``; ``launches`` is their sum), its
 error and times, and its bound.  K6's and K7's energy passes run on no
 runner's path (both runners take their energy from K1, as in the JAX
 package): they are held to their plain versions in [3] and [7] and show
@@ -104,6 +123,12 @@ SPATIAL_TM = 256
 SPATIAL_SEGMENT = 25
 SPATIAL_BAND_STEPS = 500
 SPATIAL_DENSE_STEPS = 100
+FUSED_STEPS = 1000
+FUSED_SEGMENT = 100
+REPAIR_PASSES = 16
+# enough odd-even passes to undo a segment's displacement at S=40
+DEEP_REPAIR = 256
+DEEP_STEPS = 400
 # the kernels each counted path must launch.  No runner takes K6's or K7's
 # energy pass (the band and strip runners take their energy from K1, as the
 # JAX runners do): those two are held to their plain versions and listed
@@ -116,6 +141,10 @@ PATH_KERNELS = {
     "strip": ("strip_baoab", "strip_force", "tile_skin_drift", "lj_dense"),
     "spatial": ("lj_dense_square", "row_slab_force", "row_slab_force_energy",
                 "row_band_force"),
+    "fused": ("fused_md", "lj_dense"),
+    "fused_rebuild": ("sort_build", "baoab", "culled_force", "tile_skin_drift",
+                      "lj_dense"),
+    "mega": ("mega_md", "culled_force", "lj_dense"),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -137,8 +166,9 @@ TEST_FLOPS = {"lj_dense": 21, "culled": 17, "band": 21, "strip": 17}
 LJ_FLOPS = 15
 ENERGY_FLOPS = 3
 # per lane: BAOAB's kick, drifts, wrap and half a Box-Muller pair; the
-# latch's image fold, norm and reductions
-LANE_FLOPS = {"baoab": 40, "tile_skin_drift": 20}
+# latch's image fold, norm and reductions; the fused update's kick, drifts,
+# divide-wrap and a whole Box-Muller draw (its cos branch only)
+LANE_FLOPS = {"baoab": 40, "tile_skin_drift": 20, "fused_update": 60}
 
 
 def _run(cmd):
@@ -221,6 +251,307 @@ def _pairs_in_band(x3, box_diag, n, cutoff, w, chunk=512):
         inside = (delta >= 1) & (delta <= w) & (r2 < cutoff * cutoff)
         count += int(inside.sum())
     return count
+
+
+def _canon(x, v, F, n):
+    """The live lanes' (x, v, F) columns in lexicographic order (numpy)."""
+    import numpy as np
+    import torch
+
+    m = torch.cat([x[:, :n], v[:, :n], F[:, :n]], dim=0).cpu().numpy()
+    return m[:, np.lexsort(m[::-1])]
+
+
+def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
+    """[10] K9, K10 and K11, each against its plain version and on its path,
+    from phase 5's melted state ``st``; adds their rows to ``results`` and
+    returns the three paths' launch counts."""
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.ops import lj_mega as lm
+    from chiron_tpu_torch.ops import sortbuild as sb
+    from chiron_tpu_torch.ops.lj_dense import LJDense, lj_dense_force_energy
+    from chiron_tpu_torch.ops.lj_md_fused import (
+        FusedLJMD,
+        fused_md,
+        fused_md_plain,
+    )
+    from chiron_tpu_torch.oracles import lj_dense_oracle
+    from chiron_tpu_torch.runtime import _md_constants, make_culled_lj_runner
+
+    pot = fluid.potential
+    sig, eps, cut = pot.sigma, pot.epsilon, pot.cutoff
+    box = fluid.box_vectors.value_in_unit_system(units.md_unit_system)
+    box_diag = st.box_diag
+    box1 = box_diag.reshape(3).contiguous()
+    L = float(box1[0])
+    melt = runner.positions(st)
+    x5, v5, F5 = st.x, st.v, st.F
+    n_pad = x5.shape[1]
+    lane_bytes = 3 * n_pad * 4
+    counts = {}
+
+    def oracle_rel(energy, pos):
+        _, e64 = lj_dense_oracle(pos.double(),
+                                 torch.as_tensor(box, device=dev).double(),
+                                 sig, eps, cut)
+        return abs(energy - float(e64)) / abs(float(e64))
+
+    def check_t(v, what):
+        t = t_kin(v)
+        _require(abs(t - T_KELVIN) / T_KELVIN < 0.05, f"{what} T_kin {t}")
+        return t
+
+    # ---- (a) K9: FusedLJMD ----
+    kT, dt, gamma = _md_constants(common["temperature"], common["timestep"],
+                                  1.0 / units.picoseconds)
+    md9 = FusedLJMD(N, sig, eps, cut, fluid.topology.masses(), dt, gamma, kT,
+                    device=dev)
+    _require(md9.n_pad == n_pad, f"FusedLJMD n_pad {md9.n_pad}")
+    F9, _ = lj_dense_force_energy(x5, box_diag, N, sig, eps, cut,
+                                  approx_recip=True, with_energy=False)
+    w9 = v5 - (0.5 * dt) * F9 * md9.minv
+    lj = (sig, eps, cut, md9.dt, md9.a, md9.b)
+
+    def k9(fn, steps, offset=0):
+        return fn(x5, w9, F9, box1, md9.minv, md9.sigv, SEED, offset, N,
+                  steps, *lj)
+
+    k1, p1 = k9(fused_md, 1), k9(fused_md_plain, 1)
+    scale = float(p1[2].abs().max())
+    err_f = float((k1[2] - p1[2]).abs().max()) / scale
+    k3, p3 = k9(fused_md, 3), k9(fused_md_plain, 3)
+    err_x = float((k3[0] - p3[0]).abs().max())
+    err_w = float((k3[1] - p3[1]).abs().max())
+    _require(err_f < 1e-4 and err_x < 1e-5,
+             f"K9 F rel err {err_f} after 1 step, x err {err_x} after 3")
+    again = k9(fused_md, 3)
+    _require(all(torch.equal(a, b) for a, b in zip(k3, again)),
+             "a repeated fused_md run differs")
+    in_cut = _pairs_in_cutoff(x5, box_diag, N, cut)
+    ms = _cuda_ms(lambda: k9(fused_md, FUSED_SEGMENT), reps=5)
+    plain_ms = _cuda_ms(lambda: k9(fused_md_plain, FUSED_SEGMENT), reps=1)
+    # the call's function: S steps of the pair work and the update, reading
+    # x, w, F, 1/m, sigma_v and the box once and writing x, w, F once
+    bound_ms, bound_by = _bound(
+        FUSED_SEGMENT * (N * (N - 1) // 2 * TEST_FLOPS["lj_dense"]
+                         + in_cut * LJ_FLOPS
+                         + 3 * n_pad * LANE_FLOPS["fused_update"]),
+        6 * lane_bytes + 2 * n_pad * 4 + 12)
+    print(f"[10] (a) K9: fused_md F rel err {err_f:.3e} after 1 step "
+          f"(tolerance 1e-4), x err {err_x:.3e} (1e-5), w err {err_w:.3e} "
+          f"after 3; a repeated run is bitwise equal")
+    _report(f"fused_md ({FUSED_SEGMENT} steps a call)", max(err_x, err_w),
+            "x 1e-5", ms, plain_ms)
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {in_cut} pairs "
+          f"within the cutoff a step; {smi})")
+    results["fused_md"] = dict(
+        source="chiron_tpu_torch/csrc/lj_md_fused.cu",
+        replaces="chiron_tpu/ops/lj_md_fused.py:212",
+        max_abs_err=max(err_x, err_w), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+
+    _build.reset_launch_counts()
+    x, v, F = x5, v5, F9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(0, FUSED_STEPS, FUSED_SEGMENT):
+        x, v, F = md9.run(x, v, F, box_diag, SEED, FUSED_SEGMENT,
+                          step_offset=k)
+    torch.cuda.synchronize()
+    fused_rate = FUSED_STEPS / (time.perf_counter() - t0)
+    dense = LJDense(N, sig, eps, cut, n_pad=n_pad, device=dev)
+    energy = float(dense.force_energy_t(x, box_diag)[1])
+    counts["fused"] = dict(_build.launches)
+    e_rel = oracle_rel(energy, x[:, :N].T)
+    _require(math.isfinite(energy) and e_rel < 1e-5,
+             f"fused energy {energy}, rel err vs f64 oracle {e_rel}")
+    t9 = check_t(v[:, :N].T, "fused")
+    print(f"    fused path: {FUSED_STEPS} steps in calls of {FUSED_SEGMENT} "
+          f"with step_offset: energy {energy:.6f} kJ/mol (f64 oracle rel "
+          f"{e_rel:.2e}), T_kin {t9:.3f} K, launches {counts['fused']}; "
+          f"{fused_rate:.1f} steps/s (N={N}, {smi})")
+
+    # ---- (b) K10: sort_build and the fused_rebuild runner ----
+    rb = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
+                               fused_rebuild=True, **common)
+    _require(rb.path == "fused_rebuild", f"fused_rebuild path {rb.path}")
+    rb.init(melt, box, seed=SEED)
+    tm, tn, cap = rb.md.tm, rb.md.tn, rb.capacity
+    for nslab, capacity in ((0, cap), (4, (n_pad // tm) * (n_pad // tn))):
+        a = (x5, v5, F5, box1, N, tm, tn, nslab, cut, SLACK, capacity)
+        ko, po = sb.sort_build(*a), sb.sort_build_plain(*a)
+        same = [torch.equal(p, q) for p, q in zip(ko[:3], po[:3])]
+        same += [torch.equal(getattr(ko[3], f), getattr(po[3], f))
+                 for f in lc.TilePairList._fields]
+        _require(all(same), f"sort_build nslab {nslab} differs from plain: "
+                            f"{same}")
+        print(f"    (b) K10 sort_build nslab {nslab}: x', v', F' and the list "
+              f"(count {int(ko[3].count)}, capacity {capacity}, overflowed "
+              f"{bool(ko[3].overflowed)}) bitwise equal to plain")
+    a = (x5, v5, F5, box1, N, tm, tn, 0, cut, SLACK, cap)
+    ms = _cuda_ms(lambda: sb.sort_build(*a))
+    plain_ms = _cuda_ms(lambda: sb.sort_build_plain(*a), reps=5)
+    nr = n_pad // tm
+    list_bytes = 4 * (3 * cap + 2 * nr + 1 + nr + 1) + 1
+    bound_ms, bound_by = _bound(0, 2 * 3 * lane_bytes + 12 + list_bytes)
+    _report("sort_build (bitwise)", 0.0, "equal", ms, plain_ms)
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    results["sort_build"] = dict(
+        source="chiron_tpu_torch/csrc/sortbuild.cu",
+        replaces="chiron_tpu/ops/sortbuild.py:351", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    _build.reset_launch_counts()
+    s = rb.init(melt, box, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = rb.run(s, CULLED_STEPS)
+    torch.cuda.synchronize()
+    rebuild_rate = CULLED_STEPS / (time.perf_counter() - t0)
+    rb.check(s)
+    energy = float(rb.energy(s))
+    counts["fused_rebuild"] = dict(_build.launches)
+    e_rel = oracle_rel(energy, rb.positions(s))
+    _require(math.isfinite(energy) and e_rel < 1e-5,
+             f"fused_rebuild energy {energy}, rel err {e_rel}")
+    tb = check_t(rb.velocities(s), "fused_rebuild")
+    print(f"    fused_rebuild path (S={SEGMENT}, slack {SLACK}, path "
+          f"{rb.path}): check() passed, energy {energy:.6f} kJ/mol (f64 "
+          f"oracle rel {e_rel:.2e}), T_kin {tb:.3f} K, launches "
+          f"{counts['fused_rebuild']}; {rebuild_rate:.1f} steps/s (N={N}, "
+          f"{smi})")
+
+    # ---- (c) K11: tile_build, mega_repair, mega_segment, the runner ----
+    rm = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
+                               sort_mode="x", megakernel=True, **common)
+    s0 = rm.init(melt, box, seed=SEED)
+    md, cap = rm.md, rm.capacity
+    kt = lm.tile_build(x5, N, md.tm, md.tn, box1, md.cutoff, md.slack, cap)
+    pt = lc.build_tile_pairs(x5, N, md.tm, md.tn, box1, md.cutoff, md.slack,
+                             cap)
+    same = [torch.equal(getattr(kt, f), getattr(pt, f))
+            for f in lc.TilePairList._fields]
+    kr = lm.mega_repair(x5, v5, F5, N, box1, REPAIR_PASSES)
+    pr = lm.repair_plain(x5, v5, F5, N, box1, REPAIR_PASSES)
+    same += [torch.equal(p, q) for p, q in zip(kr, pr)]
+    _require(all(same), f"tile_build / mega_repair differ from plain: {same}")
+    moved = int((kr[0] != x5).any(dim=0).sum())
+    # P = 0 from the freshly sorted init state: the classic kernel path
+    half = 0.5 * md.dt
+    xs, vs, Fs = s0.x, s0.v, s0.F
+    ws = vs - half * Fs * md.minv
+    pairs = md.build_pairs(xs, box_diag[0], cap)
+    xc, vc, Fc, stale = md.run_segment(
+        xs, vs, Fs, box_diag, pairs, seed=SEED, step_offset=s0.step,
+        n_steps=SEGMENT, drift_slack=md.slack_t)
+    work = lm.MegaWorkspace(md, cap)
+
+    def mega(passes, steps=SEGMENT, approx=True):
+        return lm.mega_segment(md, xs, ws, Fs, box_diag, cap, SEED, s0.step,
+                               steps, passes, approx_recip=approx,
+                               workspace=work)
+
+    m0, m16 = mega(0), mega(REPAIR_PASSES)
+    _require(torch.equal(m0[0], xc) and torch.equal(m0[2], Fc)
+             and torch.equal(m0[1] + half * m0[2] * md.minv, vc)
+             and bool(m0[3]) == bool(stale),
+             "the P=0 megakernel segment differs from the classic path")
+    import numpy as np
+
+    _require(all(torch.equal(p[:, N:], q[:, N:]) for p, q in zip(m0[:3], m16[:3]))
+             and np.array_equal(_canon(*m0[:3], N), _canon(*m16[:3], N)),
+             "the P=16 segment is not a permutation of the P=0 one")
+    k5 = mega(0, 5, False)
+    p5 = lm.mega_segment_plain(md, xs, ws, Fs, box_diag, cap, SEED,
+                               int(s0.step), 5, 0)
+    err_x = float((k5[0] - p5[0]).abs().max())
+    err_w = float((k5[1] - p5[1]).abs().max())
+    _require(err_x < 1e-5 and err_w < 1e-4 and bool(k5[3]) == bool(p5[3]),
+             f"mega_md vs plain over 5 steps: x err {err_x}, w err {err_w}")
+    print(f"    (c) K11: tile_build and mega_repair ({REPAIR_PASSES} passes, "
+          f"{moved} lanes moved) bitwise equal to plain; a P=0 segment "
+          f"(S={SEGMENT}) from the sorted init state equals the classic "
+          f"kernel path bit for bit; P={REPAIR_PASSES} is a permutation of "
+          f"it with the padding unmoved; 5 steps (exact reciprocal, P=0) x "
+          f"err {err_x:.3e} (1e-5), w err {err_w:.3e} (1e-4)")
+    ms = _cuda_ms(lambda: mega(REPAIR_PASSES), reps=10)
+    plain_ms = _cuda_ms(lambda: lm.mega_segment_plain(
+        md, xs, ws, Fs, box_diag, cap, SEED, int(s0.step), SEGMENT,
+        REPAIR_PASSES), reps=1)
+    count = int(pairs.count)
+    in_cut = _pairs_in_cutoff(xs, box_diag, N, cut)
+    nr = n_pad // md.tm
+    list_bytes = 4 * (3 * cap + 2 * nr + 1 + nr + 1) + 1
+    step_ms = (
+        _bound(3 * n_pad * LANE_FLOPS["baoab"],
+               6 * lane_bytes + 2 * n_pad * 4 + 16)[0]
+        + _bound(count * md.tm * md.tn * TEST_FLOPS["culled"]
+                 + in_cut * LJ_FLOPS,
+                 2 * lane_bytes + list_bytes)[0])
+    bound_ms = (_bound(0, lane_bytes + 12 + list_bytes)[0]
+                + SEGMENT * step_ms
+                + _bound(n_pad * LANE_FLOPS["tile_skin_drift"],
+                         2 * lane_bytes + 20)[0]
+                + _bound(0, 2 * 3 * lane_bytes)[0])
+    _report(f"mega_md (S={SEGMENT}, P={REPAIR_PASSES} a call; error over 5 "
+            f"steps)", max(err_x, err_w), "x 1e-5", ms, plain_ms)
+    print(f"    bound {bound_ms * 1e3:.3f} us (operations: the build, "
+          f"{SEGMENT} x K3's step on {count} entries and {in_cut} pairs "
+          f"within the cutoff, the latch, the repair; {smi})")
+    results["mega_md"] = dict(
+        source="chiron_tpu_torch/csrc/lj_mega.cu",
+        replaces="chiron_tpu/ops/lj_mega.py:368",
+        max_abs_err=max(err_x, err_w), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="operations")
+
+    def in_order(carry):
+        d = carry.x[0, 1:N] - carry.x[0, :N - 1]
+        d = d - L * torch.round(d / L)
+        return float((d >= 0).double().mean())
+
+    _build.reset_launch_counts()
+    s = rm.init(melt, box, seed=SEED)
+    s = rm.run(s, SEGMENT)
+    first = in_order(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = rm.run(s, CULLED_STEPS - SEGMENT)
+    torch.cuda.synchronize()
+    mega_rate = (CULLED_STEPS - SEGMENT) / (time.perf_counter() - t0)
+    rm.check(s)
+    energy = float(rm.energy(s))
+    counts["mega"] = dict(_build.launches)
+    e_rel = oracle_rel(energy, rm.positions(s))
+    _require(math.isfinite(energy) and e_rel < 1e-5,
+             f"megakernel energy {energy}, rel err {e_rel}")
+    tm_ = check_t(rm.velocities(s), "megakernel")
+    last = in_order(s)
+    # a segment moves a particle about 9 mean x gaps here, more than P = 16
+    # passes undo: the repair holds a steady local order, it does not sort
+    _require(last > 0.5 and last > first - 0.05,
+             f"megakernel order: {first} after one segment, {last} at the end")
+    print(f"    megakernel path (pure x, S={SEGMENT}, slack {SLACK}, "
+          f"P={rm.repair_passes}): check() passed, energy {energy:.6f} kJ/mol "
+          f"(f64 oracle rel {e_rel:.2e}), T_kin {tm_:.3f} K, neighbouring "
+          f"live lanes in cyclic order {first:.4f} after one segment and "
+          f"{last:.4f} at the end, launches {counts['mega']}; "
+          f"{mega_rate:.1f} steps/s over the last {CULLED_STEPS - SEGMENT} "
+          f"steps (N={N}, {smi})")
+    deep = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
+                                 sort_mode="x", megakernel=True,
+                                 repair_passes=DEEP_REPAIR, **common)
+    s = deep.run(deep.init(melt, box, seed=SEED), DEEP_STEPS)
+    deep.check(s)
+    deep_order = in_order(s)
+    _require(deep_order > 0.95, f"P={DEEP_REPAIR} order {deep_order}")
+    print(f"    with P={DEEP_REPAIR} passes, {DEEP_STEPS} steps: check() "
+          f"passed, {deep_order:.4f} of neighbouring live lanes in cyclic "
+          f"order")
+    return counts
 
 
 def main():
@@ -1062,6 +1393,8 @@ def main():
 
     counts = {"nvt": nvt_counts, "npt": npt_counts, "band": band_counts,
               "strip": strip_counts, "spatial": spatial_counts}
+    counts.update(_phase10(dev, common, fluid, st, runner, results, smi,
+                           t_kin))
     for path, names in PATH_KERNELS.items():
         for name in names:
             _require(counts[path].get(name, 0) > 0,

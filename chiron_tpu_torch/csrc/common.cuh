@@ -73,6 +73,29 @@ __device__ __forceinline__ void lane_uniforms(uint32_t seed, uint32_t step,
        (1.0f / 16777216.0f);
 }
 
+// Entry points that other entries enqueue: the fused MD segment
+// (lj_md_fused.cu) runs K1's pair loop with the divide, and the megakernel
+// segment (lj_mega.cu) runs K3's three kernels.
+cudaError_t lj_dense_force_divide(const float* pos, const float* box,
+                                  float* force, int n, int n_pad, float sigma2,
+                                  float coef_scale, float cutoff2,
+                                  float r2_floor, cudaStream_t s);
+CHIRON_EXPORT int chiron_baoab(float* x, float* w, float* F, const float* minv,
+                               const float* sigv, const float* box,
+                               const int* step_offset, int s, uint32_t seed,
+                               int n_pad, float dt, float half_dt, float a,
+                               float b, void* stream);
+CHIRON_EXPORT int chiron_cull_force(
+    const float* x, const float* box, const int* cols, const float* ccx,
+    const int* ptr2, const float* rowcx, const int* count, float* P, float* R,
+    float* e_part, float* F, float* energy, int n, int n_pad, int tm, int tn,
+    int n_split, float inv_sigma, float sigma_fold, float cutoff2_s,
+    float eps_scale, float e_scale, int approx, void* stream);
+CHIRON_EXPORT int chiron_drift(const float* x, const float* anchor,
+                               const float* box, int n, int n_pad,
+                               const float* threshold, bool* flag,
+                               void* stream);
+
 // The tiled pair passes (lj_cull_force.cu, lj_band.cu, lj_strip.cu) run
 // kThreads threads a block as kRG row groups by kCG column groups.  A block
 // writes partial sums to slots of its own, and a gather kernel adds them

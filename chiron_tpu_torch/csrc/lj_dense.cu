@@ -22,6 +22,11 @@
 // folds its threads' sums in a fixed order into one slot of e_part, and a
 // second one-thread pass sums the slots in order (the 1e-6 design bar of
 // lj_dense.py:195-201).  Each pair is seen from both sides, hence the 0.5.
+//
+// kDivide takes the minimum image as d - L floor(d / L + 1/2), the form of
+// the fused MD kernel's force phase (chiron_tpu/ops/lj_md_fused.py:157-159),
+// which lj_md_fused.cu launches through lj_dense_force_divide; K1 and K2
+// multiply by 1/L (lj_dense.py:56-58).
 #include "common.cuh"
 
 namespace {
@@ -31,6 +36,7 @@ constexpr int kGroups = 8;      // column groups per block: one warp each
 constexpr int kColTile = 256;   // columns staged in shared memory per pass
 constexpr int kPerGroup = kColTile / kGroups;
 
+template <bool kDivide>
 __global__ void __launch_bounds__(kRows * kGroups)
 lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
               float* __restrict__ force, float* __restrict__ e_part, int n,
@@ -64,9 +70,15 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
       float dx = xi - sx[t];
       float dy = yi - sy[t];
       float dz = zi - sz[t];
-      dx = dx - Lx * floorf(dx * iLx + 0.5f);
-      dy = dy - Ly * floorf(dy * iLy + 0.5f);
-      dz = dz - Lz * floorf(dz * iLz + 0.5f);
+      if constexpr (kDivide) {
+        dx = dx - Lx * floorf(dx / Lx + 0.5f);
+        dy = dy - Ly * floorf(dy / Ly + 0.5f);
+        dz = dz - Lz * floorf(dz / Lz + 0.5f);
+      } else {
+        dx = dx - Lx * floorf(dx * iLx + 0.5f);
+        dy = dy - Ly * floorf(dy * iLy + 0.5f);
+        dz = dz - Lz * floorf(dz * iLz + 0.5f);
+      }
       const float r2 = dx * dx + dy * dy + dz * dz;
       const bool m = (r2 < cutoff2) && row_ok && (col < n) && (col != row);
       const float r2s = fmaxf(r2, r2_floor);
@@ -115,6 +127,16 @@ __global__ void lj_dense_energy_sum(const float* __restrict__ e_part,
 
 }  // namespace
 
+cudaError_t lj_dense_force_divide(const float* pos, const float* box,
+                                  float* force, int n, int n_pad, float sigma2,
+                                  float coef_scale, float cutoff2,
+                                  float r2_floor, cudaStream_t s) {
+  lj_dense_rows<true><<<n_pad / kRows, dim3(kRows, kGroups), 0, s>>>(
+      pos, box, force, nullptr, n, n_pad, sigma2, coef_scale, 0.0f, cutoff2,
+      r2_floor, 1, 0);
+  return cudaGetLastError();
+}
+
 // pos, force: (3, n_pad) f32; box: (3,) f32; e_part: (n_pad / 32,) f32
 // scratch; energy: (1,) f32, written only when with_energy.  n_pad must be
 // a multiple of 32.
@@ -126,7 +148,7 @@ CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = n_pad / kRows;
-  lj_dense_rows<<<blocks, dim3(kRows, kGroups), 0, s>>>(
+  lj_dense_rows<false><<<blocks, dim3(kRows, kGroups), 0, s>>>(
       pos, box, force, e_part, n, n_pad, sigma2, coef_scale, eps4, cutoff2,
       r2_floor, approx, with_energy);
   if (with_energy) lj_dense_energy_sum<<<1, 1, 0, s>>>(e_part, blocks, energy);

@@ -61,6 +61,21 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_row_band_force": (
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "chiron_fused_md": (
+        _P, _P, _P, _P, _P, _P, _U, _U, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "chiron_sort_build": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    "chiron_tile_build": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
+        _P),
+    "chiron_mega_repair": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "chiron_mega_segment": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _U, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
 }
 
 

@@ -40,7 +40,7 @@ def box_diagonal(box, device) -> torch.Tensor:
 
 def lj_rows_plain(rows3, pos3, box_diag, off: int, n: int, sigma: float,
                   epsilon: float, cutoff: float, with_energy: bool = True,
-                  keep=None):
+                  keep=None, divide: bool = False):
     """The dense pair math for rows ``off ..`` of the lane layout, in plain
     PyTorch: returns ((3, rows) force, () float64 energy or None).
 
@@ -50,8 +50,9 @@ def lj_rows_plain(rows3, pos3, box_diag, off: int, n: int, sigma: float,
     row's side.  Mirrors ``_lj_tile_math``: minimum image by
     floor(d/L + 1/2), r^2 clamped at 1e-4 sigma^2, coef = 24 eps (2 s12 -
     s6) / r^2, the exact division (which the kernels' Newton-refined
-    reciprocal matches to an ulp).  Rows go in chunks of at most 2^25 pair
-    slots, so that memory stays bounded at large N.
+    reciprocal matches to an ulp).  ``divide`` takes the minimum image as
+    floor(d / L + 1/2), the fused MD kernel's form.  Rows go in chunks of at
+    most 2^25 pair slots, so that memory stays bounded at large N.
     """
     dev = pos3.device
     n_rows, n_pad = rows3.shape[1], pos3.shape[1]
@@ -68,7 +69,7 @@ def lj_rows_plain(rows3, pos3, box_diag, off: int, n: int, sigma: float,
         rows = rows3[:, r0:r0 + chunk]
         rid = off + r0 + torch.arange(rows.shape[1], device=dev)
         d = rows[:, :, None] - pos3[:, None, :]
-        d = d - L * torch.floor(d * inv_L + 0.5)
+        d = d - L * torch.floor((d / L if divide else d * inv_L) + 0.5)
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         pair = ((rid[:, None] < n) & (cid[None, :] < n)
                 & (rid[:, None] != cid[None, :]))

@@ -20,10 +20,13 @@ re-sorts when a particle has drifted past the margin, chosen on the device;
 ``make_strip_lj_runner`` re-sorts at every segment and steps on the
 halo-strip kernels (K7).
 
-Ported knobs are the production ones.  Not ported (opt-in or measured as
-losing levers in the JAX package): ``megakernel``, ``fused_rebuild``,
-``mxu_reduce``, ``prefetch``, ``unroll``, ``sort_every``/``rebuild_every``
-above 1, ``seed_default`` and the per-call ``interpret`` flag.
+The culled runner's two opt-in rebuild paths are ported: ``fused_rebuild``
+(the sort and the list build in one launch, ``ops/sortbuild.py``) and
+``megakernel`` (the build from the current order, the steps, the latch and
+an order repair in one host call, ``ops/lj_mega.py``).  Not ported (opt-in
+or measured as losing levers in the JAX package): ``mxu_reduce``,
+``prefetch``, ``unroll``, ``sort_every``/``rebuild_every`` above 1,
+``seed_default`` and the per-call ``interpret`` flag.
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ from .ops.lj_cull import (
 )
 from .ops.lj_band import LJBand, band_width_needed, sort_by_x
 from .ops.lj_dense import LJDense, box_diagonal
+from .ops.lj_mega import MegaWorkspace, check_mega_tiles, mega_segment
 from .ops.lj_strip import _PAD_X, StripLJMD, sort_by_key_strip
+from .ops.sortbuild import MAX_N_PAD, sort_build
 
 
 def _md_constants(temperature, timestep, collision_rate):
@@ -349,10 +354,22 @@ class _CulledRunner:
 
 class CulledLJRunner(_CulledRunner):
     """Culled tile-pair LJ runner: the N~4000 production engine
-    (``runtime.py:553-875``)."""
+    (``runtime.py:553-875``).
+
+    ``path`` names how a segment rebuilds: ``"default"`` (the torch sort and
+    ``build_tile_pairs``), ``"fused_rebuild"`` (K10) or ``"megakernel"``
+    (K11, with ``repair_passes``)."""
 
     _INVARIANT = ("culled runner invariant violated (pair-list capacity, "
                   "shift bound, or per-segment drift)")
+
+    def __init__(self, md: CulledLJMD, dense: LJDense, segment_steps: int,
+                 sort_mode: str, exact_forces: bool, path: str = "default",
+                 repair_passes: int = 16):
+        super().__init__(md, dense, segment_steps, sort_mode, exact_forces)
+        self.path = path
+        self.repair_passes = repair_passes
+        self._workspace = None  # the megakernel's buffers on the card
 
     def init(self, positions, box_vectors, seed: int = 0) -> CullCarry:
         md = self.md
@@ -370,8 +387,18 @@ class CulledLJRunner(_CulledRunner):
         )
 
     def _segment(self, carry: CullCarry, n_steps: int) -> CullCarry:
+        if self.path == "megakernel":
+            return self._mega_segment(carry, n_steps)
         md = self.md
-        xs, v3, F3, pairs, overflowed = self._resort(carry)
+        if self.path == "fused_rebuild":
+            # before the sort, which may move a NaN key out of the live lanes
+            nonfinite = live_nonfinite(carry.x, md.n)
+            xs, v3, F3, pairs = sort_build(
+                carry.x, carry.v, carry.F, carry.box_diag[0], md.n, md.tm,
+                md.tn, self.nslab, md.cutoff, md.slack, self.capacity)
+            overflowed = carry.overflowed | nonfinite | pairs.overflowed
+        else:
+            xs, v3, F3, pairs, overflowed = self._resort(carry)
         x1, v1, F1, stale = md.run_segment(
             xs, v3, F3, carry.box_diag, pairs, seed=self.seed,
             step_offset=carry.step, n_steps=n_steps,
@@ -381,6 +408,32 @@ class CulledLJRunner(_CulledRunner):
             x=x1, v=v1, F=F1, step=carry.step + n_steps,
             box_diag=carry.box_diag, overflowed=overflowed | stale,
             pairs=pairs, x_anchor=xs,
+        )
+
+    def _mega_segment(self, carry: CullCarry, n_steps: int) -> CullCarry:
+        """A megakernel segment (``runtime.py:658-699``): the list and the
+        anchor of the carry pass through unchanged."""
+        md = self.md
+        if self.nslab != 0:
+            raise ValueError(
+                "megakernel supports the pure-x sort regime only (nslab == "
+                "0); use sort_mode='x' or the default path for slab-key "
+                "workloads")
+        ws = self._workspace
+        if md.device.type == "cuda" and (ws is None
+                                         or ws.capacity != self.capacity):
+            ws = self._workspace = MegaWorkspace(md, self.capacity)
+        half_dt = 0.5 * md.dt
+        w = carry.v - half_dt * carry.F * md.minv
+        x1, w1, F1, flag = mega_segment(
+            md, carry.x, w, carry.F, carry.box_diag, self.capacity,
+            self.seed, carry.step, n_steps, self.repair_passes,
+            approx_recip=not self.exact_forces, workspace=ws)
+        return CullCarry(
+            x=x1, v=w1 + half_dt * F1 * md.minv, F=F1,
+            step=carry.step + n_steps, box_diag=carry.box_diag,
+            overflowed=carry.overflowed | flag, pairs=carry.pairs,
+            x_anchor=carry.x_anchor,
         )
 
     def run(self, state: CullCarry, n_steps: int) -> CullCarry:
@@ -418,6 +471,9 @@ def make_culled_lj_runner(
     segment_steps: int = 50,
     sort_mode: str = "auto",
     exact_forces: bool = False,
+    fused_rebuild: bool = False,
+    megakernel: bool = False,
+    repair_passes: int = 16,
     *,
     device="cuda",
 ) -> CulledLJRunner:
@@ -428,14 +484,40 @@ def make_culled_lj_runner(
     ``state.overflowed`` latches and ``check()`` raises.  ``sort_mode`` is
     ``"auto"`` (the pure-x key below 6.5 reaches of box, else the
     (x-slab, y) key), ``"x"`` or ``"slab"``; the noise seed is ``init``'s.
+
+    ``fused_rebuild`` sorts and builds in one launch (K10) where n_pad is a
+    power of two and both tiles are multiples of 128, as in the reference;
+    elsewhere the default path runs.  ``megakernel`` (pure-x key only, tm
+    128) builds the list from the current order, runs the steps and the
+    latch, and repairs the order with ``repair_passes`` odd-even passes
+    instead of re-sorting (K11); it carries the list and anchor of ``init``
+    through unchanged.  ``runner.path`` names the path taken.
     """
     if sort_mode not in ("auto", "x", "slab"):
         raise ValueError(f"sort_mode {sort_mode!r}: use 'auto', 'x' or 'slab'")
+    if megakernel and fused_rebuild:
+        raise ValueError(
+            "megakernel rebuilds/repairs every segment; fused_rebuild does "
+            "not apply")
     md, dense = _culled_engine_setup(
         potential, n_particles, temperature, timestep, collision_rate,
         topology, tm, tn, slack, device,
     )
-    return CulledLJRunner(md, dense, segment_steps, sort_mode, exact_forces)
+    n_pad = md.n_pad
+    path = "default"
+    if megakernel:
+        check_mega_tiles(n_pad, md.tm, md.tn)
+        path = "megakernel"
+    elif fused_rebuild and ((n_pad & (n_pad - 1)) == 0 and md.tm % 128 == 0
+                            and md.tn % 128 == 0):
+        if n_pad > MAX_N_PAD:
+            raise ValueError(
+                f"fused_rebuild sorts in one block's shared memory, up to "
+                f"n_pad={MAX_N_PAD} (got {n_pad}); use the default sort/build "
+                f"path")
+        path = "fused_rebuild"
+    return CulledLJRunner(md, dense, segment_steps, sort_mode, exact_forces,
+                          path, repair_passes)
 
 
 # ---------------------------------------------------------------------------

@@ -504,3 +504,133 @@ def test_spatial_band_segment_in_a_one_rank_nccl_group(spatial_state,
         dist.destroy_process_group()
     for name in ("x", "v", "F", "overflowed"):
         assert torch.equal(getattr(g1, name), getattr(alone, name)), name
+
+
+def test_fused_md_kernel_matches_plain_and_repeats(carry):
+    """K9 against its plain version: F after one step within 1e-4 of the
+    largest force (the approximate reciprocal), x after 3 steps within 1e-5
+    nm; a repeated call is bitwise equal and counted once."""
+    from chiron_tpu_torch.ops import lj_md_fused as mf
+
+    runner, c0, pot = carry
+    md = mf.FusedLJMD(N, pot.sigma, pot.epsilon, pot.cutoff, np.full(N, 39.948),
+                      0.002, 1.0, units.kB_MD * 120.0, device=c0.x.device)
+    assert md.n_pad == c0.x.shape[1]
+    box = c0.box_diag.reshape(3).contiguous()
+    w = c0.v - 0.001 * c0.F * md.minv
+    lj = (pot.sigma, pot.epsilon, pot.cutoff, md.dt, md.a, md.b)
+    args = (c0.x, w, c0.F, box, md.minv, md.sigv, 11, 40, N)
+    _build.reset_launch_counts()
+    k1 = mf.fused_md(*args, 1, *lj)
+    k3 = mf.fused_md(*args, 3, *lj)
+    again = mf.fused_md(*args, 3, *lj)
+    assert dict(_build.launches) == {"fused_md": 3}
+    p1 = mf.fused_md_plain(*args, 1, *lj)
+    p3 = mf.fused_md_plain(*args, 3, *lj)
+    assert float((k1[2] - p1[2]).abs().max()) / float(p1[2].abs().max()) < 1e-4
+    assert float((k3[0] - p3[0]).abs().max()) < 1e-5
+    assert float((k3[1] - p3[1]).abs().max()) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(k3, again))
+    assert float(k3[2][:, N:].abs().max()) == 0.0
+
+
+def _shuffled(c0, seed=3):
+    g = torch.Generator(device=c0.x.device).manual_seed(seed)
+    perm = torch.randperm(N, generator=g, device=c0.x.device)
+    perm = torch.cat([perm, torch.arange(N, c0.x.shape[1], device=c0.x.device)])
+    return c0.x[:, perm], c0.v[:, perm], c0.F[:, perm]
+
+
+@pytest.mark.parametrize("nslab", [0, 4])
+def test_sort_build_kernel_equals_plain_bitwise(carry, nslab):
+    """K10 on a shuffled state: x', v', F' and every list array (rows
+    included) equal to the plain version bit for bit, and repeatable."""
+    from chiron_tpu_torch.ops import sortbuild as sb
+
+    runner, c0, pot = carry
+    md = runner.md
+    cap = (md.n_pad // md.tm) * (md.n_pad // md.tn)
+    a = (*_shuffled(c0), c0.box_diag[0], N, md.tm, md.tn, nslab, md.cutoff,
+         md.slack, cap)
+    _build.reset_launch_counts()
+    ko, again = sb.sort_build(*a), sb.sort_build(*a)
+    assert dict(_build.launches) == {"sort_build": 2}
+    po = sb.sort_build_plain(*a)
+    for k, q, p in zip(ko[:3], again[:3], po[:3]):
+        assert torch.equal(k, p) and torch.equal(k, q)
+    for f in lc.TilePairList._fields:
+        assert torch.equal(getattr(ko[3], f), getattr(po[3], f)), f
+        assert torch.equal(getattr(ko[3], f), getattr(again[3], f)), f
+
+
+def test_tile_build_and_repair_kernels_equal_plain_bitwise(carry):
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    runner, c0, _ = carry
+    md = runner.md
+    c1 = runner.segment_fn(8)(c0)  # a little out of order
+    box = c0.box_diag[0]
+    _build.reset_launch_counts()
+    kt = lm.tile_build(c1.x, N, md.tm, md.tn, box, md.cutoff, md.slack,
+                       runner.capacity)
+    kr = lm.mega_repair(c1.x, c1.v, c1.F, N, box, 16)
+    assert dict(_build.launches) == {"tile_build": 1, "mega_repair": 1}
+    pt = lc.build_tile_pairs(c1.x, N, md.tm, md.tn, box, md.cutoff, md.slack,
+                             runner.capacity)
+    for f in lc.TilePairList._fields:
+        assert torch.equal(getattr(kt, f), getattr(pt, f)), f
+    for k, p in zip(kr, lm.repair_plain(c1.x, c1.v, c1.F, N, box, 16)):
+        assert torch.equal(k, p)
+    xs = _shuffled(c0)
+    for k, p in zip(lm.mega_repair(*xs, N, box, 16),
+                    lm.repair_plain(*xs, N, box, 16)):
+        assert torch.equal(k, p)
+
+
+def test_mega_segment_p0_is_the_classic_path_and_repeats(carry):
+    """A P=0 segment from the sorted init state equals the classic kernel
+    path bit for bit; P=16 permutes it; a repeated call is equal."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    runner, c0, _ = carry
+    md = runner.md
+    half = 0.5 * md.dt
+    w = c0.v - half * c0.F * md.minv
+    pairs = md.build_pairs(c0.x, c0.box_diag[0], runner.capacity)
+    xc, vc, Fc, stale = md.run_segment(
+        c0.x, c0.v, c0.F, c0.box_diag, pairs, seed=2, step_offset=c0.step,
+        n_steps=8, drift_slack=md.slack_t)
+    ws = lm.MegaWorkspace(md, runner.capacity)
+    args = (md, c0.x, w, c0.F, c0.box_diag, runner.capacity, 2, c0.step, 8)
+    _build.reset_launch_counts()
+    m0 = lm.mega_segment(*args, 0, workspace=ws)
+    m16 = lm.mega_segment(*args, 16, workspace=ws)
+    again = lm.mega_segment(*args, 16, workspace=ws)
+    assert dict(_build.launches) == {"mega_md": 3}
+    assert torch.equal(m0[0], xc) and torch.equal(m0[2], Fc)
+    assert torch.equal(m0[1] + half * m0[2] * md.minv, vc)
+    assert bool(m0[3]) == bool(stale)
+    assert all(torch.equal(a, b) for a, b in zip(m16, again))
+    for a, b in zip(m0[:3], m16[:3]):
+        assert torch.equal(a[:, N:], b[:, N:])
+        assert torch.equal(torch.sort(a[:, :N].flatten()).values,
+                           torch.sort(b[:, :N].flatten()).values)
+
+
+@pytest.mark.parametrize("path", ["fused_rebuild", "megakernel"])
+def test_new_culled_paths_never_wait_for_the_device(carry, path):
+    runner, c0, pot = carry
+    r = make_culled_lj_runner(
+        potential=pot, n_particles=N, temperature=120.0 * units.kelvin,
+        slack=0.15, segment_steps=8, sort_mode="x", device=c0.x.device,
+        **{path: True})
+    assert r.path == path
+    st = r.init(runner.positions(c0), c0.box_diag, seed=4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = r.run(st, 24)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    r.check(st)
+    assert int(st.step[0, 0]) == 24

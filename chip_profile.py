@@ -39,7 +39,8 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    and the culled runner (S=40, slack 0.15) with ``fused_rebuild`` (K10)
    and with ``megakernel`` (K11, pure x, P=16): 3000-step windows beside
    the default culled runner's, in the order default, fused_rebuild,
-   megakernel, fused and back, then profiler rows of 400 steps of each.
+   megakernel, fused and back, then profiler rows of 400 steps of each, and
+   the count and entries per row tile of each culled path's last list.
 
 Without a CUDA device it exits nonzero before measuring anything.
 """
@@ -272,6 +273,16 @@ def main():
     for label in NEW_PATHS[1:]:
         _profile(label, lambda: advance(label, NEW_PROFILE_STEPS),
                  NEW_PROFILE_STEPS)
+    # the list each culled path's force last ran on (the megakernel's lives
+    # in its workspace): how many entries, and how they spread over the row
+    # tiles
+    for path in ("culled", *extra):
+        pairs = (extra[path]._workspace.pairs if path == "megakernel"
+                 else state[path].pairs)
+        ptr2 = pairs.ptr2[0].cpu()
+        seg = ptr2[2::2] - ptr2[0:-1:2]
+        print(f"{path} list: count {int(pairs.count)}, entries per row tile "
+              f"max {int(seg.max())}, mean {float(seg.double().mean()):.3f}")
 
     # the large-N engines: band against culled at N=100,000, and the strip
     big = LennardJonesFluid(nparticles=N_BAND, reduced_density=0.8)
@@ -351,7 +362,12 @@ def main():
     runs["strip"] = strip.run
     for label, steps in BIG_PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
-    strip.check(state["strip"])
+    # a latch ends a production run, not this profile: its 400 steps ran
+    # the same kernels, so the rows above stand, and the latch is reported
+    try:
+        strip.check(state["strip"])
+    except RuntimeError as err:
+        print(f"strip runner latched in its profiled steps: {err}")
     # the one-shot calls of the spatial path: the sharded force with the
     # energy (K8a's energy instantiation) and the runners' energy (K2)
     pot = big.potential

@@ -12,7 +12,9 @@ Phases (any failure raises, and the script exits nonzero):
    main path's shapes (N=4000, n_pad=4096, tiles 128 x 256), on a
    configuration melted by 1000 dense steps, and time both with CUDA events:
    K1, the culled force (K4, K3's force phase), K5 and K3's exact-energy
-   final step, BAOAB, the drift latch with the slack and with a budget
+   final step, the culled runner at a row tile of 256 (K5 against its plain
+   version, then 400 steps, ``check()`` clean, energy within 1e-5 of the f64
+   oracle), BAOAB, the drift latch with the slack and with a budget
    on either side of the measured drift, and K7 on the strip layout of that
    state (its force, force and energy, and BAOAB phase with the halo
    refresh).  K6 is held to its plain version at the end of phase 7, on the
@@ -38,8 +40,9 @@ Phases (any failure raises, and the script exits nonzero):
    window; ``check()`` clean, the runner's K1 energy finite, T_kin within
    5%, K6's force and K1 launched (the counts are read here).  Then the K1
    energy within 1e-5 of K6's single-count energy, K6 against its plain
-   version on that state, and a repeated band step (through the re-sort and
-   without it) bitwise equal;
+   version on that state, a repeated band step (through the re-sort and
+   without it) bitwise equal, and a NaN live coordinate latched by the next
+   step, so that ``check()`` raises;
 8. the strip path, counted: ``make_lj_runner(engine="strip")`` at N=4000
    from phase 5's state (S=50, slack 0.3) for 3000 steps; ``check()``
    clean, ``strip_baoab``, the strip force, the latch and K1 launched (the
@@ -125,6 +128,8 @@ SPATIAL_BAND_STEPS = 500
 SPATIAL_DENSE_STEPS = 100
 FUSED_STEPS = 1000
 FUSED_SEGMENT = 100
+TM_WIDE = 256
+WIDE_STEPS = 400
 REPAIR_PASSES = 16
 # enough odd-even passes to undo a segment's displacement at S=40
 DEEP_REPAIR = 256
@@ -751,6 +756,35 @@ def main():
         replaces="chiron_tpu/ops/lj_cull.py:766", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
+    # the culled runner at its widest row tile
+    r256 = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
+                                 tm=TM_WIDE, **common)
+    c256 = r256.init(fast.positions(fs), box, seed=7)
+    a256 = (c256.x, box_diag, c256.pairs, N, TM_WIDE, r256.md.tn, sig, eps,
+            cut)
+    Fp, Ep = lc.row_force_pass_plain(*a256, with_energy=True)
+    Fk, Ek = lc.culled_force_energy(*a256)
+    diff = (Fk - Fp)[:, :N].abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / float(Fp.abs().max())
+    e_rel = abs(float(Ek) - float(Ep)) / abs(float(Ep))
+    _require(err < 0.05 and p99 < 1e-5 and e_rel < 1e-5,
+             f"tm={TM_WIDE} culled force err {err}, p99 {p99}, energy {e_rel}")
+    s256 = r256.run(c256, WIDE_STEPS)
+    r256.check(s256)
+    e256 = float(r256.energy(s256))
+    _, e64 = lj_dense_oracle(r256.positions(s256).double(),
+                             torch.as_tensor(box, device=dev).double(), sig,
+                             eps, cut)
+    e_rel64 = abs(e256 - float(e64)) / abs(float(e64))
+    _require(math.isfinite(e256) and e_rel64 < 1e-5,
+             f"tm={TM_WIDE} runner energy {e256}, oracle rel {e_rel64}")
+    print(f"  culled runner at tm={TM_WIDE} (count "
+          f"{int(c256.pairs.count)}, n_pad {r256.md.n_pad}): K5 vs plain max "
+          f"abs {err:.3e} (0.05), p99 rel {p99:.3e} (1e-5), energy rel "
+          f"{e_rel:.3e} (1e-5); {WIDE_STEPS} steps check() passed, energy "
+          f"{e256:.6f} kJ/mol (f64 oracle rel {e_rel64:.2e})")
+
     # K3's BAOAB phase, in place on copies of the carry
     w0 = c0.v - (0.5 * md.dt) * c0.F * md.minv
     state_k = [c0.x.clone(), w0.clone(), c0.F.clone()]
@@ -1103,6 +1137,17 @@ def main():
                      f"repeated band step {what} differs in {name}")
     _require(not torch.equal(br.step(stale, noise).ref_x, bs.ref_x),
              "the stale carry was not re-sorted")
+    # a NaN live coordinate latches at the next step, and check() raises
+    poisoned = replace(bs, x=bs.x.clone())
+    poisoned.x[0, 7] = float("nan")
+    latched = br.step(poisoned, noise)
+    try:
+        br.check(latched)
+        raised = False
+    except RuntimeError:
+        raised = True
+    _require(bool(latched.overflowed) and raised,
+             "the band runner did not latch a NaN live coordinate")
     in_cut = _pairs_in_band(bs.x, bs.box_diag, N_BAND, cut, w)
     lane_bytes = 3 * bn_pad * 4
     for name, energy, line in (("band_force", False, 160),
@@ -1129,7 +1174,8 @@ def main():
           f"(tolerance 1e-5), approx vs exact rel {err_a:.3e} (1e-4), energy "
           f"rel {e_rel:.3e} to plain and {e_rel_k1:.3e} to K1 (1e-5); a "
           f"repeated step, in order and through the re-sort, is bitwise "
-          f"identical")
+          f"identical; a NaN at x[0, 7] latches at the next step and check() "
+          f"raises")
     print(f"    pairs: {N_BAND * w} band distance tests (n x w), {in_cut} "
           f"within the cutoff; bound "
           f"{results['band_force']['bound_ms'] * 1e3:.3f} us "

@@ -74,8 +74,8 @@ __device__ __forceinline__ void lane_uniforms(uint32_t seed, uint32_t step,
 }
 
 // Entry points that other entries enqueue: the fused MD segment
-// (lj_md_fused.cu) runs K1's pair loop with the divide, and the megakernel
-// segment (lj_mega.cu) runs K3's three kernels.
+// (lj_md_fused.cu) runs K1's pair kernel with the divide, and the megakernel
+// segment (lj_mega.cu) runs K3's kernels.
 cudaError_t lj_dense_force_divide(const float* pos, const float* box,
                                   float* force, int n, int n_pad, float sigma2,
                                   float coef_scale, float cutoff2,
@@ -86,17 +86,131 @@ CHIRON_EXPORT int chiron_baoab(float* x, float* w, float* F, const float* minv,
                                int n_pad, float dt, float half_dt, float a,
                                float b, void* stream);
 CHIRON_EXPORT int chiron_cull_force(
-    const float* x, const float* box, const int* cols, const float* ccx,
-    const int* ptr2, const float* rowcx, const int* count, float* P, float* R,
-    float* e_part, float* F, float* energy, int n, int n_pad, int tm, int tn,
-    int n_split, float inv_sigma, float sigma_fold, float cutoff2_s,
-    float eps_scale, float e_scale, int approx, void* stream);
+    const float* x, const float* box, const int* rows, const int* cols,
+    const float* ccx, const int* ptr2, const float* rowcx, const int* count,
+    float* P, float* R, float* e_part, float* F, float* energy, int n,
+    int n_pad, int tm, int tn, int capacity, float inv_sigma,
+    float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
+    int approx, void* stream);
 CHIRON_EXPORT int chiron_drift(const float* x, const float* anchor,
                                const float* box, int n, int n_pad,
                                const float* threshold, bool* flag,
                                void* stream);
 
-// The tiled pair passes (lj_cull_force.cu, lj_band.cu, lj_strip.cu) run
+// Culling a warp's whole block of pairs at once (lj_dense.cu,
+// lj_cull_force.cu).  A warp gathers the bounding box of its particles:
+// each point's offsets from one reference point, min-imaged on the periodic
+// axes, give per axis a center and a half-width that hold every point up to
+// whole periods.  Two boxes are apart when the summed squares of the axis
+// gaps |min-image(center difference)| - both half-widths, floored at 0,
+// exceed a threshold: every pair between them is then at least that far
+// apart, since on an axis of period P with |d| <= P/2 no image of a point of
+// one box comes closer to the other than |d| - hA - hB.  The callers pass the
+// squared cutoff raised by 2e-3, so that the float rounding of the boxes
+// (about 1e-6 of the coordinates) never culls a pair inside the cutoff.  A
+// non-finite coordinate anywhere in either box forbids culling, so a NaN
+// reaches the same sums it reaches without culling.
+namespace cull {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kRaise = 1.002f;  // the squared cutoff's margin for culling
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+struct Box {
+  float c[3], h[3];
+  bool finite;
+};
+
+// One warp's box, built point by point: every lane of the warp constructs it
+// with the same reference point (lane 0's first point, say), adds its own
+// points, and calls reduce() together with the others.  per[a] is the
+// period of axis a and iper[a] its inverse; per[a] == 0 leaves the axis open.
+struct BoxAcc {
+  float ref[3], lo[3], hi[3];
+  bool finite;
+
+  __device__ __forceinline__ BoxAcc(float rx, float ry, float rz)
+      : ref{rx, ry, rz}, finite(true) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = __int_as_float(0x7f800000);  // +inf
+      hi[a] = -lo[a];
+    }
+  }
+
+  __device__ __forceinline__ void add(float x, float y, float z,
+                                      const float (&per)[3],
+                                      const float (&iper)[3]) {
+    const float p[3] = {x, y, z};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float o = p[a] - ref[a];
+      if (per[a] > 0.0f) o -= per[a] * rintf(o * iper[a]);
+      lo[a] = fminf(lo[a], o);
+      hi[a] = fmaxf(hi[a], o);
+      finite = finite && isfinite(p[a]);
+    }
+  }
+
+  __device__ __forceinline__ Box reduce() const {
+    Box b;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float l = warp_min(lo[a]), h = warp_max(hi[a]);
+      b.c[a] = ref[a] + 0.5f * (l + h);
+      b.h[a] = 0.5f * (h - l);
+    }
+    b.finite = __all_sync(kFull, finite);
+    return b;
+  }
+};
+
+__device__ __forceinline__ bool apart(const Box& A, const Box& B,
+                                      const float (&per)[3],
+                                      const float (&iper)[3], float thr2) {
+  if (!(A.finite && B.finite)) return false;
+  float g2 = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float d = A.c[a] - B.c[a];
+    if (per[a] > 0.0f) d -= per[a] * rintf(d * iper[a]);
+    const float g = fabsf(d) - A.h[a] - B.h[a];
+    if (g > 0.0f) g2 += g * g;
+  }
+  return g2 > thr2;
+}
+
+// The sum of one float a thread over a block of kThreads threads (a
+// multiple of 32), in one fixed order: a butterfly in each warp, then the
+// warps' sums in warp order.  Every thread gets the total; `scratch` holds
+// kThreads / 32 floats; tid is the thread's linear index in the block.
+template <int kThreads>
+__device__ __forceinline__ float block_sum(float v, float* scratch, int tid) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  __syncthreads();  // scratch may still be read by an earlier call
+  if ((tid & 31) == 0) scratch[tid >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) s += scratch[w];
+  return s;
+}
+
+}  // namespace cull
+
+// The tiled pair passes (lj_band.cu, lj_strip.cu) run
 // kThreads threads a block as kRG row groups by kCG column groups.  A block
 // writes partial sums to slots of its own, and a gather kernel adds them
 // per particle.  Every sum below has one order, so a repeated call is

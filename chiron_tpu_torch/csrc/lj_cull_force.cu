@@ -1,224 +1,475 @@
-// Culled LJ force over the tile-pair list (K4, and the force phase of K3).
+// Culled LJ force over the tile-pair list (K4, the force phase of K3, K5).
 //
 // Replaces chiron_tpu/ops/lj_cull.py: _row_force_pass (:318), launched
-// alone by culled_force_raw (pallas_call at :700) and once a step inside
-// culled_md_raw (pallas_call at :984).  Semantics as there: sigma-prescaled
-// coordinates; row and column x folded into the entry's frame through rowcx
-// and ccx; y and z minimum image by trunc(2d/L); general entries
-// [ptr2[2i], ptr2[2i+1]) take the col>row & col<n mask and the r^2 clamp,
-// fast entries the cutoff mask alone; the factored (i6-1/2) i6 inv
-// coefficient, scaled once by 48 eps / sigma.
+// alone by culled_force_raw (pallas_call at :700), with the energy by
+// culled_force_energy_raw (:766), and once a step inside culled_md_raw
+// (:984).  Semantics as there: sigma-prescaled coordinates; row and column x
+// folded into the entry's frame through rowcx and ccx; y and z minimum image
+// by trunc(2d/L); general entries [ptr2[2i], ptr2[2i+1]) take the col>row &
+// col<n mask and the r^2 clamp, fast entries the cutoff mask alone; the
+// factored (i6-1/2) i6 inv coefficient, scaled once by 48 eps / sigma.
 //
-// The TPU kernel subtracts each entry's column reaction straight from the
-// force block, race-free only because its grid runs in order.  On Hopper
-// the column sums are where a parallel force pass races, and float atomics
-// would make the trajectory depend on the schedule.  Instead:
-//   1. cull_rows: block (i, s) owns row tile i and walks the entries
-//      g0+s, g0+s+S, ... of that tile in slot order.  A thread holds RPT
-//      rows against every kCG-th column, so row sums stay in registers
-//      across the entries; each entry's column partials are reduced over
-//      the kRG row groups in a fixed order into R[k] (capacity x 3 x tn),
-//      and the row sums over the kCG column groups into P[s].
-//   2. cull_gather: each particle sums its row partials P[0..S) and then
-//      subtracts R[k] for the entries k < count whose column tile is its
-//      own, in slot order.
-// Every sum has one order, so a repeated call is bitwise identical.
+// The TPU kernel walks each row tile's entries in order and subtracts each
+// entry's column reaction straight from the force block, race-free only
+// because its grid runs in order.  On Hopper the work is cut so that it
+// fills the card, and every partial sum goes to a slot of its own:
+//   1. cull_pairs: one block of 128 threads per work item (entry k, column
+//      slice s), the slices being the entry's column tile cut into kSlice =
+//      64 columns (S = ceil(tn / 64) of them).  The grid is capacity x S;
+//      items past the device-side count exit at once, so the host never
+//      reads the count, and no row tile's entry count sets the time: at
+//      N=4000 the 143 entries give 572 blocks, four to five an SM.  A block
+//      stages its slice's columns once, a thread holds RPT rows of the row
+//      tile in registers against every KCG-th column of the slice, and the
+//      block writes its row partials to P[k S + s] (3 x tm) and its column
+//      partials to R[k] (3 x tn, the slice's 64 columns), each reduced over
+//      its thread groups in one fixed order through shared memory.
+//   2. cull_gather: one block per 128 particles.  A particle adds the row
+//      partials of its row tile's items (contiguous in P, since the list is
+//      ordered by row tile), then subtracts the column partials of the
+//      entries whose column tile is its own: the block reads `cols` once, a
+//      round of 512 entries at a time, compacts the entries of its column
+//      tiles in slot order into shared memory, and each particle walks that
+//      short list, never the whole list.
+// Every sum has one order and no float atomics, so a repeated call is
+// bitwise identical.
 //
-// Bound: pair arithmetic.  The function needs the distance test on each of
-// the count x tm x tn listed pairs and the LJ term only on the few within
-// the cutoff; this kernel runs without branches, so it takes the LJ term
-// on every listed pair.  Splitting each row tile's entries over S blocks
-// gives the grid nr x S blocks, enough to occupy the card at nr = 32.
-// The energy instantiation accumulates (i6-1) i6 over the same pairs into
-// one partial per block, summed in order by cull_gather, always with the
-// exact reciprocal (two Newton steps on the rcp.approx seed, lj_newton2).
-// With approx = 0 this is K5 (culled_force_energy_raw, pallas_call at
-// :766); with approx = 1 it is K3's final_energy step (:845-870), whose
-// force keeps the fast seed.  Both sum the same bits in the same order, so
-// that step's energy equals a K5 pass on the same list bit for bit.
+// Bound: pair arithmetic, the distance test on each of the count x tm x tn
+// listed pairs and the LJ term on the few within the cutoff.  What the
+// design does about the pairs it need not compute: each warp holds the
+// bounding box of its rows (32 consecutive rows of the tile) against that
+// of the slice (cull:: in common.cuh) and skips the slice where they are
+// farther apart than the cutoff (in x alone, about a third of the listed
+// pairs at N=4000); inside, the LJ term runs only where some lane has a pair
+// within the cutoff (or a NaN distance, which must reach the sums as it did
+// before), decided warp-uniformly with __any_sync.
+//
+// The pair arithmetic is written op by op with the _rn intrinsics, so that
+// every instantiation rounds alike: the force of the energy instantiation
+// equals the force-only pass's, and its energy, always taken with the exact
+// reciprocal (two Newton steps on the rcp.approx seed, lj_newton2) and
+// summed in pinned order, is the same whatever the force's reciprocal.  So
+// K3's final_energy step (approximate force, with the energy) returns a K5
+// pass's energy bit for bit.
 #include "common.cuh"
 
-using namespace pair_pass;
-
 namespace {
+
+constexpr int kThreads = 128;  // threads a pair block
+constexpr int kSlice = 64;     // columns a pair block takes from its entry
+constexpr int kGather = 128;   // particles a gather block takes
+using cull::kFull;
 
 struct Params {
   const float* x;       // (3, n_pad) wrapped positions
   const float* box;     // (3,)
+  const int* rows;      // (capacity,) row tile of each entry
   const int* cols;      // (capacity,)
   const float* ccx;     // (capacity,)
   const int* ptr2;      // (2 nr + 1,)
   const float* rowcx;   // (nr,)
   const int* count;     // (1,)
-  float* P;             // (S, 3, n_pad) row partials
+  float* P;             // (capacity S, 3, tm) row partials
   float* R;             // (capacity, 3, tn) column partials
-  float* e_part;        // (nr * S,) energy partials
+  float* e_part;        // (capacity S,) energy partials
   float* F;             // (3, n_pad) output force
   float* energy;        // (1,) output energy, or null
-  int n, n_pad, tm, tn;
-  float inv_sigma, sigma_fold, cutoff2_s, eps_scale, e_scale;
-  int approx;
+  int n, n_pad, tm, tn, n_slices;
+  float inv_sigma, sigma_fold, cutoff2_s, cull2_s, eps_scale, e_scale;
 };
 
-// kEnergy instantiates the energy sum; the force-only pass carries none of
-// its code (a runtime flag in the pair loop cost the force-only pass 7%).
-template <int RPT, bool kEnergy>
-__global__ void __launch_bounds__(kThreads) cull_rows(Params p) {
-  extern __shared__ float smem[];
-  const int tn = p.tn, tm = p.tm, n_pad = p.n_pad;
-  float* sx = smem;
-  float* sy = sx + tn;
-  float* sz = sy + tn;
-  float* red = sz + tn;  // [kRG][3][tn] columns, then [kCG][3][tm] rows
-  const int i = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
-  const int tid = threadIdx.x, rg = tid / kCG, cg = tid % kCG;
+// x folded into the frame centered on cx and prescaled: the plain
+// version's (x - Lx floor((x - cx) / Lx + 1/2)) / sigma, op by op.
+__device__ __forceinline__ float fold_x(float x, float cx, float Lx, float iLx,
+                                        float inv_sigma) {
+  const float k = floorf(__fadd_rn(__fmul_rn(__fsub_rn(x, cx), iLx), 0.5f));
+  return __fmul_rn(__fsub_rn(x, __fmul_rn(Lx, k)), inv_sigma);
+}
+
+// The y or z minimum image d - Ls trunc(2 d / Ls) of prescaled coordinates.
+__device__ __forceinline__ float fold_yz(float d, float Ls, float two_inv_Ls) {
+  return __fsub_rn(d, __fmul_rn(Ls, truncf(__fmul_rn(d, two_inv_Ls))));
+}
+
+// Per-block constants of the pair arithmetic.
+struct Geometry {
+  float Lys, Lzs, two_inv_Lys, two_inv_Lzs, cutoff2_s;
+  int n;
+};
+
+// The thread's RPT rows against its columns t = cg + KCG q of the staged
+// slice; the row sums stay in fx/fy/fz, each column's sum over the RPT rows
+// goes to red[(rg 3 + a) kSlice + t].  kGeneral adds the col > row, col < n
+// mask and the r^2 clamp.  skip (warp-uniform) writes zero column sums.
+template <int RPT, int KRG, bool kEnergy, bool kApprox, bool kGeneral>
+__device__ __forceinline__ void slice_pairs(
+    const float4* __restrict__ sc, float* __restrict__ red, int width,
+    int rg, int cg, int rid0, int cid0, bool skip, const Geometry& g,
+    const float (&xi)[RPT], const float (&yi)[RPT], const float (&zi)[RPT],
+    float (&fx)[RPT], float (&fy)[RPT], float (&fz)[RPT], float& ea) {
+  constexpr int KCG = kThreads / KRG;
+  for (int q = 0; q < width / KCG; ++q) {
+    const int t = cg + KCG * q;
+    float cxs = 0.0f, cys = 0.0f, czs = 0.0f;
+    if (!skip) {
+      const float4 c = sc[t];
+      float dx[RPT], dy[RPT], dz[RPT], r2[RPT];
+      bool m[RPT];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        dx[u] = __fsub_rn(xi[u], c.x);
+        dy[u] = fold_yz(__fsub_rn(yi[u], c.y), g.Lys, g.two_inv_Lys);
+        dz[u] = fold_yz(__fsub_rn(zi[u], c.z), g.Lzs, g.two_inv_Lzs);
+        r2[u] = __fmaf_rn(dz[u], dz[u],
+                          __fmaf_rn(dy[u], dy[u], __fmul_rn(dx[u], dx[u])));
+        m[u] = r2[u] < g.cutoff2_s;
+        if constexpr (kGeneral) {
+          const int cid = cid0 + t;
+          m[u] = m[u] && cid > rid0 + u && cid < g.n;
+        }
+        any = any || m[u] || r2[u] != r2[u];
+      }
+      if (__any_sync(kFull, any)) {
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const float r2s = kGeneral ? fmaxf(r2[u], 1e-4f) : r2[u];
+          const float seed = rcp_approx(r2s);
+          const float inv = kApprox ? seed : lj_newton2(r2s, seed);
+          const float i6 = __fmul_rn(__fmul_rn(inv, inv), inv);
+          const float coef =
+              m[u] ? __fmul_rn(__fmul_rn(__fsub_rn(i6, 0.5f), i6), inv) : 0.0f;
+          fx[u] = __fmaf_rn(coef, dx[u], fx[u]);
+          fy[u] = __fmaf_rn(coef, dy[u], fy[u]);
+          fz[u] = __fmaf_rn(coef, dz[u], fz[u]);
+          cxs = __fmaf_rn(coef, dx[u], cxs);
+          cys = __fmaf_rn(coef, dy[u], cys);
+          czs = __fmaf_rn(coef, dz[u], czs);
+          if constexpr (kEnergy) {
+            const float inv_e = kApprox ? lj_newton2(r2s, seed) : inv;
+            const float i6e = __fmul_rn(__fmul_rn(inv_e, inv_e), inv_e);
+            ea = __fadd_rn(ea, m[u] ? __fmul_rn(__fsub_rn(i6e, 1.0f), i6e)
+                                    : 0.0f);
+          }
+        }
+      }
+    }
+    red[(rg * 3 + 0) * kSlice + t] = cxs;
+    red[(rg * 3 + 1) * kSlice + t] = cys;
+    red[(rg * 3 + 2) * kSlice + t] = czs;
+  }
+}
+
+// A block of KRG row groups x KCG column groups, RPT rows a row group
+// (tm = KRG RPT); thread tid is row group tid / KCG, so a warp holds
+// 32 / KCG row groups: 32 RPT / KCG consecutive rows.
+template <int RPT, int KRG, bool kEnergy, bool kApprox>
+__global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
+  constexpr int KCG = kThreads / KRG;
+  static_assert(KCG * RPT <= kSlice, "row partials must fit the buffer");
+  __shared__ float4 sc[kSlice];
+  __shared__ float red[KRG * 3 * kSlice];
+  __shared__ float sbox[7];
+  __shared__ float scratch[kThreads / 32];
+  const int item = blockIdx.x;
+  const int k = item / p.n_slices;  // < capacity: the list's arrays hold it
+  const int s = item - k * p.n_slices;
+  // issued together, before the count decides: one load latency, not four
+  const int count = p.count[0];
+  const int i = p.rows[k];
+  const int col_tile = p.cols[k];
+  const float cx = p.ccx[k];
+  if (k >= count) return;
+  const int tid = threadIdx.x;
+  const int rg = tid / KCG, cg = tid - rg * KCG;
+  const int tm = p.tm, tn = p.tn, n_pad = p.n_pad;
+  const bool general = k < p.ptr2[2 * i + 1];
   const int row0 = i * tm;
+  const int c0 = s * kSlice;
+  const int width = min(kSlice, tn - c0);
+  const int col0 = col_tile * tn + c0;
   const float Lx = p.box[0], Ly = p.box[1], Lz = p.box[2];
   const float iLx = 1.0f / Lx, iLy = 1.0f / Ly, iLz = 1.0f / Lz;
   const float inv_sigma = p.inv_sigma;
-  const float Lys = Ly * inv_sigma, Lzs = Lz * inv_sigma;
-  const float two_inv_Lys = (2.0f * iLy) * p.sigma_fold;
-  const float two_inv_Lzs = (2.0f * iLz) * p.sigma_fold;
-  const float rcx = p.rowcx[i];
+  Geometry g;
+  g.Lys = Ly * inv_sigma;
+  g.Lzs = Lz * inv_sigma;
+  g.two_inv_Lys = (2.0f * iLy) * p.sigma_fold;
+  g.two_inv_Lzs = (2.0f * iLz) * p.sigma_fold;
+  g.cutoff2_s = p.cutoff2_s;
+  g.n = p.n;
+  // x is open (folded into the entry's frame), y and z periodic
+  const float per[3] = {0.0f, g.Lys, g.Lzs};
+  const float iper[3] = {0.0f, iLy * p.sigma_fold, iLz * p.sigma_fold};
+
+  // the first warp stages the slice (two columns a lane) and boxes it
+  if (tid < 32) {
+    float px[2], py[2], pz[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = tid + 32 * h;
+      const int col = col0 + min(t, width - 1);
+      px[h] = fold_x(p.x[col], cx, Lx, iLx, inv_sigma);
+      py[h] = __fmul_rn(p.x[n_pad + col], inv_sigma);
+      pz[h] = __fmul_rn(p.x[2 * n_pad + col], inv_sigma);
+      if (t < width) sc[t] = make_float4(px[h], py[h], pz[h], 0.0f);
+    }
+    cull::BoxAcc acc(__shfl_sync(kFull, px[0], 0), __shfl_sync(kFull, py[0], 0),
+                     __shfl_sync(kFull, pz[0], 0));
+    acc.add(px[0], py[0], pz[0], per, iper);
+    acc.add(px[1], py[1], pz[1], per, iper);
+    const cull::Box b = acc.reduce();
+    if (tid == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        sbox[a] = b.c[a];
+        sbox[3 + a] = b.h[a];
+      }
+      sbox[6] = b.finite ? 1.0f : 0.0f;
+    }
+  }
 
   float xi[RPT], yi[RPT], zi[RPT], fx[RPT], fy[RPT], fz[RPT];
-  int rid[RPT];
+  const float rcx = p.rowcx[i];
+  const int rid0 = row0 + rg * RPT;
 #pragma unroll
   for (int u = 0; u < RPT; ++u) {
-    const int r = row0 + rg * RPT + u;
-    rid[u] = r;
-    const float x = p.x[r];
-    xi[u] = (x - Lx * floorf((x - rcx) * iLx + 0.5f)) * inv_sigma;
-    yi[u] = p.x[n_pad + r] * inv_sigma;
-    zi[u] = p.x[2 * n_pad + r] * inv_sigma;
+    const int r = rid0 + u;
+    xi[u] = fold_x(p.x[r], rcx, Lx, iLx, inv_sigma);
+    yi[u] = __fmul_rn(p.x[n_pad + r], inv_sigma);
+    zi[u] = __fmul_rn(p.x[2 * n_pad + r], inv_sigma);
     fx[u] = fy[u] = fz[u] = 0.0f;
   }
+  cull::BoxAcc racc(__shfl_sync(kFull, xi[0], 0), __shfl_sync(kFull, yi[0], 0),
+                    __shfl_sync(kFull, zi[0], 0));
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) racc.add(xi[u], yi[u], zi[u], per, iper);
+  const cull::Box rbox = racc.reduce();
+  __syncthreads();  // the slice and its box are staged
+  cull::Box cbox;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    cbox.c[a] = sbox[a];
+    cbox.h[a] = sbox[3 + a];
+  }
+  cbox.finite = sbox[6] != 0.0f;
+  const bool skip = cull::apart(rbox, cbox, per, iper, p.cull2_s);
+
   [[maybe_unused]] float ea = 0.0f;
-  const int g0 = p.ptr2[2 * i], g1 = p.ptr2[2 * i + 1], g2 = p.ptr2[2 * i + 2];
-
-  for (int k = g0 + split; k < g2; k += n_split) {
-    const int col0 = p.cols[k] * tn;
-    const float cx = p.ccx[k];
-    const bool general = k < g1;
-    __syncthreads();  // the previous entry's staging and partials are read
-    for (int t = tid; t < tn; t += kThreads) {
-      const float x = p.x[col0 + t];
-      sx[t] = (x - Lx * floorf((x - cx) * iLx + 0.5f)) * inv_sigma;
-      sy[t] = p.x[n_pad + col0 + t] * inv_sigma;
-      sz[t] = p.x[2 * n_pad + col0 + t] * inv_sigma;
-    }
-    __syncthreads();
-    for (int t = cg; t < tn; t += kCG) {
-      const int cid = col0 + t;
-      const float xj = sx[t], yj = sy[t], zj = sz[t];
-      float cx_sum = 0.0f, cy_sum = 0.0f, cz_sum = 0.0f;
-#pragma unroll
-      for (int u = 0; u < RPT; ++u) {
-        const float dx = xi[u] - xj;
-        float dy = yi[u] - yj;
-        dy = dy - Lys * truncf(dy * two_inv_Lys);
-        float dz = zi[u] - zj;
-        dz = dz - Lzs * truncf(dz * two_inv_Lzs);
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        bool m = r2 < p.cutoff2_s;
-        float r2s = r2;
-        if (general) {
-          m = m && (cid > rid[u]) && (cid < p.n);
-          r2s = fmaxf(r2, 1e-4f);
-        }
-        const float seed = rcp_approx(r2s);
-        const float inv = p.approx != 0 ? seed : lj_newton2(r2s, seed);
-        const float i6 = inv * inv * inv;
-        const float coef = m ? (i6 - 0.5f) * i6 * inv : 0.0f;
-        const float tx = coef * dx, ty = coef * dy, tz = coef * dz;
-        fx[u] += tx;
-        fy[u] += ty;
-        fz[u] += tz;
-        cx_sum += tx;
-        cy_sum += ty;
-        cz_sum += tz;
-        if constexpr (kEnergy) {
-          const float inv_e = p.approx != 0 ? lj_newton2(r2s, seed) : inv;
-          const float i6e = __fmul_rn(__fmul_rn(inv_e, inv_e), inv_e);
-          // pinned rounding: K5 and the final_energy step sum equal bits
-          ea = __fadd_rn(ea, m ? __fmul_rn(__fsub_rn(i6e, 1.0f), i6e) : 0.0f);
-        }
-      }
-      red[(rg * 3 + 0) * tn + t] = cx_sum;
-      red[(rg * 3 + 1) * tn + t] = cy_sum;
-      red[(rg * 3 + 2) * tn + t] = cz_sum;
-    }
-    __syncthreads();
-    store_col_partials(red, tn, p.R + static_cast<size_t>(k) * 3 * tn);
+  if (general) {
+    slice_pairs<RPT, KRG, kEnergy, kApprox, true>(
+        sc, red, width, rg, cg, rid0, col0, skip, g, xi, yi, zi, fx, fy, fz,
+        ea);
+  } else {
+    slice_pairs<RPT, KRG, kEnergy, kApprox, false>(
+        sc, red, width, rg, cg, rid0, col0, skip, g, xi, yi, zi, fx, fy, fz,
+        ea);
   }
-  store_row_partials<RPT>(
-      red, tm, fx, fy, fz, p.P + static_cast<size_t>(split) * 3 * n_pad + row0,
-      n_pad);
-  if constexpr (kEnergy)
-    store_energy_partial(red, ea, p.e_part + i * n_split + split);
+  __syncthreads();
+  // the slice's column sums over the row groups, in order
+  float* Rk = p.R + static_cast<size_t>(k) * 3 * tn + c0;
+  for (int idx = tid; idx < 3 * width; idx += kThreads) {
+    const int a = idx / width, t = idx - a * width;
+    float sum = 0.0f;
+    for (int r = 0; r < KRG; ++r) sum += red[(r * 3 + a) * kSlice + t];
+    Rk[a * tn + t] = sum;
+  }
+  __syncthreads();
+  // the rows' sums over the column groups, in order
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int r = rg * RPT + u;
+    red[(cg * 3 + 0) * tm + r] = fx[u];
+    red[(cg * 3 + 1) * tm + r] = fy[u];
+    red[(cg * 3 + 2) * tm + r] = fz[u];
+  }
+  __syncthreads();
+  float* Pk = p.P + static_cast<size_t>(item) * 3 * tm;
+  for (int idx = tid; idx < 3 * tm; idx += kThreads) {
+    const int a = idx / tm, r = idx - a * tm;
+    float sum = 0.0f;
+    for (int c = 0; c < KCG; ++c) sum += red[(c * 3 + a) * tm + r];
+    Pk[idx] = sum;
+  }
+  if constexpr (kEnergy) {
+    const float e = cull::block_sum<kThreads>(ea, scratch, tid);
+    if (tid == 0) p.e_part[item] = e;
+  }
 }
 
-__global__ void cull_gather(Params p, int n_split, int n_parts) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= p.n_pad) return;
-  const int c = q / p.tn, t = q - c * p.tn;
-  float f[3];
-  sum_row_partials(p.P, n_split, p.n_pad, q, f);
+// The gather's chains of dependent loads are its cost at N=4000, so it
+// issues the loads of kBatch slots before it adds them, in slot order.
+constexpr int kBatch = 4;
+constexpr int kScan = kBatch * kGather;  // list entries scanned a round
+
+__global__ void __launch_bounds__(kGather) cull_gather(Params p) {
+  __shared__ int hit_k[kScan];
+  __shared__ int hit_c[kScan];
+  __shared__ int wsum[kGather / 32];
+  __shared__ float scratch[kGather / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tm = p.tm, tn = p.tn, n_pad = p.n_pad, S = p.n_slices;
+  const float* __restrict__ P = p.P;
+  const float* __restrict__ R = p.R;
+  const int q0 = blockIdx.x * kGather;
+  const int q = min(q0 + tid, n_pad - 1);
+  const int i = q / tm, r = q - i * tm;
+  const int c = q / tn, t = q - c * tn;
   const int count = p.count[0];
-  for (int k = 0; k < count; ++k) {
-    if (p.cols[k] != c) continue;
-    const float* Rk = p.R + static_cast<size_t>(k) * 3 * p.tn;
-    f[0] -= Rk[t];
-    f[1] -= Rk[p.tn + t];
-    f[2] -= Rk[2 * p.tn + t];
-  }
+  float f[3] = {0.0f, 0.0f, 0.0f};
+  // the row partials of the row tile's items, in slot order
+  const int j1 = p.ptr2[2 * i + 2] * S;
+  int j = p.ptr2[2 * i] * S;
+  for (; j + kBatch <= j1; j += kBatch) {
+    float v[kBatch][3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) p.F[a * p.n_pad + q] = p.eps_scale * f[a];
-  if (p.energy != nullptr && q == 0)
-    p.energy[0] = p.e_scale * sum_energy_partials(p.e_part, n_parts);
+    for (int u = 0; u < kBatch; ++u) {
+      const float* Pj = P + static_cast<size_t>(j + u) * 3 * tm + r;
+      v[u][0] = Pj[0];
+      v[u][1] = Pj[tm];
+      v[u][2] = Pj[2 * tm];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      f[0] += v[u][0];
+      f[1] += v[u][1];
+      f[2] += v[u][2];
+    }
+  }
+  for (; j < j1; ++j) {
+    const float* Pj = P + static_cast<size_t>(j) * 3 * tm + r;
+    f[0] += Pj[0];
+    f[1] += Pj[tm];
+    f[2] += Pj[2 * tm];
+  }
+  // the column partials of the entries on this block's column tiles, in
+  // slot order: each round, a thread tests kBatch consecutive entries, and
+  // a block scan places the hits in slot order
+  const int c_lo = q0 / tn;
+  const int c_hi = (min(q0 + kGather, n_pad) - 1) / tn;
+  for (int base = 0; base < count; base += kScan) {
+    const int k0 = base + kBatch * tid;
+    int ck[kBatch];
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      ck[u] = k0 + u < count ? p.cols[k0 + u] : -1;
+      mine += ck[u] >= c_lo && ck[u] <= c_hi;
+    }
+    int incl = mine;  // inclusive scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += up;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int at = incl - mine, total = 0;
+#pragma unroll
+    for (int w = 0; w < kGather / 32; ++w) {
+      at += w < warp ? wsum[w] : 0;
+      total += wsum[w];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (ck[u] >= c_lo && ck[u] <= c_hi) {
+        hit_k[at] = k0 + u;
+        hit_c[at] = ck[u];
+        ++at;
+      }
+    }
+    __syncthreads();
+    int h = 0;
+    for (; h + kBatch <= total; h += kBatch) {
+      float v[kBatch][3];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const bool own = hit_c[h + u] == c;
+        const float* Rk = R + static_cast<size_t>(hit_k[h + u]) * 3 * tn + t;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) v[u][a] = own ? Rk[a * tn] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (hit_c[h + u] != c) continue;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) f[a] -= v[u][a];
+      }
+    }
+    for (; h < total; ++h) {
+      if (hit_c[h] != c) continue;
+      const float* Rk = R + static_cast<size_t>(hit_k[h]) * 3 * tn + t;
+      f[0] -= Rk[0];
+      f[1] -= Rk[tn];
+      f[2] -= Rk[2 * tn];
+    }
+    __syncthreads();
+  }
+  if (q0 + tid < n_pad) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p.F[a * n_pad + q] = p.eps_scale * f[a];
+  }
+  if (p.energy != nullptr && blockIdx.x == 0) {
+    const int n_parts = count * S;
+    float acc = 0.0f, comp = 0.0f;
+    for (int j = tid; j < n_parts; j += kGather)
+      kahan_add(acc, comp, p.e_part[j]);
+    const float e = cull::block_sum<kGather>(acc - comp, scratch, tid);
+    if (tid == 0) p.energy[0] = p.e_scale * e;
+  }
 }
 
-template <int RPT>
-cudaError_t launch_rows(const Params& p, int nr, int n_split, size_t smem,
-                        cudaStream_t s) {
-  const dim3 grid(nr, n_split);
-  return p.energy != nullptr
-             ? launch_pass(cull_rows<RPT, true>, grid, smem, s, p)
-             : launch_pass(cull_rows<RPT, false>, grid, smem, s, p);
+template <int RPT, int KRG>
+cudaError_t launch_pairs(const Params& p, int blocks, bool approx,
+                         cudaStream_t s) {
+  if (p.energy != nullptr) {
+    if (approx) {
+      cull_pairs<RPT, KRG, true, true><<<blocks, kThreads, 0, s>>>(p);
+    } else {
+      cull_pairs<RPT, KRG, true, false><<<blocks, kThreads, 0, s>>>(p);
+    }
+  } else if (approx) {
+    cull_pairs<RPT, KRG, false, true><<<blocks, kThreads, 0, s>>>(p);
+  } else {
+    cull_pairs<RPT, KRG, false, false><<<blocks, kThreads, 0, s>>>(p);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, F: (3, n_pad) f32; box (3,) f32; cols, ccx: (capacity,); ptr2:
-// (2 nr + 1,) i32; rowcx: (nr,) f32; count: (1,) i32; P: (n_split, 3, n_pad)
-// f32; R: (capacity, 3, tn) f32; e_part: (nr * n_split,) f32; energy: (1,)
-// f32 or null.  tm must be 16, 32, 64 or 128 and tn a multiple of 16.
-// approx sets the force's reciprocal; the energy's is always exact.
+// x, F: (3, n_pad) f32; box (3,) f32; rows, cols, ccx: (capacity,); ptr2:
+// (2 nr + 1,) i32; rowcx: (nr,) f32; count: (1,) i32; with S = ceil(tn /
+// 64): P: (capacity S, 3, tm) f32; R: (capacity, 3, tn) f32; e_part:
+// (capacity S,) f32; energy: (1,) f32 or null.  tm must be 16, 32, 64, 128
+// or 256 and tn a multiple of 16.  approx sets the force's reciprocal; the
+// energy's is always exact.
 CHIRON_EXPORT int chiron_cull_force(
-    const float* x, const float* box, const int* cols, const float* ccx,
-    const int* ptr2, const float* rowcx, const int* count, float* P, float* R,
-    float* e_part, float* F, float* energy, int n, int n_pad, int tm, int tn,
-    int n_split, float inv_sigma, float sigma_fold, float cutoff2_s,
-    float eps_scale, float e_scale, int approx, void* stream) {
+    const float* x, const float* box, const int* rows, const int* cols,
+    const float* ccx, const int* ptr2, const float* rowcx, const int* count,
+    float* P, float* R, float* e_part, float* F, float* energy, int n,
+    int n_pad, int tm, int tn, int capacity, float inv_sigma,
+    float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
+    int approx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Params p{x, box, cols, ccx, ptr2, rowcx, count, P, R, e_part, F, energy,
-           n, n_pad, tm, tn, inv_sigma, sigma_fold, cutoff2_s, eps_scale,
-           e_scale, approx};
-  const int nr = n_pad / tm;
-  const int red_floats = (kRG * 3 * tn > kCG * 3 * tm) ? kRG * 3 * tn : kCG * 3 * tm;
-  const int floats = 3 * tn + (red_floats > kThreads ? red_floats : kThreads);
-  const size_t smem = static_cast<size_t>(floats) * sizeof(float);
+  if (capacity < 1 || tn % 16 != 0 || tn <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_slices = (tn + kSlice - 1) / kSlice;
+  const Params p{x, box, rows, cols, ccx, ptr2, rowcx, count, P, R, e_part,
+                 F, energy, n, n_pad, tm, tn, n_slices, inv_sigma, sigma_fold,
+                 cutoff2_s, cutoff2_s * cull::kRaise, eps_scale, e_scale};
+  const int blocks = capacity * n_slices;
   cudaError_t err;
-  switch (tm / kRG) {
-    case 1: err = launch_rows<1>(p, nr, n_split, smem, s); break;
-    case 2: err = launch_rows<2>(p, nr, n_split, smem, s); break;
-    case 4: err = launch_rows<4>(p, nr, n_split, smem, s); break;
-    case 8: err = launch_rows<8>(p, nr, n_split, smem, s); break;
+  switch (tm) {
+    case 16: err = launch_pairs<1, 16>(p, blocks, approx != 0, s); break;
+    case 32: err = launch_pairs<1, 32>(p, blocks, approx != 0, s); break;
+    case 64: err = launch_pairs<2, 32>(p, blocks, approx != 0, s); break;
+    case 128: err = launch_pairs<4, 32>(p, blocks, approx != 0, s); break;
+    case 256: err = launch_pairs<8, 32>(p, blocks, approx != 0, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kGather = 256;
-  cull_gather<<<(n_pad + kGather - 1) / kGather, kGather, 0, s>>>(
-      p, n_split, nr * n_split);
+  cull_gather<<<(n_pad + kGather - 1) / kGather, kGather, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

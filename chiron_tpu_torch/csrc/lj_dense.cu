@@ -1,4 +1,4 @@
-// All-pairs minimum-image Lennard-Jones force and energy (K1).
+// All-pairs minimum-image Lennard-Jones force and energy (K1, and K2).
 //
 // Replaces chiron_tpu/ops/lj_dense.py: _make_triangle_kernel with
 // _lj_tile_math, launched by _lj_dense_raw (pallas_call at :340).
@@ -6,21 +6,39 @@
 // The TPU kernel visits each unordered tile pair once and writes the
 // column reaction into one force block shared by its in-order grid.  Blocks
 // on Hopper run in no order, so that reaction would race.  Here each block
-// owns kRows row particles and visits every column: it writes only its own
-// rows, so there are no reaction writes and no atomics, and the result is
-// the same bit for bit on every run.  The price is twice the pair work of
-// the triangle.
+// owns kRows row particles (one a lane) and its kWarps warps split the
+// columns: it writes only its own rows, so there are no reaction writes, no
+// atomics and no gather pass, and the result is the same bit for bit on
+// every run.  Every pair is therefore met from both sides.  Visiting each
+// pair once would halve the pair work but add per-block column slots and a
+// fixed-order gather launch; with the culling below most pairs never reach
+// the pair loop at all, and the gather would cost about what it saves.
 //
-// Bound: pair arithmetic (about 30 f32 operations a pair, n_pad^2 pairs),
-// not memory: the positions (3 x n_pad floats) stay in L2, and each
-// block stages kColTile columns at a time in shared memory, which all
-// threads of a warp read at one address (a broadcast).  A warp takes 32
-// rows against one column group, so its accumulators stay in registers and
-// the only reduction is a fixed-order sum over the kGroups column groups.
+// Bound: pair arithmetic (about 21 f32 operations a distance test on
+// n(n-1)/2 pairs, the LJ term on the few within the cutoff), not memory:
+// the positions (3 x n_pad floats) stay in L2.  What the design does about
+// it, for this card:
+//   * occupancy: a block is 32 rows x 32 warps (1024 threads), so at
+//     n_pad = 4096 the 128 blocks fill 128 of the 132 SMs with 32 warps
+//     each, eight a scheduler to hide the latency of each lane's dependent
+//     accumulator chain;
+//   * culling: a warp takes its columns 32 at a time, and first holds the
+//     bounding box of those 32 (csrc/common.cuh, cull::) against the box of
+//     the block's rows: where the boxes are farther apart than the cutoff
+//     the 1024 pairs are skipped whole.  Positions kept in a spatial order
+//     (the lattice order of a fresh fluid, the x-sorted order of the culled
+//     and band runners) skip most chunks;
+//   * a warp takes the chunk's columns four at a time, their distances
+//     first as independent chains, and the LJ term only where some lane
+//     has one of the four within the cutoff (or a NaN distance, which must
+//     reach the sums as it did before), decided warp-uniformly with
+//     __any_sync; each chunk's columns are loaded during the one before.
+// A culled pair or a skipped LJ term adds nothing where the full pass would
+// add zero, so the function is unchanged.
 //
 // Energy: every thread keeps a compensated sum over its columns; a block
 // folds its threads' sums in a fixed order into one slot of e_part, and a
-// second one-thread pass sums the slots in order (the 1e-6 design bar of
+// second pass sums the slots in a fixed order (the 1e-6 design bar of
 // lj_dense.py:195-201).  Each pair is seen from both sides, hence the 0.5.
 //
 // kDivide takes the minimum image as d - L floor(d / L + 1/2), the form of
@@ -31,66 +49,128 @@
 
 namespace {
 
-constexpr int kRows = 32;       // row particles per block: one per lane
-constexpr int kGroups = 8;      // column groups per block: one warp each
-constexpr int kColTile = 256;   // columns staged in shared memory per pass
-constexpr int kPerGroup = kColTile / kGroups;
+constexpr int kRows = 32;    // row particles per block: one per lane
+constexpr int kWarps = 32;   // warps per block, each a column group
+constexpr int kChunk = 32;   // columns a warp takes at a time: one a lane
+constexpr int kGroup = 4;    // columns of a chunk taken together
+constexpr int kSumThreads = 256;
+using cull::kFull;
+
+struct Lj {
+  float sigma2, coef_scale, eps4, cutoff2, r2_floor, cull2;
+};
 
 template <bool kDivide>
-__global__ void __launch_bounds__(kRows * kGroups)
-lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
-              float* __restrict__ force, float* __restrict__ e_part, int n,
-              int n_pad, float sigma2, float coef_scale, float eps4,
-              float cutoff2, float r2_floor, int approx, int with_energy) {
-  __shared__ float sx[kColTile], sy[kColTile], sz[kColTile];
-  __shared__ float red[kGroups][4][kRows];
-  const int lane = threadIdx.x;
-  const int g = threadIdx.y;
-  const int tid = g * kRows + lane;
-  const int row = blockIdx.x * kRows + lane;
-  const float Lx = box[0], Ly = box[1], Lz = box[2];
-  const float iLx = 1.0f / Lx, iLy = 1.0f / Ly, iLz = 1.0f / Lz;
-  const float xi = pos[row], yi = pos[n_pad + row], zi = pos[2 * n_pad + row];
-  const bool row_ok = row < n;
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f, e = 0.0f, ec = 0.0f;
+__device__ __forceinline__ float min_image(float d, float L, float iL) {
+  if constexpr (kDivide) {
+    return d - L * floorf(d / L + 0.5f);
+  } else {
+    return d - L * floorf(d * iL + 0.5f);
+  }
+}
 
-  for (int c0 = 0; c0 < n_pad; c0 += kColTile) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int t = tid; t < kColTile; t += kRows * kGroups) {
-      const int c = c0 + t;
-      const bool in = c < n_pad;
-      sx[t] = in ? pos[c] : 0.0f;
-      sy[t] = in ? pos[n_pad + c] : 0.0f;
-      sz[t] = in ? pos[2 * n_pad + c] : 0.0f;
-    }
-    __syncthreads();
-    for (int q = 0; q < kPerGroup; ++q) {
-      const int t = g * kPerGroup + q;
-      const int col = c0 + t;
-      float dx = xi - sx[t];
-      float dy = yi - sy[t];
-      float dz = zi - sz[t];
-      if constexpr (kDivide) {
-        dx = dx - Lx * floorf(dx / Lx + 0.5f);
-        dy = dy - Ly * floorf(dy / Ly + 0.5f);
-        dz = dz - Lz * floorf(dz / Lz + 0.5f);
-      } else {
-        dx = dx - Lx * floorf(dx * iLx + 0.5f);
-        dy = dy - Ly * floorf(dy * iLy + 0.5f);
-        dz = dz - Lz * floorf(dz * iLz + 0.5f);
+// A warp's 32 rows (one a lane) against the 32 staged columns of one chunk,
+// whose first column is col0, kGroup columns at a time: their distances
+// first (independent chains), then the LJ term where any lane needs it.
+// kEdge adds the col < n and col != row masks (the chunk of the block's own
+// rows, and a chunk holding padding).
+template <bool kDivide, bool kApprox, bool kEnergy, bool kEdge>
+__device__ __forceinline__ void chunk_pairs(
+    const float4* __restrict__ cols, int col0, int row, int n, float xi,
+    float yi, float zi, float c2_row, const float (&L)[3],
+    const float (&iL)[3], const Lj& lj, float& fx, float& fy, float& fz,
+    float& e, float& ec) {
+  for (int j0 = 0; j0 < kChunk; j0 += kGroup) {
+    float dx[kGroup], dy[kGroup], dz[kGroup], r2[kGroup];
+    bool m[kGroup];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const float4 q = cols[j0 + u];
+      dx[u] = min_image<kDivide>(xi - q.x, L[0], iL[0]);
+      dy[u] = min_image<kDivide>(yi - q.y, L[1], iL[1]);
+      dz[u] = min_image<kDivide>(zi - q.z, L[2], iL[2]);
+      r2[u] = dx[u] * dx[u] + dy[u] * dy[u] + dz[u] * dz[u];
+      m[u] = r2[u] < c2_row;  // c2_row < 0 on a padding row
+      if constexpr (kEdge) {
+        const int col = col0 + j0 + u;
+        m[u] = m[u] && col < n && col != row;
       }
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      const bool m = (r2 < cutoff2) && row_ok && (col < n) && (col != row);
-      const float r2s = fmaxf(r2, r2_floor);
-      const float inv = lj_recip(r2s, approx != 0);
-      const float ir2 = sigma2 * inv;
+      any = any || m[u] || r2[u] != r2[u];
+    }
+    if (!__any_sync(kFull, any)) continue;
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const float r2s = fmaxf(r2[u], lj.r2_floor);
+      const float inv = lj_recip(r2s, kApprox);
+      const float ir2 = lj.sigma2 * inv;
       const float i6 = ir2 * ir2 * ir2;
       const float i12 = i6 * i6;
-      const float coef = m ? coef_scale * (2.0f * i12 - i6) * inv : 0.0f;
-      fx += coef * dx;
-      fy += coef * dy;
-      fz += coef * dz;
-      if (with_energy) kahan_add(e, ec, m ? eps4 * (i12 - i6) : 0.0f);
+      const float coef =
+          m[u] ? lj.coef_scale * (2.0f * i12 - i6) * inv : 0.0f;
+      fx += coef * dx[u];
+      fy += coef * dy[u];
+      fz += coef * dz[u];
+      if constexpr (kEnergy) {
+        kahan_add(e, ec, m[u] ? lj.eps4 * (i12 - i6) : 0.0f);
+      }
+    }
+  }
+}
+
+template <bool kDivide, bool kApprox, bool kEnergy>
+__global__ void __launch_bounds__(kRows * kWarps, 1)
+lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
+              float* __restrict__ force, float* __restrict__ e_part, int n,
+              int n_pad, Lj lj) {
+  __shared__ float4 stage[kWarps][kChunk];
+  __shared__ float red[kWarps][4][kRows];
+  const int lane = threadIdx.x;
+  const int g = threadIdx.y;
+  const int row = blockIdx.x * kRows + lane;
+  const float L[3] = {box[0], box[1], box[2]};
+  const float iL[3] = {1.0f / L[0], 1.0f / L[1], 1.0f / L[2]};
+  const float xi = pos[row], yi = pos[n_pad + row], zi = pos[2 * n_pad + row];
+  const float c2_row = row < n ? lj.cutoff2 : -1.0f;
+  cull::BoxAcc racc(__shfl_sync(kFull, xi, 0), __shfl_sync(kFull, yi, 0),
+                    __shfl_sync(kFull, zi, 0));
+  racc.add(xi, yi, zi, L, iL);
+  const cull::Box rbox = racc.reduce();
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f, e = 0.0f, ec = 0.0f;
+
+  // each chunk's columns are loaded while the one before is processed
+  const int n_chunks = n_pad / kChunk;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  if (g < n_chunks) {
+    const int col = g * kChunk + lane;
+    nx = pos[col];
+    ny = pos[n_pad + col];
+    nz = pos[2 * n_pad + col];
+  }
+  for (int c = g; c < n_chunks; c += kWarps) {
+    const float xj = nx, yj = ny, zj = nz;
+    if (c + kWarps < n_chunks) {
+      const int col = (c + kWarps) * kChunk + lane;
+      nx = pos[col];
+      ny = pos[n_pad + col];
+      nz = pos[2 * n_pad + col];
+    }
+    cull::BoxAcc cacc(__shfl_sync(kFull, xj, 0), __shfl_sync(kFull, yj, 0),
+                      __shfl_sync(kFull, zj, 0));
+    cacc.add(xj, yj, zj, L, iL);
+    if (cull::apart(rbox, cacc.reduce(), L, iL, lj.cull2)) continue;
+    __syncwarp();  // the previous chunk's columns have been read
+    stage[g][lane] = make_float4(xj, yj, zj, 0.0f);
+    __syncwarp();
+    const int col0 = c * kChunk;
+    if (c == static_cast<int>(blockIdx.x) || col0 + kChunk > n) {
+      chunk_pairs<kDivide, kApprox, kEnergy, true>(
+          stage[g], col0, row, n, xi, yi, zi, c2_row, L, iL, lj, fx, fy, fz, e,
+          ec);
+    } else {
+      chunk_pairs<kDivide, kApprox, kEnergy, false>(
+          stage[g], col0, row, n, xi, yi, zi, c2_row, L, iL, lj, fx, fy, fz, e,
+          ec);
     }
   }
 
@@ -101,7 +181,7 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
   __syncthreads();
   if (g == 0) {
     float sfx = 0.0f, sfy = 0.0f, sfz = 0.0f;
-    for (int k = 0; k < kGroups; ++k) {
+    for (int k = 0; k < kWarps; ++k) {
       sfx += red[k][0][lane];
       sfy += red[k][1][lane];
       sfz += red[k][2][lane];
@@ -109,20 +189,41 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
     force[row] = sfx;
     force[n_pad + row] = sfy;
     force[2 * n_pad + row] = sfz;
-  }
-  if (with_energy && tid == 0) {
+  } else if (kEnergy && g == 1) {
+    // each lane's energy over the warps, then the lanes in order
     float acc = 0.0f, comp = 0.0f;
-    for (int k = 0; k < kGroups; ++k)
-      for (int l = 0; l < kRows; ++l) kahan_add(acc, comp, red[k][3][l]);
-    e_part[blockIdx.x] = acc - comp;
+    for (int k = 0; k < kWarps; ++k) kahan_add(acc, comp, red[k][3][lane]);
+    const float mine = acc - comp;
+    acc = comp = 0.0f;
+    for (int l = 0; l < kRows; ++l)
+      kahan_add(acc, comp, __shfl_sync(kFull, mine, l));
+    if (lane == 0) e_part[blockIdx.x] = acc - comp;
   }
 }
 
-__global__ void lj_dense_energy_sum(const float* __restrict__ e_part,
-                                    int n_parts, float* __restrict__ energy) {
+// The blocks' energies: each thread a strided compensated sum, then the
+// threads in a fixed order (cull::block_sum); halved, since every pair was
+// counted from both sides.
+__global__ void __launch_bounds__(kSumThreads)
+lj_dense_energy_sum(const float* __restrict__ e_part, int n_parts,
+                    float* __restrict__ energy) {
+  __shared__ float scratch[kSumThreads / 32];
   float acc = 0.0f, comp = 0.0f;
-  for (int k = 0; k < n_parts; ++k) kahan_add(acc, comp, e_part[k]);
-  energy[0] = 0.5f * (acc - comp);
+  for (int k = threadIdx.x; k < n_parts; k += kSumThreads)
+    kahan_add(acc, comp, e_part[k]);
+  const float s =
+      cull::block_sum<kSumThreads>(acc - comp, scratch, threadIdx.x);
+  if (threadIdx.x == 0) energy[0] = 0.5f * s;
+}
+
+template <bool kDivide, bool kApprox, bool kEnergy>
+cudaError_t launch_rows(const float* pos, const float* box, float* force,
+                        float* e_part, int n, int n_pad, const Lj& lj,
+                        cudaStream_t s) {
+  lj_dense_rows<kDivide, kApprox, kEnergy>
+      <<<n_pad / kRows, dim3(kRows, kWarps), 0, s>>>(pos, box, force, e_part,
+                                                     n, n_pad, lj);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -131,10 +232,10 @@ cudaError_t lj_dense_force_divide(const float* pos, const float* box,
                                   float* force, int n, int n_pad, float sigma2,
                                   float coef_scale, float cutoff2,
                                   float r2_floor, cudaStream_t s) {
-  lj_dense_rows<true><<<n_pad / kRows, dim3(kRows, kGroups), 0, s>>>(
-      pos, box, force, nullptr, n, n_pad, sigma2, coef_scale, 0.0f, cutoff2,
-      r2_floor, 1, 0);
-  return cudaGetLastError();
+  const Lj lj{sigma2, coef_scale, 0.0f, cutoff2, r2_floor,
+              cutoff2 * cull::kRaise};
+  return launch_rows<true, true, false>(pos, box, force, nullptr, n, n_pad,
+                                        lj, s);
 }
 
 // pos, force: (3, n_pad) f32; box: (3,) f32; e_part: (n_pad / 32,) f32
@@ -147,10 +248,24 @@ CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
                                   float r2_floor, int approx, int with_energy,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = n_pad / kRows;
-  lj_dense_rows<false><<<blocks, dim3(kRows, kGroups), 0, s>>>(
-      pos, box, force, e_part, n, n_pad, sigma2, coef_scale, eps4, cutoff2,
-      r2_floor, approx, with_energy);
-  if (with_energy) lj_dense_energy_sum<<<1, 1, 0, s>>>(e_part, blocks, energy);
-  return static_cast<int>(cudaGetLastError());
+  const Lj lj{sigma2, coef_scale, eps4, cutoff2, r2_floor,
+              cutoff2 * cull::kRaise};
+  cudaError_t err;
+  if (with_energy) {
+    err = approx ? launch_rows<false, true, true>(pos, box, force, e_part, n,
+                                                  n_pad, lj, s)
+                 : launch_rows<false, false, true>(pos, box, force, e_part, n,
+                                                   n_pad, lj, s);
+  } else {
+    err = approx ? launch_rows<false, true, false>(pos, box, force, e_part, n,
+                                                   n_pad, lj, s)
+                 : launch_rows<false, false, false>(pos, box, force, e_part,
+                                                    n, n_pad, lj, s);
+  }
+  if (err == cudaSuccess && with_energy) {
+    lj_dense_energy_sum<<<1, kSumThreads, 0, s>>>(e_part, n_pad / kRows,
+                                                  energy);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }

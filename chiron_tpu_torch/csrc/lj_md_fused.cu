@@ -11,10 +11,10 @@
 //      noise over (3, n_pad) lanes (lane = row n_pad + col, cos branch of
 //      Box-Muller only, lj_md_fused.py:83-124), x += dt/2 v, and the wrap
 //      x - floor(x / L) L with the divide (:132);
-//   2. the triangle force of the step: lj_dense.cu's pair loop (K1's
-//      blocks of 32 rows against every column, no reaction writes, no
-//      atomics) with the approximate reciprocal and the minimum image by
-//      division (:157-159), writing every lane of F.
+//   2. the triangle force of the step: lj_dense.cu's kernel (K1's blocks
+//      of 32 rows against every column, with its chunk culling; no
+//      reaction writes, no atomics) with the approximate reciprocal and the
+//      minimum image by division (:157-159), writing every lane of F.
 // The update writes its arithmetic op by op (no FMA contraction), so it
 // repeats the plain version's rounding; the force differs from the plain
 // exact-division force by the approximate reciprocal and the sum order.

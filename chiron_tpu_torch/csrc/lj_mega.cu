@@ -106,17 +106,18 @@ CHIRON_EXPORT int chiron_mega_repair(float* x, float* w, float* F,
 // One segment in place on x, w, F ((3, n_pad) f32, w the velocity before
 // the trailing half-kick); anchor: the entry positions, not aliasing x.
 // The list (rows .. count, build_over) and the force pass's scratch (P, R,
-// e_part, as chiron_cull_force takes them) are the caller's buffers;
-// threshold: (1,) f32 drift slack on the device; drift_bad: (1,) bool
-// scratch; flag: (1,) bool, the build's latch or the drift latch.
+// e_part, as chiron_cull_force takes them at this capacity) are the
+// caller's buffers; threshold: (1,) f32 drift slack on the device;
+// drift_bad: (1,) bool scratch; flag: (1,) bool, the build's latch or the
+// drift latch.
 CHIRON_EXPORT int chiron_mega_segment(
     float* x, float* w, float* F, const float* anchor, const float* minv,
     const float* sigv, const float* box, const int* step_offset, uint32_t seed,
     int n_steps, int* rows, int* cols, float* ccx, int* ptr2, float* rowcx,
     int* count, bool* build_over, float* P, float* R, float* e_part,
     const float* threshold, bool* drift_bad, bool* flag, int n, int n_pad,
-    int tm, int tn, int capacity, int n_split, float cutoff, float slack,
-    float reach2, float dt, float half_dt, float a, float b, float inv_sigma,
+    int tm, int tn, int capacity, float cutoff, float slack, float reach2,
+    float dt, float half_dt, float a, float b, float inv_sigma,
     float sigma_fold, float cutoff2_s, float eps_scale, int approx,
     int repair_passes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -129,10 +130,10 @@ CHIRON_EXPORT int chiron_mega_segment(
     int rc = chiron_baoab(x, w, F, minv, sigv, box, step_offset, k, seed, n_pad,
                           dt, half_dt, a, b, stream);
     if (rc != 0) return rc;
-    rc = chiron_cull_force(x, box, cols, ccx, ptr2, rowcx, count, P, R, e_part,
-                           F, nullptr, n, n_pad, tm, tn, n_split, inv_sigma,
-                           sigma_fold, cutoff2_s, eps_scale, 0.0f, approx,
-                           stream);
+    rc = chiron_cull_force(x, box, rows, cols, ccx, ptr2, rowcx, count, P, R,
+                           e_part, F, nullptr, n, n_pad, tm, tn, capacity,
+                           inv_sigma, sigma_fold, cutoff2_s, eps_scale, 0.0f,
+                           approx, stream);
     if (rc != 0) return rc;
   }
   int rc = chiron_drift(x, anchor, box, n, n_pad, threshold, drift_bad, stream);

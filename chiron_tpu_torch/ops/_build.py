@@ -33,8 +33,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libchiron_kernels.so"
-# the tiled pair passes (csrc/common.cuh) split each row tile's work over
-# this many blocks
+# the band and strip pair passes (csrc/common.cuh, pair_pass) split each row
+# tile's work over this many blocks
 PASS_SPLIT = 4
 
 launches: collections.Counter = collections.Counter()
@@ -44,7 +44,7 @@ _SIGNATURES = {
     "chiron_lj_dense": (
         _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
     "chiron_cull_force": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _F, _F, _F, _F, _P),
@@ -74,7 +74,7 @@ _SIGNATURES = {
     "chiron_mega_segment": (
         _P, _P, _P, _P, _P, _P, _P, _P, _U, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
 }
 

@@ -285,6 +285,44 @@ def row_force_pass_plain(x3, box_diag, pairs: TilePairList, n: int, tm: int,
     return F, (4.0 * epsilon) * torch.sum(e, dtype=torch.float64).to(x3.dtype)
 
 
+# The kernel's work items (csrc/lj_cull_force.cu): entry k's column tile is
+# cut into slices of CULL_SLICE columns, and item k S + s (one block) takes
+# slice s of entry k against all tm rows of the entry's row tile.
+CULL_SLICE = 64
+CULL_TM = (16, 32, 64, 128, 256)
+
+
+def cull_slices(tn: int):
+    """The (first column, width) of each column slice of a tile of ``tn``
+    columns, in slot order."""
+    return [(c0, min(CULL_SLICE, tn - c0)) for c0 in range(0, tn, CULL_SLICE)]
+
+
+def cull_buffers(n_pad: int, tm: int, tn: int, capacity: int,
+                 with_energy: bool, device):
+    """Outputs and scratch of the culled pass at this capacity: the (3,
+    n_pad) force, the row partials (capacity S, 3, tm), the column partials
+    (capacity, 3, tn), the energy partials (capacity S,) and the (1,)
+    energy or None."""
+    S = len(cull_slices(tn))
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((3, n_pad), **f32),
+            torch.empty((capacity * S, 3, tm), **f32),
+            torch.empty((capacity, 3, tn), **f32),
+            torch.empty(capacity * S, **f32),
+            torch.empty(1, **f32) if with_energy else None)
+
+
+def check_cull_tiles(n_pad: int, tm: int, tn: int):
+    if (tm not in CULL_TM or tn % 16 or not 0 < tn <= 512 or n_pad % tm
+            or n_pad % tn):
+        raise ValueError(
+            f"culled force kernel takes tm in {CULL_TM}, tn a multiple of 16 "
+            f"up to 512, both dividing n_pad (got tm={tm}, tn={tn}, "
+            f"n_pad={n_pad})"
+        )
+
+
 def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
                        tm: int, tn: int, sigma: float, epsilon: float,
                        cutoff: float, approx_recip: bool, with_energy: bool):
@@ -298,6 +336,7 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
     _build.require(x3, "x3", (3, n_pad), torch.float32)
     _build.require(box_diag, "box_diag", None, torch.float32, dev)
     for name, dtype, shape in (
+        ("rows", torch.int32, (1, capacity)),
         ("cols", torch.int32, (1, capacity)),
         ("ccx", torch.float32, (1, capacity)),
         ("ptr2", torch.int32, (1, 2 * nr + 1)),
@@ -305,23 +344,20 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
         ("count", torch.int32, (1, 1)),
     ):
         _build.require(getattr(pairs, name), f"pairs.{name}", shape, dtype, dev)
-    if (tm not in (16, 32, 64, 128) or tn % 16 or not 0 < tn <= 512
-            or n_pad % tm or n_pad % tn or box_diag.numel() != 3):
-        raise ValueError(
-            f"culled force kernel takes tm in (16, 32, 64, 128), tn a "
-            f"multiple of 16 up to 512, both dividing n_pad, and 3 box "
-            f"lengths (got tm={tm}, tn={tn}, n_pad={n_pad})"
-        )
-    F, P, R, e_part, energy = _build.pass_buffers(n_pad, nr, capacity, tn,
-                                                  with_energy, dev)
+    check_cull_tiles(n_pad, tm, tn)
+    if box_diag.numel() != 3:
+        raise ValueError("culled force kernel takes 3 box lengths")
+    F, P, R, e_part, energy = cull_buffers(n_pad, tm, tn, capacity,
+                                           with_energy, dev)
     inv_sigma = 1.0 / sigma
     _build.launch(
         kernel, "chiron_cull_force",
-        x3.data_ptr(), box_diag.data_ptr(), pairs.cols.data_ptr(),
-        pairs.ccx.data_ptr(), pairs.ptr2.data_ptr(), pairs.rowcx.data_ptr(),
-        pairs.count.data_ptr(), P.data_ptr(), R.data_ptr(), e_part.data_ptr(),
-        F.data_ptr(), None if energy is None else energy.data_ptr(),
-        n, n_pad, tm, tn, _build.PASS_SPLIT, inv_sigma, 1.0 / inv_sigma,
+        x3.data_ptr(), box_diag.data_ptr(), pairs.rows.data_ptr(),
+        pairs.cols.data_ptr(), pairs.ccx.data_ptr(), pairs.ptr2.data_ptr(),
+        pairs.rowcx.data_ptr(), pairs.count.data_ptr(), P.data_ptr(),
+        R.data_ptr(), e_part.data_ptr(), F.data_ptr(),
+        None if energy is None else energy.data_ptr(),
+        n, n_pad, tm, tn, capacity, inv_sigma, 1.0 / inv_sigma,
         (cutoff / sigma) ** 2, 48.0 * epsilon / sigma, 4.0 * epsilon,
         int(approx_recip), _build.stream_of(x3),
     )

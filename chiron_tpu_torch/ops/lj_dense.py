@@ -27,6 +27,11 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# The kernel's blocks (csrc/lj_dense.cu) own DENSE_ROWS rows each and leave
+# one energy partial each.
+DENSE_ROWS = 32
+
+
 def box_diagonal(box, device) -> torch.Tensor:
     """(1, 3) f32 box lengths on ``device`` from a (3, 3) orthogonal box or
     from 3 lengths (numpy, list or tensor)."""
@@ -124,13 +129,16 @@ def _dense_launch(counter, pos3, box_diag, n, sigma, epsilon, cutoff,
     n_pad = pos3.shape[1]
     _build.require(pos3, "pos3", (3, n_pad), torch.float32)
     _build.require(box_diag, "box_diag", None, torch.float32, pos3.device)
-    if box_diag.numel() != 3 or n_pad % 32 != 0 or not 0 < n <= n_pad:
+    if (box_diag.numel() != 3 or n_pad % DENSE_ROWS != 0
+            or not 0 < n <= n_pad):
         raise ValueError(
-            f"lj_dense: needs 3 box lengths and n_pad % 32 == 0 with "
-            f"0 < n <= n_pad (got {box_diag.numel()}, n_pad={n_pad}, n={n})"
+            f"lj_dense: needs 3 box lengths and n_pad % {DENSE_ROWS} == 0 "
+            f"with 0 < n <= n_pad (got {box_diag.numel()}, n_pad={n_pad}, "
+            f"n={n})"
         )
     force = torch.empty_like(pos3)
-    e_part = torch.empty(n_pad // 32, dtype=torch.float32, device=pos3.device)
+    e_part = torch.empty(n_pad // DENSE_ROWS, dtype=torch.float32,
+                         device=pos3.device)
     energy = torch.empty(1, dtype=torch.float32, device=pos3.device)
     sigma2 = sigma * sigma
     eps4 = 4.0 * epsilon

@@ -32,6 +32,7 @@ from .lj_cull import (
     TilePairList,
     baoab_phase_plain,
     build_tile_pairs,
+    cull_buffers,
     row_force_pass_plain,
     tile_skin_drift_bad_plain,
 )
@@ -62,8 +63,8 @@ def repair_plain(x, w, F, n: int, box_diag, passes: int):
 
 
 def check_mega_tiles(n_pad: int, tm: int, tn: int):
-    # the culled force kernel takes tm up to 128, and the TPU kernel tiles
-    # of at least 128
+    # the port's choice: the TPU kernel takes tiles of at least 128, and the
+    # segment keeps the row tile at the culled runner's default
     if tm != 128 or tn % 128 or tn > 512 or n_pad % tn or n_pad % tm:
         raise ValueError(
             f"the megakernel takes tm = 128 and tn in (128, 256, 384, 512), "
@@ -143,8 +144,8 @@ class MegaWorkspace:
         dev = md.device
         self.capacity = capacity
         self.pairs = list_buffers(n_pad, md.tm, capacity, dev)
-        _, self.P, self.R, self.e_part, _ = _build.pass_buffers(
-            n_pad, n_pad // md.tm, capacity, md.tn, False, dev)
+        _, self.P, self.R, self.e_part, _ = cull_buffers(
+            n_pad, md.tm, md.tn, capacity, False, dev)
         self.drift_bad = torch.empty((), dtype=torch.bool, device=dev)
 
 
@@ -195,7 +196,7 @@ def mega_segment(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
         workspace.R.data_ptr(), workspace.e_part.data_ptr(),
         md.slack_t.data_ptr(), workspace.drift_bad.data_ptr(),
         flag.data_ptr(), md.n, n_pad, md.tm, md.tn, capacity,
-        _build.PASS_SPLIT, md.cutoff, md.slack, (md.cutoff + md.slack) ** 2,
+        md.cutoff, md.slack, (md.cutoff + md.slack) ** 2,
         md.dt, md.dt * 0.5, md.a, md.b, inv_sigma, 1.0 / inv_sigma,
         (md.cutoff / md.sigma) ** 2, 48.0 * md.epsilon / md.sigma,
         int(approx_recip), repair_passes, _build.stream_of(x),

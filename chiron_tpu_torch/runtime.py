@@ -1038,12 +1038,16 @@ class BandRunner(FastLJRunner):
 
     def step(self, state: BandCarry, noise) -> BandCarry:
         """One BAOAB step with the given (3, n_pad) standard-normal noise,
-        with the re-sort where the state went stale."""
+        with the re-sort where the state went stale.  A non-finite live
+        coordinate latches ``overflowed`` before the sort, which would move
+        a NaN key past the padding (a device reduction, no host sync); the
+        JAX runner does not latch it."""
         if self.band.w is None:
             raise RuntimeError("call init() before stepping")
         box = state.box_diag
         Lx = box[0, 0]
         x, v = self._baoa(state.x, state.v, state.F, box, noise)
+        nonfinite = live_nonfinite(x, self.n)
         dx = x[0] - state.ref_x
         dx = dx - Lx * torch.round(dx / Lx)
         stale = torch.any(torch.where(self.valid, torch.abs(dx), 0.0)
@@ -1051,15 +1055,15 @@ class BandRunner(FastLJRunner):
         x, v, ref_x, overflowed = self._resort(x, v, state, stale)
         F = self.band.force(x, box)
         return BandCarry(x=x, v=self._kick(v, F), F=F, ref_x=ref_x,
-                         box_diag=box, overflowed=overflowed,
+                         box_diag=box, overflowed=overflowed | nonfinite,
                          generator=state.generator)
 
     def check(self, state: BandCarry):
         if bool(state.overflowed):
             raise RuntimeError(
                 "band runner invariant violated (band width exceeded the "
-                "calibrated w after a density fluctuation) -- increase "
-                "margin and re-run"
+                "calibrated w after a density fluctuation, or a live "
+                "coordinate went non-finite) -- increase margin and re-run"
             )
 
     def energy(self, state: BandCarry):

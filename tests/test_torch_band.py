@@ -229,6 +229,27 @@ def test_band_runner_check_raises_on_a_latched_carry(band_runners):
     assert bool(out.overflowed)
 
 
+def test_band_runner_latches_a_nan_the_jax_runner_does_not(band_runners):
+    """A NaN x coordinate at lane 7 after 5 steps, then 5 more steps: the
+    port latches it before the sort and ``check()`` raises; the JAX runner,
+    as the reference stands (chiron_tpu/runtime.py:283-306), lets the NaN
+    spread through the live lanes with ``overflowed`` clear and its
+    ``check()`` passing."""
+    jr, _, tr, ts0 = band_runners
+    ts = tr.run(ts0, 5)
+    ts.x[0, 7] = float("nan")
+    ts = tr.run(ts, 5)
+    assert bool(ts.overflowed)
+    with pytest.raises(RuntimeError, match="band runner invariant"):
+        tr.check(ts)
+    js = jr.run(jr.init(*_runner_setup(jrt, jts, ju)[1:], seed=3), 5)
+    js = dataclasses.replace(js, x=js.x.at[0, 7].set(jnp.nan))
+    js = jr.run(js, 5)
+    assert not bool(js.overflowed)
+    assert not np.isfinite(_np(js.x)[:, :N_RUN]).all()
+    jr.check(js)
+
+
 def test_band_runner_run_draws_from_the_generator(band_runners):
     _, _, tr, ts0 = band_runners
     a = tr.run(ts0, 3)

@@ -634,3 +634,146 @@ def test_new_culled_paths_never_wait_for_the_device(carry, path):
         torch.cuda.set_sync_debug_mode("default")
     r.check(st)
     assert int(st.step[0, 0]) == 24
+
+
+def _culled_on_card(cuda, n, tm, tn=256, slack=0.15, segment_steps=8, seed=1):
+    fluid, pos, box = _jittered_fluid(n, seed)
+    runner = make_culled_lj_runner(
+        potential=fluid.potential, n_particles=n, topology=fluid.topology,
+        temperature=120.0 * units.kelvin, slack=slack, tm=tm, tn=tn,
+        segment_steps=segment_steps, device=cuda)
+    return runner, runner.init(pos, box, seed=2), fluid.potential
+
+
+@pytest.mark.parametrize("tm", [64, 128, 256])
+def test_culled_force_kernel_at_each_row_tile(cuda, tm):
+    """The culled pass against its plain version at tm 64, 128 and 256 (the
+    widest row tile it takes): force max abs 0.05 and p99 1e-5 relative,
+    energy 1e-5; a repeated call bitwise equal; the exact-energy step equal
+    to K5 bit for bit; and the runner stepping latch-clean on the card."""
+    runner, c0, pot = _culled_on_card(cuda, N, tm)
+    md = runner.md
+    assert md.tm == tm and int(c0.pairs.count) > 0
+    args = (c0.x, c0.box_diag, c0.pairs, N, tm, md.tn, pot.sigma, pot.epsilon,
+            pot.cutoff)
+    Fp, Ep = lc.row_force_pass_plain(*args, with_energy=True)
+    Fk, Ek = lc.culled_force_energy(*args)
+    err = (Fk - Fp)[:, :N].abs()
+    scale = float(Fp.abs().max())
+    assert float(err.max()) < 0.05
+    assert float(torch.quantile(err.flatten(), 0.99)) / scale < 1e-5
+    assert float(Fk[:, N:].abs().max()) == 0.0
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    Fa, _ = lc.culled_force_pass(*args, approx_recip=True)
+    assert float((Fa - Fk).abs().max()) / scale < 1e-4
+    assert torch.equal(lc.culled_force_pass(*args, approx_recip=True)[0], Fa)
+    assert torch.equal(lc.culled_force_energy(*args)[1], Ek)
+    F_mix, E_mix = lc.culled_force_pass(*args, approx_recip=True,
+                                        with_energy=True)
+    assert torch.equal(F_mix, Fa) and torch.equal(E_mix, Ek)
+    st = runner.run(c0, 3 * runner.segment_steps)
+    runner.check(st)
+    assert torch.isfinite(st.x).all()
+
+
+def test_culled_force_kernel_at_n100000(cuda):
+    """The pass and its gather at N=100,000 (the slab key, about 15,000
+    entries), against the plain version, and bitwise repeatable."""
+    n = 100_000
+    runner, c0, pot = _culled_on_card(cuda, n, 128, slack=0.2,
+                                      segment_steps=50)
+    md = runner.md
+    args = (c0.x, c0.box_diag, c0.pairs, n, md.tm, md.tn, pot.sigma,
+            pot.epsilon, pot.cutoff)
+    Fk, Ek = lc.culled_force_energy(*args)
+    Fp, Ep = lc.row_force_pass_plain(*args, with_energy=True)
+    err = (Fk - Fp)[:, :n].abs()
+    scale = float(Fp.abs().max())
+    assert float(err.max()) < 0.05
+    assert _p99(err, scale) < 1e-5
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    del Fp, err
+    Fa, _ = lc.culled_force_pass(*args, approx_recip=True)
+    assert torch.equal(lc.culled_force_pass(*args, approx_recip=True)[0], Fa)
+    assert float((Fa - Fk).abs().max()) / scale < 1e-4
+
+
+def test_dense_kernel_culls_chunks_and_matches_plain(cuda):
+    """K1 at N=4000 in three orders (the lattice's, x-sorted, shuffled),
+    which cull most, many and almost no column chunks: exact force 1e-5
+    relative, approximate 1e-4, energy 1e-5, a repeated call bitwise equal;
+    a NaN coordinate reaches every live row's force, as in the plain
+    version (a NaN y reaches every row's y component); and K9's first step
+    on the x-sorted positions within 1e-4."""
+    from chiron_tpu_torch.ops import lj_md_fused as mf
+
+    n = 4000
+    fluid, pos, box = _jittered_fluid(n)
+    pot = fluid.potential
+    lj = (n, pot.sigma, pot.epsilon, pot.cutoff)
+    x0 = torch.zeros((3, 4096), device=cuda)
+    x0[:, :n] = torch.from_numpy(pos.T).to(cuda)
+    box_diag = torch.from_numpy(np.diagonal(box).copy()).reshape(1, 3).to(cuda)
+    order = torch.argsort(x0[0, :n])
+    shuffle = torch.randperm(n, generator=torch.Generator().manual_seed(4))
+    for name, perm in (("lattice", None), ("x-sorted", order),
+                       ("shuffled", shuffle.to(cuda))):
+        x = x0.clone()
+        if perm is not None:
+            x[:, :n] = x0[:, perm]
+        Fp, Ep = lj_dense_plain(x, box_diag, *lj)
+        Fk, Ek = lj_dense_force_energy(x, box_diag, *lj, approx_recip=False)
+        Fa, _ = lj_dense_force_energy(x, box_diag, *lj, approx_recip=True,
+                                      with_energy=False)
+        scale = float(Fp.abs().max())
+        assert float((Fk - Fp).abs().max()) / scale < 1e-5, name
+        assert float((Fa - Fp).abs().max()) / scale < 1e-4, name
+        assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5, name
+        again = lj_dense_force_energy(x, box_diag, *lj, approx_recip=False)
+        assert torch.equal(again[0], Fk) and torch.equal(again[1], Ek), name
+    nan = x.clone()
+    nan[1, 123] = float("nan")
+    Fk, _ = lj_dense_force_energy(nan, box_diag, *lj, with_energy=False)
+    Fp, _ = lj_dense_plain(nan, box_diag, *lj, with_energy=False)
+    assert torch.equal(torch.isnan(Fk), torch.isnan(Fp))
+    assert bool(torch.isnan(Fk[1, :n]).all())
+    md = mf.FusedLJMD(n, pot.sigma, pot.epsilon, pot.cutoff,
+                      np.full(n, 39.948), 0.002, 1.0, units.kB_MD * 120.0,
+                      device=cuda)
+    x = x0.clone()
+    x[:, :n] = x0[:, order]
+    F0, _ = lj_dense_force_energy(x, box_diag, *lj, with_energy=False)
+    args = (x, torch.zeros_like(x), F0, box_diag.reshape(3), md.minv, md.sigv,
+            11, 0, n, 1, pot.sigma, pot.epsilon, pot.cutoff, md.dt, md.a,
+            md.b)
+    k1, p1 = mf.fused_md(*args), mf.fused_md_plain(*args)
+    assert float((k1[2] - p1[2]).abs().max()) / float(p1[2].abs().max()) < 1e-4
+
+
+def test_band_energy_and_k2_at_n100000(cuda):
+    """At n_pad 100,096 K1's kernel serves the band runner's energy and K2
+    (no other kernel and no shape rule): both within 1e-5 of the plain
+    version, and K2's force too."""
+    from chiron_tpu_torch.ops.lj_dense import LJDense
+    from chiron_tpu_torch.runtime import make_band_lj_runner
+
+    n = 100_000
+    fluid, pos, box = _jittered_fluid(n)
+    pot = fluid.potential
+    runner = make_band_lj_runner(pot, n_particles=n, topology=fluid.topology,
+                                 temperature=120.0 * units.kelvin,
+                                 device=cuda)
+    st = runner.init(pos, box, seed=2)
+    assert runner.n_pad == 100_096
+    _build.reset_launch_counts()
+    e_band = float(runner.energy(st))
+    k2 = LJDense(n, pot.sigma, pot.epsilon, pot.cutoff, n_pad=runner.n_pad,
+                 triangle=False, device=cuda)
+    F2, E2 = k2.force_energy_t(st.x, st.box_diag)
+    assert dict(_build.launches) == {"lj_dense": 1, "lj_dense_square": 1}
+    Fp, Ep = lj_dense_plain(st.x, st.box_diag, n, pot.sigma, pot.epsilon,
+                            pot.cutoff)
+    scale = float(Fp.abs().max())
+    assert float((F2 - Fp).abs().max()) / scale < 1e-5
+    assert abs(e_band - float(Ep)) / abs(float(Ep)) < 1e-5
+    assert abs(float(E2) - float(Ep)) / abs(float(Ep)) < 1e-5

@@ -222,3 +222,89 @@ def test_stale_anchor_and_nan_latch(sorted_system):
     padded = x.clone()
     padded[0, N + 1] = float("nan")
     assert not bool(tlc.tile_skin_drift_bad(padded, x, N, SLACK, box))
+
+
+# ---------------------------------------------------------------------------
+# The culled kernel's work items and scratch layout (csrc/lj_cull_force.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tn", [16, 48, 64, 128, 256, 320, 512])
+def test_cull_slices_partition_the_column_tile(tn):
+    covered = np.zeros(tn, np.int64)
+    for c0, width in tlc.cull_slices(tn):
+        assert 0 < width <= tlc.CULL_SLICE and width % 16 == 0
+        covered[c0:c0 + width] += 1
+    assert (covered == 1).all()
+
+
+def _check_items_cover_the_list(pairs, n_pad, tm, tn):
+    """Every listed (entry, column) pair is taken by exactly one block of the
+    capacity x S grid, and each row tile's range of row-partial slots
+    [ptr2[2i] S, ptr2[2i+2] S), which the gather sums, holds exactly the
+    items of that tile's entries."""
+    cap = pairs.cols.shape[1]
+    count = int(pairs.count)
+    slices = tlc.cull_slices(tn)
+    S = len(slices)
+    # block b of the capacity x S grid takes slice b % S of entry b // S
+    item = torch.arange(cap * S)
+    k, s = item // S, item % S
+    assert count > 0
+    seen = np.zeros((count, tn), np.int64)
+    for kk, ss in zip(k.tolist(), s.tolist()):
+        if kk < count:
+            c0, width = slices[ss]
+            seen[kk, c0:c0 + width] += 1
+    assert (seen == 1).all()
+    rows = pairs.rows[0].numpy()
+    ptr2 = pairs.ptr2[0].numpy()
+    live = k.numpy() < count
+    tile = np.where(live, rows[np.minimum(k.numpy(), cap - 1)], -1)
+    items = np.arange(cap * S)
+    for i in range(n_pad // tm):
+        in_range = (items >= ptr2[2 * i] * S) & (items < ptr2[2 * i + 2] * S)
+        np.testing.assert_array_equal(in_range, tile == i)
+    _, P, R, e_part, energy = tlc.cull_buffers(n_pad, tm, tn, cap, True, "cpu")
+    assert P.shape == (cap * S, 3, tm) and R.shape == (cap, 3, tn)
+    assert e_part.shape == (cap * S,) and energy.shape == (1,)
+
+
+def test_cull_items_cover_the_fixture_list(sorted_system):
+    s = sorted_system
+    _check_items_cover_the_list(s["tpairs"], s["tmd"].n_pad, TM, TN)
+
+
+@pytest.mark.parametrize("tm, tn", [(128, 256), (256, 256), (64, 192),
+                                   (16, 64)])
+def test_cull_items_cover_a_bench_density_list(tm, tn):
+    """The main path's shape (N=4000, rho*=0.8, tiles 128 x 256), F2's row
+    tile of 256, and ragged slices."""
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+    from chiron_tpu_torch.units import md_unit_system
+
+    n = 4000
+    fluid = LennardJonesFluid(nparticles=n, reduced_density=0.8)
+    rng = np.random.default_rng(3)
+    box = fluid.box_vectors.value_in_unit_system(md_unit_system)
+    L_box = float(box[0, 0])
+    pos = fluid.positions.value_in_unit_system(md_unit_system)
+    pos = (pos + rng.normal(0, 0.02, pos.shape)).astype(np.float32) % L_box
+    n_pad = -(-n // np.lcm(tm, tn)) * np.lcm(tm, tn)
+    pos3 = torch.zeros((3, n_pad))
+    pos3[:, :n] = torch.from_numpy(pos.T)
+    box_diag = torch.full((3,), L_box)
+    key = tlc.slab_y_key(pos3, n, 0, L_box)
+    xs, _ = tlc.sort_by_key(key, pos3, ())
+    cap = (n_pad // tm) * (n_pad // tn)
+    pairs = tlc.build_tile_pairs(xs, n, tm, tn, box_diag, CUTOFF, 0.15, cap)
+    assert not bool(pairs.overflowed)
+    _check_items_cover_the_list(pairs, n_pad, tm, tn)
+
+
+def test_cull_kernel_takes_a_row_tile_of_256():
+    """F2: the kernel's guard takes tm = 256 and still refuses others."""
+    tlc.check_cull_tiles(4096, 256, 256)
+    for tm, tn in ((512, 256), (8, 16), (128, 24), (128, 1024)):
+        with pytest.raises(ValueError, match="culled force kernel"):
+            tlc.check_cull_tiles(4096, tm, tn)

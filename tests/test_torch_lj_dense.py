@@ -100,3 +100,4 @@ def test_kernel_wrapper_rejects_unsupported_devices(system):
     box_diag = torch.ones((1, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         lj_dense_force_energy(pos3, box_diag, N, SIGMA, EPS, CUTOFF)
+

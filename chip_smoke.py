@@ -40,9 +40,11 @@ Phases (any failure raises, and the script exits nonzero):
    window; ``check()`` clean, the runner's K1 energy finite, T_kin within
    5%, K6's force and K1 launched (the counts are read here).  Then the K1
    energy within 1e-5 of K6's single-count energy, K6 against its plain
-   version on that state, a repeated band step (through the re-sort and
-   without it) bitwise equal, and a NaN live coordinate latched by the next
-   step, so that ``check()`` raises;
+   version on that state and bitwise equal to K6 taking every slot
+   (``skip=False``), a repeated band step (through the re-sort and without
+   it) bitwise equal, a NaN live coordinate latched by the next step, so
+   that ``check()`` raises, and K6's visit kinds and vote rate counted by a
+   torch replica of its choices;
 8. the strip path, counted: ``make_lj_runner(engine="strip")`` at N=4000
    from phase 5's state (S=50, slack 0.3) for 3000 steps; ``check()``
    clean, ``strip_baoab``, the strip force, the latch and K1 launched (the
@@ -58,7 +60,9 @@ Phases (any failure raises, and the script exits nonzero):
    of its plain version; K8a (force, and force with the slab energy) and
    K8b within 1e-5 (max and 99th percentile, relative to the largest force)
    of their plain versions, with 4 slabs at offsets 0, r, 2r, 3r
-   concatenating to the 1-slab result bit for bit; both runners
+   concatenating to the 1-slab result bit for bit, K8b bitwise equal to K8b
+   taking every slot and its skipped chunks and vote rate counted by a
+   torch replica; both runners
    ``check()``-clean or finite with T_kin within 5%, a repeated band
    segment bitwise equal; and one band segment in a 1-rank NCCL group equal
    bit for bit to the group-free one (the gathers run on the card);
@@ -90,7 +94,8 @@ package): they are held to their plain versions in [3] and [7] and show
 no launches.  The bound is the larger of the f32 operations its
 function needs over 67 TFLOP/s and its bytes (each input read once, each
 output written once) over 3.35 TB/s, from this run's shapes, list and pairs
-within the cutoff.
+within the cutoff (for K6 and K8b, the band pairs within the cutoff in x
+take the distance test: their kernels skip the rest whole).
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script fails before printing any result.
@@ -165,8 +170,10 @@ PEAK_BYTES = 3.35e12
 # each), r^2 and the compare.  Only the pairs within
 # the cutoff take the LJ term: the reciprocal (1), i6 (2), the coefficient
 # (3), three force products and six sums into both particles; the energy
-# adds (i6 - 1) i6 and its sum.  The kernels run without branches and take
-# the LJ term on every candidate pair: that is their cost, not the bound.
+# adds (i6 - 1) i6 and its sum.  For K6 and K8b the candidate pairs are the
+# band pairs within the cutoff in x alone: their kernels skip, whole, every
+# visit whose x ranges hold no pair within the cutoff in x, and so a pair
+# beyond it in x needs no distance test.
 TEST_FLOPS = {"lj_dense": 21, "culled": 17, "band": 21, "strip": 17}
 LJ_FLOPS = 15
 ENERGY_FLOPS = 3
@@ -238,14 +245,15 @@ def _pairs_in_cutoff(x3, box_diag, n, cutoff):
 
 
 def _pairs_in_band(x3, box_diag, n, cutoff, w, chunk=512):
-    """Pairs of x-sorted live particles closer than the cutoff (f64), each
-    counted at its cyclic rank distance in [1, w]: every such pair while
-    the band runner's ``check()`` is clean."""
+    """(within the cutoff, within it in x): pairs of x-sorted live particles
+    at cyclic rank distance [1, w] closer than the cutoff, and those closer
+    than it in x alone (f64).  The first is every pair within the cutoff
+    while the band runner's ``check()`` is clean."""
     import torch
 
     pos = x3[:, :n].T.double()
     L = box_diag.reshape(3).double()
-    count = 0
+    count = count_x = 0
     for r0 in range(0, n, chunk):
         rows = torch.arange(r0, min(r0 + chunk, n), device=pos.device)
         cols = torch.arange(r0 + 1, r0 + chunk + w, device=pos.device) % n
@@ -253,9 +261,140 @@ def _pairs_in_band(x3, box_diag, n, cutoff, w, chunk=512):
         d = d - L * torch.round(d / L)
         r2 = (d * d).sum(-1)
         delta = (cols[None, :] - rows[:, None]) % n
-        inside = (delta >= 1) & (delta <= w) & (r2 < cutoff * cutoff)
-        count += int(inside.sum())
-    return count
+        band = (delta >= 1) & (delta <= w)
+        count += int((band & (r2 < cutoff * cutoff)).sum())
+        count_x += int((band & (d[..., 0].abs() < cutoff)).sum())
+    return count, count_x
+
+
+def _image_split(x3, box_diag):
+    """The kernels' test of whether the minimum image may take compares:
+    the bound of x that the image of |dx| < 1/2 L stands for (the exact
+    threshold is within an ulp of it), and the count of coordinates outside
+    [-L/8, 9L/8], where the kernels take the floor image instead."""
+    L = box_diag.reshape(3, 1).float()
+    out = int(((x3 < -0.125 * L) | (x3 > 1.125 * L)).sum())
+    return 0.5 * float(L[0, 0]), out
+
+
+def _x_apart(dlo, dhi, half, c2):
+    """The kernels' x-range tests on the bounds dlo <= dx <= dhi of a
+    visit's x displacements: (no x image, every pair beyond the cutoff in
+    x)."""
+    x0 = (dlo >= -half) & (dhi < half)
+    return x0, x0 & (((dhi < 0) & (dhi * dhi >= c2))
+                     | ((dlo > 0) & (dlo * dlo >= c2)))
+
+
+def _band_votes(x3, box_diag, n, cutoff, w, tm):
+    """A torch replica, on the card, of K6's choices on this state: the
+    visits whose x ranges hold no pair within the cutoff (skipped whole),
+    the interior ones (no rank mask) and the edge ones; and, in the visits
+    taken, the share of warp steps (one row of each of the warp's two row
+    groups against 16 columns) whose vote fires.  Returns (kinds, fired,
+    steps, coordinates outside the compare image's range)."""
+    import torch
+
+    from chiron_tpu_torch.ops.lj_band import n_band_tiles
+
+    dev = x3.device
+    n_tiles = x3.shape[1] // tm
+    nbt = n_band_tiles(w, tm, n_tiles)
+    half, out = _image_split(x3, box_diag)
+    L = box_diag.reshape(3, 1, 1).float()
+    c2 = cutoff * cutoff
+    lane = torch.arange(tm, device=dev)
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    apart_n, interior_n, fired, steps = zero, zero, zero, zero
+    for i in range(n_tiles):
+        rid = i * tm + lane
+        tiles = (i + torch.arange(nbt, device=dev)) % n_tiles
+        cols = (tiles[:, None] * tm + lane).reshape(-1)
+        rx, cx = x3[0, rid], x3[0, cols].reshape(nbt, tm)
+        x0, apart = _x_apart(rx.min() - cx.max(1).values,
+                             rx.max() - cx.min(1).values, half, c2)
+        dd = tiles * tm - i * tm
+        wrap = dd + tm - 1 < 0
+        lo = dd - (tm - 1) + torch.where(wrap, n, 0)
+        hi = dd + (tm - 1) + torch.where(wrap, n, 0)
+        interior = (~apart & x0 & (lo >= 1) & (hi <= w)
+                    & (tiles * tm + tm <= n) & (i * tm + tm <= n))
+        d = x3[:, rid, None] - x3[:, None, cols]
+        d = d - L * torch.floor(d / L + 0.5)
+        r2 = (d * d).sum(0)
+        delta = torch.remainder(cols[None, :] - rid[:, None], n)
+        m = ((r2 < c2) & (rid[:, None] < n) & (cols[None, :] < n)
+             & (delta >= 1) & (delta <= w))
+        # warp v holds the rows 32 v + 16 h + u (h = 0, 1) of row step u
+        # against the columns 16 j + c (c < 16) of column step j
+        f = m.reshape(8, 2, tm // 16, nbt, tm // 16, 16).any(5).any(1)
+        f = f[:, :, ~apart, :]
+        apart_n = apart_n + apart.sum()
+        interior_n = interior_n + interior.sum()
+        fired = fired + f.sum()
+        steps = steps + f.numel()
+    visits = n_tiles * nbt
+    kinds = {"apart": int(apart_n), "interior": int(interior_n),
+             "edge": visits - int(apart_n) - int(interior_n)}
+    return kinds, int(fired), int(steps), out
+
+
+def _row_band_votes(x3, box_diag, n, cutoff, w, tm):
+    """A torch replica, on the card, of K8b's choices (one slab of every
+    row) on this state: of its warps' 32-column chunks of the window, those
+    that hold no band pair of the block's rows and those whose x ranges hold
+    no pair within the cutoff (both skipped), and in the others the share of
+    warp steps (a column against the warp's 32 rows) whose vote fires.
+    Returns (chunks, skipped by the band, skipped by x, fired, steps,
+    coordinates outside the compare image's range)."""
+    import torch
+
+    from chiron_tpu_torch.parallel.spatial import band_window
+
+    dev = x3.device
+    n_pad = x3.shape[1]
+    n_tiles = n_pad // tm
+    K, nbt = band_window(n, n_pad, tm, w)
+    width = nbt * tm
+    n_chunks = (width + 255) // 256
+    half, out = _image_split(x3, box_diag)
+    L = box_diag.reshape(3, 1, 1).float()
+    c2 = cutoff * cutoff
+    blocks = tm // 32
+    cl = torch.arange(n_chunks * 256, device=dev)
+    inwin = cl < width
+    inf = float("inf")
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    dead_n, apart_n, fired, steps = zero, zero, zero, zero
+    for rt in range(n_tiles):
+        rows = rt * tm + torch.arange(tm, device=dev)
+        c = (((rt - K) % n_tiles) * tm + cl) % n_pad
+        xs = torch.where(inwin, x3[:, c], 0.0)
+        col = torch.where(inwin, c, n)
+        d = x3[:, rows, None] - xs[:, None, :]
+        d = d - L * torch.floor(d / L + 0.5)
+        r2 = (d * d).sum(0)
+        delta = torch.remainder(col[None, :] - rows[:, None], n)
+        live = ((col[None, :] < n) & (rows[:, None] < n) & (delta >= 1)
+                & ((delta <= w) | (delta >= n - w)))
+        shape = (blocks, 32, n_chunks, 8, 32)
+        any_live = live.reshape(shape).any(4).any(1)
+        row_live = (rows < n).reshape(blocks, 32)
+        rxb = x3[0, rows].reshape(blocks, 32)
+        rlo = torch.where(row_live, rxb, inf).min(1).values
+        rhi = torch.where(row_live, rxb, -inf).max(1).values
+        cxw = xs[0].reshape(n_chunks, 8, 32)
+        _, apart = _x_apart(rlo[:, None, None] - cxw.max(2).values[None],
+                            rhi[:, None, None] - cxw.min(2).values[None],
+                            half, c2)
+        taken = any_live & ~apart
+        f = (live & (r2 < c2)).reshape(shape).any(1) & taken[..., None]
+        dead_n = dead_n + (~any_live).sum()
+        apart_n = apart_n + (any_live & apart).sum()
+        fired = fired + f.sum()
+        steps = steps + 32 * taken.sum()
+    return (n_tiles * blocks * n_chunks * 8, int(dead_n), int(apart_n),
+            int(fired), int(steps), out)
 
 
 def _canon(x, v, F, n):
@@ -1148,7 +1287,14 @@ def main():
         raised = True
     _require(bool(latched.overflowed) and raised,
              "the band runner did not latch a NaN live coordinate")
-    in_cut = _pairs_in_band(bs.x, bs.box_diag, N_BAND, cut, w)
+    # K6 keeps the bits of K6 taking every slot
+    _require(torch.equal(lb.band_force(*bargs, skip=False), Fa)
+             and all(torch.equal(a, b) for a, b in zip(
+                 lb.band_force_energy(*bargs, skip=False), (Fk, Ek))),
+             "K6 differs from K6 taking every slot")
+    in_cut, in_x = _pairs_in_band(bs.x, bs.box_diag, N_BAND, cut, w)
+    kinds, fired, steps, out = _band_votes(bs.x, bs.box_diag, N_BAND, cut, w,
+                                           btm)
     lane_bytes = 3 * bn_pad * 4
     for name, energy, line in (("band_force", False, 160),
                                ("band_force_energy", True, 188)):
@@ -1161,7 +1307,7 @@ def main():
         plain_ms = _cuda_ms(lambda energy=energy: lb.band_force_plain(
             *bargs, with_energy=energy), reps=2)
         bound_ms, bound_by = _bound(
-            N_BAND * w * TEST_FLOPS["band"]
+            in_x * TEST_FLOPS["band"]
             + in_cut * (LJ_FLOPS + (ENERGY_FLOPS if energy else 0)),
             2 * lane_bytes + 12 + (4 if energy else 0))
         _report(f"{name} (exact vs plain, max abs tol 0.05)", err, 0.05, ms,
@@ -1174,12 +1320,17 @@ def main():
           f"(tolerance 1e-5), approx vs exact rel {err_a:.3e} (1e-4), energy "
           f"rel {e_rel:.3e} to plain and {e_rel_k1:.3e} to K1 (1e-5); a "
           f"repeated step, in order and through the re-sort, is bitwise "
-          f"identical; a NaN at x[0, 7] latches at the next step and check() "
-          f"raises")
-    print(f"    pairs: {N_BAND * w} band distance tests (n x w), {in_cut} "
-          f"within the cutoff; bound "
-          f"{results['band_force']['bound_ms'] * 1e3:.3f} us "
+          f"identical, and so is K6 to K6 taking every slot; a NaN at "
+          f"x[0, 7] latches at the next step and check() raises")
+    print(f"    pairs: {N_BAND * w} band pairs (n x w), {in_x} within the "
+          f"cutoff in x (the distance tests needed), {in_cut} within it; "
+          f"bound {results['band_force']['bound_ms'] * 1e3:.3f} us "
           f"({results['band_force']['bound_by']})")
+    print(f"  K6 vote (torch replica): {sum(kinds.values())} visits, "
+          f"{kinds['apart']} beyond the cutoff in x (skipped), "
+          f"{kinds['interior']} interior, {kinds['edge']} edge; "
+          f"{fired} of {steps} warp steps in the visits taken fire "
+          f"({fired / steps:.4f}); {out} coordinates outside [-L/8, 9L/8]")
     # phase 9 starts from this melted, band-sorted state
     big_melt, big_box, big_w, big_in_cut = br.positions(bs), bs.box_diag, w, in_cut
     del Fp, Fk, Fa, diff, bs, br
@@ -1385,18 +1536,27 @@ def main():
     ms = _cuda_ms(lambda: sp.row_band_force(xb, sbox, 0, sn_pad, *b8))
     plain_ms = _cuda_ms(lambda: sp.row_band_force_plain(
         xb, sbox, 0, sn_pad, N_BAND, sw, sig, eps, cut), reps=1)
-    # one slab of every row: each band pair is needed once (n x w), as for K6
-    in_band = _pairs_in_band(xb, sbox, N_BAND, cut, sw)
+    _require(torch.equal(sp.row_band_force(xb, sbox, 0, sn_pad, *b8,
+                                           skip=False), Fb),
+             "K8b differs from K8b taking every slot")
+    # one slab of every row: each band pair is needed once, as for K6
+    in_band, in_xb = _pairs_in_band(xb, sbox, N_BAND, cut, sw)
+    chunks, dead, apart, fired, steps, out = _row_band_votes(
+        xb, sbox, N_BAND, cut, sw, stm)
     bound_ms, bound_by = _bound(
-        N_BAND * sw * TEST_FLOPS["band"] + in_band * LJ_FLOPS,
-        2 * lane_bytes + 12)
+        in_xb * TEST_FLOPS["band"] + in_band * LJ_FLOPS, 2 * lane_bytes + 12)
     _report(f"row_band_force (K8b vs plain, rel tol 1e-5; p99 rel "
             f"{p99:.3e}; 4 slabs = 1 slab bit for bit)", err, "1e-5 rel", ms,
             plain_ms)
-    print(f"    pairs: {N_BAND * sw} band distance tests (n x w), "
-          f"{in_band} LJ terms; the kernel's window {nbt} tiles of "
-          f"{stm} (K={K}), {sn_pad * nbt * stm} slots; bound "
-          f"{bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    print(f"    pairs: {N_BAND * sw} band pairs (n x w), {in_xb} within the "
+          f"cutoff in x (the distance tests needed), {in_band} LJ terms; "
+          f"the kernel's window {nbt} tiles of {stm} (K={K}), "
+          f"{sn_pad * nbt * stm} slots; bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}; {smi}); bitwise equal to K8b taking every slot")
+    print(f"  K8b vote (torch replica): {chunks} warp chunks of 32 columns, "
+          f"{dead} without a band pair and {apart} beyond the cutoff in x "
+          f"(both skipped); {fired} of {steps} warp steps in the others fire "
+          f"({fired / steps:.4f}); {out} coordinates outside [-L/8, 9L/8]")
     results["row_band_force"] = dict(
         source="chiron_tpu_torch/csrc/spatial.cu",
         replaces="chiron_tpu/parallel/spatial.py:547", max_abs_err=err,

@@ -210,6 +210,162 @@ __device__ __forceinline__ float block_sum(float v, float* scratch, int tid) {
 
 }  // namespace cull
 
+// What the banded pair kernels (lj_band.cu, K8b in spatial.cu) share: the
+// minimum image, the range test that allows its cheap form, and block or
+// warp bounds of x.
+//
+// Their minimum image of a displacement d on an axis of period L is
+// fma(-L, floor(fma(d, 1/L, 1/2)), d), one rounding an op (floor_image).
+// Where both coordinates lie in [-L/8, 9L/8],
+// the floor takes only -1, 0 or 1, and each is decided by one compare of d:
+// fma(d, 1/L, 1/2) is monotone in d, so it is >= 1 exactly from hi, the least
+// float that takes it there, and < 0 exactly below lo, the least float that
+// keeps it at 0 or above.  So compare_image, fma(-L, (d >= hi) - (d < lo), d),
+// has the bits of floor_image without its FRND, and where every x
+// displacement of a visit lies in [lo, hi) the x image is d itself.
+namespace band {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// How a visit (a block of rows against a staged tile of columns) takes its
+// slots.
+enum Visit {
+  kInterior,  // every pair live and in the band, no x image: the vote only
+  kEdge,      // the per-slot rank mask and the compare image on x too
+  kWhole,     // every slot: floor images, the mask and the LJ term on each
+  kApart,     // every pair at least the cutoff apart in x: nothing to take
+};
+
+struct Axis {
+  float L, iL, lo, hi, cmin, cmax;  // cmin, cmax: -L/8 and 9L/8
+};
+
+struct Geometry {
+  Axis a[3];
+  bool ok;  // every threshold was found: compare_image may be taken
+};
+
+// The least float d with fma(d, iL, 1/2) >= level, by a walk from an
+// estimate a few ulps away; false if the walk does not settle.
+__device__ __forceinline__ bool least_reaching(float L, float iL, float level,
+                                               float& out) {
+  float d = __fmul_rn(__fsub_rn(level, 0.5f), L);
+  for (int it = 0; it < 64; ++it) {
+    const float below = nextafterf(d, __int_as_float(0xff800000));  // -inf
+    if (__fmaf_rn(d, iL, 0.5f) < level) {
+      d = nextafterf(d, __int_as_float(0x7f800000));
+    } else if (__fmaf_rn(below, iL, 0.5f) >= level) {
+      d = below;
+    } else {
+      out = d;
+      return true;
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ Geometry geometry(const float* box) {
+  Geometry g;
+  g.ok = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    Axis& x = g.a[a];
+    x.L = box[a];
+    x.iL = __fdiv_rn(1.0f, x.L);
+    x.lo = x.hi = 0.0f;
+    g.ok = g.ok && x.L > 0.0f && least_reaching(x.L, x.iL, 1.0f, x.hi) &&
+           least_reaching(x.L, x.iL, 0.0f, x.lo);
+    x.cmin = __fmul_rn(-0.125f, x.L);
+    x.cmax = __fmul_rn(1.125f, x.L);
+  }
+  return g;
+}
+
+__device__ __forceinline__ float floor_image(float d, const Axis& a) {
+  return __fmaf_rn(-a.L, floorf(__fmaf_rn(d, a.iL, 0.5f)), d);
+}
+
+__device__ __forceinline__ float set_ge(float a, float b) {  // 1 or 0
+  float r;
+  asm("set.ge.f32.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float set_lt(float a, float b) {  // 1 or 0
+  float r;
+  asm("set.lt.f32.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float compare_image(float d, const Axis& a) {
+  return __fmaf_rn(-a.L, __fsub_rn(set_ge(d, a.hi), set_lt(d, a.lo)), d);
+}
+
+// The minimum-imaged displacement (xi - xj, ...) of a visit of kind kMode.
+template <Visit kMode>
+__device__ __forceinline__ void displacement(float xi, float yi, float zi,
+                                             float xj, float yj, float zj,
+                                             const Geometry& g, float& dx,
+                                             float& dy, float& dz) {
+  dx = __fsub_rn(xi, xj);
+  dy = __fsub_rn(yi, yj);
+  dz = __fsub_rn(zi, zj);
+  if constexpr (kMode == kWhole) {
+    dx = floor_image(dx, g.a[0]);
+    dy = floor_image(dy, g.a[1]);
+    dz = floor_image(dz, g.a[2]);
+  } else {
+    if constexpr (kMode == kEdge) dx = compare_image(dx, g.a[0]);
+    dy = compare_image(dy, g.a[1]);
+    dz = compare_image(dz, g.a[2]);
+  }
+}
+
+// r^2, one rounding an op.
+__device__ __forceinline__ float norm2(float dx, float dy, float dz) {
+  return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+}
+
+// Whether a point lies where compare_image holds (false for a NaN or an
+// infinite coordinate).
+__device__ __forceinline__ bool in_range(float x, float y, float z,
+                                         const Geometry& g) {
+  return x >= g.a[0].cmin && x <= g.a[0].cmax && y >= g.a[1].cmin &&
+         y <= g.a[1].cmax && z >= g.a[2].cmin && z <= g.a[2].cmax;
+}
+
+// Floats as ints of the same order (for finite values), so that a warp takes
+// their least and greatest with __reduce_min_sync / __reduce_max_sync.
+__device__ __forceinline__ int order_key(float f) {
+  const int b = __float_as_int(f);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// Whether every x displacement RN(xi - xj), xi in [rmin, rmax] and xj in
+// [cmin, cmax], lies in [lo, hi): RN(a - b) is monotone in a and in -b.
+__device__ __forceinline__ bool x_image_zero(float rmin, float rmax,
+                                             float cmin, float cmax,
+                                             const Axis& a) {
+  return __fsub_rn(rmin, cmax) >= a.lo && __fsub_rn(rmax, cmin) < a.hi;
+}
+
+// Given x_image_zero: whether every pair is at least the cutoff apart in x
+// alone, so that none is within it.  Every x displacement then has
+// |dx| >= |d| for the bound d nearer 0, and r^2 = fma(dz, dz, fma(dx, dx,
+// dy dy)) >= RN(dx dx) >= RN(d d) >= cutoff^2, each step monotone.
+__device__ __forceinline__ bool x_apart(float rmin, float rmax, float cmin,
+                                        float cmax, float cutoff2) {
+  const float hi = __fsub_rn(rmax, cmin), lo = __fsub_rn(rmin, cmax);
+  return (hi < 0.0f && __fmul_rn(hi, hi) >= cutoff2) ||
+         (lo > 0.0f && __fmul_rn(lo, lo) >= cutoff2);
+}
+
+}  // namespace band
+
 // The tiled pair passes (lj_band.cu, lj_strip.cu) run
 // kThreads threads a block as kRG row groups by kCG column groups.  A block
 // writes partial sums to slots of its own, and a gather kernel adds them

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "chiron_drift": (_P, _P, _P, _I, _I, _P, _P, _P),
     "chiron_band_force": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _I, _P),
+        _F, _F, _F, _F, _F, _I, _I, _P),
     "chiron_strip_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _I, _I, _F, _F, _F, _F, _P),
     "chiron_strip_force": (
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "chiron_row_slab_force": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_row_band_force": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "chiron_fused_md": (
         _P, _P, _P, _P, _P, _P, _U, _U, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _P),

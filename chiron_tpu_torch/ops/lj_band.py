@@ -101,7 +101,7 @@ def band_force_plain(pos3, box_diag, n: int, w: int, sigma: float,
 
 def _band_launch(kernel: str, pos3, box_diag, n: int, w: int, sigma: float,
                  epsilon: float, cutoff: float, tm: int, approx_recip: bool,
-                 with_energy: bool):
+                 with_energy: bool, skip: bool):
     """Check the inputs and launch ``csrc/lj_band.cu``, counted under
     ``kernel``.  Returns ((3, n_pad) force, () energy or None)."""
     _build.check_cuda(pos3, "pos3")
@@ -128,32 +128,37 @@ def _band_launch(kernel: str, pos3, box_diag, n: int, w: int, sigma: float,
         None if energy is None else energy.data_ptr(),
         n, n_pad, tm, w, nbt, _build.PASS_SPLIT, sigma2, cutoff * cutoff,
         1e-4 * sigma2, 24.0 * epsilon, 4.0 * epsilon, int(approx_recip),
-        _build.stream_of(pos3),
+        int(skip), _build.stream_of(pos3),
     )
     return F, (energy[0] if with_energy else None)
 
 
 def band_force(pos3, box_diag, n: int, w: int, sigma: float, epsilon: float,
-               cutoff: float, tm: int, approx_recip: bool = True):
+               cutoff: float, tm: int, approx_recip: bool = True,
+               skip: bool = True):
     """K6 (``band_force_raw``): the (3, n_pad) banded force of x-sorted
     ``pos3``.  Launches ``csrc/lj_band.cu`` on a CUDA tensor; runs
-    ``band_force_plain`` (exact reciprocal) on a CPU tensor."""
+    ``band_force_plain`` (exact reciprocal) on a CPU tensor.  ``skip=False``
+    makes the kernel take every slot, with no skip: the reference whose
+    bits the skips keep on a finite state (for tests)."""
     if pos3.device.type == "cpu":
         return band_force_plain(pos3, box_diag, n, w, sigma, epsilon, cutoff,
                                 tm)[0]
     return _band_launch("band_force", pos3, box_diag, n, w, sigma, epsilon,
-                        cutoff, tm, approx_recip, False)[0]
+                        cutoff, tm, approx_recip, False, skip)[0]
 
 
 def band_force_energy(pos3, box_diag, n: int, w: int, sigma: float,
-                      epsilon: float, cutoff: float, tm: int):
+                      epsilon: float, cutoff: float, tm: int,
+                      skip: bool = True):
     """K6 (``band_force_energy_raw``): banded force and () single-count
-    truncated-LJ energy in one pass, with the exact reciprocal."""
+    truncated-LJ energy in one pass, with the exact reciprocal (``skip`` as
+    in ``band_force``)."""
     if pos3.device.type == "cpu":
         return band_force_plain(pos3, box_diag, n, w, sigma, epsilon, cutoff,
                                 tm, with_energy=True)
     return _band_launch("band_force_energy", pos3, box_diag, n, w, sigma,
-                        epsilon, cutoff, tm, False, True)
+                        epsilon, cutoff, tm, False, True, skip)
 
 
 class LJBand:

@@ -136,12 +136,15 @@ def row_band_force_plain(pos3, box_diag, off: int, rows: int, n: int, w: int,
 
 
 def row_band_force(pos3, box_diag, off: int, rows: int, n: int, w: int,
-                   tm: int, sigma: float, epsilon: float, cutoff: float):
+                   tm: int, sigma: float, epsilon: float, cutoff: float,
+                   skip: bool = True):
     """K8b: the (3, rows) banded force of rows ``off ..`` of the x-sorted
     ``pos3`` (3, n_pad), both band directions, exact reciprocal, over the
     window of ``tm``-column tiles of ``band_window``.  Launches
     ``csrc/spatial.cu`` on a CUDA tensor (counted as ``row_band_force``);
-    runs ``row_band_force_plain`` on a CPU tensor."""
+    runs ``row_band_force_plain`` on a CPU tensor.  ``skip=False`` makes the
+    kernel take every slot of the window, with no skip: the reference whose
+    bits the skips keep on a finite state (for tests)."""
     if pos3.device.type == "cpu":
         return row_band_force_plain(pos3, box_diag, off, rows, n, w, sigma,
                                     epsilon, cutoff)
@@ -163,7 +166,7 @@ def row_band_force(pos3, box_diag, off: int, rows: int, n: int, w: int,
         "row_band_force", "chiron_row_band_force",
         pos3.data_ptr(), box_diag.data_ptr(), force.data_ptr(), n, n_pad,
         rows, off, tm, w, K, nbt, sigma2, 24.0 * epsilon, cutoff * cutoff,
-        1e-4 * sigma2, _build.stream_of(pos3),
+        1e-4 * sigma2, int(skip), _build.stream_of(pos3),
     )
     return force
 

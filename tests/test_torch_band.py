@@ -262,3 +262,88 @@ def test_band_runner_run_draws_from_the_generator(band_runners):
     with pytest.raises(ValueError, match="identical masses"):
         trt.make_band_lj_runner(fluid.potential, n_particles=N_RUN + 1,
                                 topology=fluid.topology, device="cpu")
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repo root's script) as a module: its replicas of
+    the kernels' choices are held here to direct counts."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _wrapped_sorted(n, n_pad, rho=0.3, seed=0):
+    x, L = _fluid(n, rho, seed)
+    pos3 = torch.zeros((3, n_pad))
+    pos3[:, :n] = torch.from_numpy(x.T)
+    return tb.sort_by_x(pos3, (), n)[0], L
+
+
+def test_band_force_takes_skip_and_runs_plain_on_cpu():
+    """``skip`` only steers the kernel: on a CPU tensor both settings run
+    the plain version."""
+    n, w = 600, 200
+    pos3s, L = _wrapped_sorted(n, 640)
+    box = torch.full((3,), L)
+    args = (pos3s, box, n, w, SIGMA, EPS, CUTOFF, TM)
+    plain = tb.band_force_plain(*args)[0]
+    assert torch.equal(tb.band_force(*args, skip=False), plain)
+    assert torch.equal(tb.band_force(*args), plain)
+    assert torch.equal(tb.band_force_energy(*args, skip=False)[0], plain)
+
+
+def test_band_vote_replica_matches_a_direct_count():
+    """chip_smoke.py's replica of K6's choices against a loop over visits,
+    warps and slots as the kernel takes them: the visits skipped by x, the
+    interior ones, and the warp steps (rows 32 v + 16 h + u, h = 0, 1,
+    against columns 16 j .. 16 j + 15) that fire in the visits taken."""
+    cs = _chip_smoke()
+    n, n_pad, tm, w = 600, 640, 64, 200
+    x, L = _wrapped_sorted(n, n_pad)
+    box = torch.full((1, 3), L)
+    kinds, fired, steps, out = cs._band_votes(x, box, n, CUTOFF, w, tm)
+
+    xs = x.numpy().astype(np.float32)
+    n_tiles, rpt = n_pad // tm, tm // 16
+    nbt = tb.n_band_tiles(w, tm, n_tiles)
+    c2, half = CUTOFF * CUTOFF, 0.5 * L
+    want = {"apart": 0, "interior": 0, "edge": 0}
+    want_fired = want_steps = 0
+    for i in range(n_tiles):
+        rows = np.arange(i * tm, (i + 1) * tm)
+        for k in range(nbt):
+            c0 = ((i + k) % n_tiles) * tm
+            cols = np.arange(c0, c0 + tm)
+            dlo = np.float32(xs[0, rows].min() - xs[0, cols].max())
+            dhi = np.float32(xs[0, rows].max() - xs[0, cols].min())
+            x0 = dlo >= -half and dhi < half
+            if x0 and ((dhi < 0 and dhi * dhi >= c2)
+                       or (dlo > 0 and dlo * dlo >= c2)):
+                want["apart"] += 1
+                continue
+            d = c0 - i * tm
+            lo, hi = d - (tm - 1), d + (tm - 1)
+            if hi < 0:
+                lo, hi = lo + n, hi + n
+            interior = (x0 and i * tm + tm <= n and c0 + tm <= n and lo >= 1
+                        and hi <= w)
+            want["interior" if interior else "edge"] += 1
+            dd = xs[:, rows, None] - xs[:, None, cols]
+            dd = dd - L * np.floor(dd / L + 0.5)
+            r2 = (dd * dd).sum(0)
+            delta = (cols[None, :] - rows[:, None]) % n
+            m = ((r2 < c2) & (rows[:, None] < n) & (cols[None, :] < n)
+                 & (delta >= 1) & (delta <= w))
+            for v in range(8):
+                for u in range(rpt):
+                    for j in range(tm // 16):
+                        r = [(2 * v + h) * rpt + u for h in (0, 1)]
+                        want_fired += bool(m[r, 16 * j:16 * j + 16].any())
+                        want_steps += 1
+    assert kinds == want and (fired, steps, out) == (want_fired, want_steps, 0)
+    assert 0 < fired < steps and kinds["apart"] > 0 and kinds["interior"] > 0

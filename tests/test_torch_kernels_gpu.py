@@ -777,3 +777,143 @@ def test_band_energy_and_k2_at_n100000(cuda):
     assert float((F2 - Fp).abs().max()) / scale < 1e-5
     assert abs(e_band - float(Ep)) / abs(float(Ep)) < 1e-5
     assert abs(float(E2) - float(Ep)) / abs(float(Ep)) < 1e-5
+
+
+class _NoSync:
+    """Raise on any host synchronisation inside the block."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _sorted_fluid(cuda, n, n_pad, seed=1):
+    """A jittered bench-density fluid of n particles, wrapped into the box
+    and x-sorted on the card: ((3, n_pad) positions, (1, 3) box, the
+    potential)."""
+    from chiron_tpu_torch.ops.lj_band import sort_by_x
+
+    fluid, pos, box = _jittered_fluid(n, seed)
+    x3 = torch.zeros((3, n_pad), device=cuda)
+    x3[:, :n] = torch.from_numpy(pos.T).to(cuda)
+    box_diag = torch.from_numpy(np.diagonal(box).copy()).reshape(1, 3).to(cuda)
+    return sort_by_x(x3, (), n)[0].contiguous(), box_diag, fluid.potential
+
+
+# K6 at each row tile: n = 2000 leaves a padding gap of 48 ranks (n_pad
+# 2048), and w one rank below, at and above a multiple of tm puts the band's
+# end inside, at and just past a tile edge; the last row tiles wrap to tile 0.
+@pytest.mark.parametrize("tm,w", [(64, 575), (64, 576), (64, 577),
+                                  (128, 639), (128, 640), (128, 641),
+                                  (256, 511), (256, 512), (256, 513)])
+def test_band_kernel_edges_and_every_slot_bitwise(cuda, tm, w):
+    """K6 (visits skipped by x, the LJ term only on flagged rows, the rank
+    mask on edge visits only, the compare image) against its plain version:
+    force max abs 0.05 and p99 1e-5 relative, approximate within 1e-4,
+    energy 1e-5; bitwise equal to the kernel taking every slot
+    (``skip=False``), on the wrapped state and with one coordinate moved a
+    box length out (its visits take every slot); a repeated call bitwise
+    equal; no host sync."""
+    from chiron_tpu_torch.ops import lj_band as lb
+
+    n = 2000
+    x, box, pot = _sorted_fluid(cuda, n, 2048)
+    far = x.clone()
+    far[1, 700] += float(box[0, 1])
+    for state in (x, far):
+        args = (state, box.reshape(3), n, w, pot.sigma, pot.epsilon,
+                pot.cutoff, tm)
+        with _NoSync():
+            Fk, Ek = lb.band_force_energy(*args)
+            Fk0, Ek0 = lb.band_force_energy(*args, skip=False)
+            Fa = lb.band_force(*args)
+            Fa0 = lb.band_force(*args, skip=False)
+            Fe = lb.band_force(*args, approx_recip=False)
+            Fe0 = lb.band_force(*args, approx_recip=False, skip=False)
+            again = lb.band_force_energy(*args)
+        Fp, Ep = lb.band_force_plain(*args, with_energy=True)
+        scale = float(Fp.abs().max())
+        err = (Fk - Fp)[:, :n].abs()
+        assert float(err.max()) < 0.05
+        assert float(torch.quantile(err.flatten(), 0.99)) / scale < 1e-5
+        assert float((Fa - Fk).abs().max()) / scale < 1e-4
+        assert float(Fk[:, n:].abs().max()) == 0.0
+        assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+        for a, b in ((Fk, Fk0), (Ek, Ek0), (Fa, Fa0), (Fe, Fe0), (Fe, Fk),
+                     (again[0], Fk), (again[1], Ek)):
+            assert torch.equal(a, b)
+
+
+def test_band_kernel_nan_reaches_the_rows_of_plain(cuda):
+    """A NaN y coordinate reaches, through K6's masked 0 times NaN, the same
+    force components as in the plain version, and the rest keeps the bits
+    of the kernel taking every slot."""
+    from chiron_tpu_torch.ops import lj_band as lb
+
+    n, tm, w = 2000, 128, 640
+    x, box, pot = _sorted_fluid(cuda, n, 2048)
+    x[1, 1234] = float("nan")
+    args = (x, box.reshape(3), n, w, pot.sigma, pot.epsilon, pot.cutoff, tm)
+    Fk = lb.band_force(*args, approx_recip=False)
+    Fk0 = lb.band_force(*args, approx_recip=False, skip=False)
+    Fp, _ = lb.band_force_plain(*args)
+    assert torch.equal(torch.isnan(Fk), torch.isnan(Fp))
+    assert bool(torch.isnan(Fk[1]).any()) and not bool(torch.isnan(Fk[0]).any())
+    assert torch.equal(torch.nan_to_num(Fk), torch.nan_to_num(Fk0))
+
+
+# K8b at each row tile, at 1 and 4 slabs: w one rank below, at and above
+# 3 x 256 (6 x 128), n = 4000 in n_pad 4096 (a padding gap of 96 ranks).
+@pytest.mark.parametrize("tm", [128, 256])
+@pytest.mark.parametrize("w", [767, 768, 769])
+def test_row_band_kernel_edges_and_every_slot_bitwise(cuda, tm, w):
+    """K8b (the window of each 32-row block, the vote, the
+    edge mask, the compare image) against its plain version, 1e-5 relative
+    (max and p99); 4 slabs equal to 1 bit for bit; bitwise equal to the
+    kernel taking every slot of the window (``skip=False``), on the wrapped
+    state and with one coordinate a box length out; no host sync."""
+    from chiron_tpu_torch.parallel import spatial as sp
+
+    n, n_pad = 4000, 4096
+    x, box, pot = _sorted_fluid(cuda, n, n_pad)
+    far = x.clone()
+    far[2, 3000] -= float(box[0, 2])
+    lj = (pot.sigma, pot.epsilon, pot.cutoff)
+    r = n_pad // 4
+    for state in (x, far):
+        with _NoSync():
+            F1 = sp.row_band_force(state, box, 0, n_pad, n, w, tm, *lj)
+            F0 = sp.row_band_force(state, box, 0, n_pad, n, w, tm, *lj,
+                                   skip=False)
+            slabs = [sp.row_band_force(state, box, k * r, r, n, w, tm, *lj)
+                     for k in range(4)]
+        Fp = sp.row_band_force_plain(state, box, 0, n_pad, n, w, *lj)
+        scale = float(Fp.abs().max())
+        diff = (F1 - Fp).abs()
+        assert float(diff.max()) / scale < 1e-5 and _p99(diff, scale) < 1e-5
+        assert torch.equal(F1, F0)
+        assert torch.equal(torch.cat(slabs, dim=1), F1)
+
+
+def test_row_band_kernel_nan_keeps_the_rows_of_every_slot(cuda):
+    """A NaN y coordinate reaches the same rows of K8b as in the kernel
+    taking every slot of its window (bitwise elsewhere).  The plain version
+    pairs each row with every column, so there the NaN reaches every row;
+    the kernels' rows are among them."""
+    from chiron_tpu_torch.parallel import spatial as sp
+
+    n, n_pad, tm, w = 4000, 4096, 256, 768
+    x, box, pot = _sorted_fluid(cuda, n, n_pad)
+    x[1, 2345] = float("nan")
+    lj = (pot.sigma, pot.epsilon, pot.cutoff)
+    F1 = sp.row_band_force(x, box, 0, n_pad, n, w, tm, *lj)
+    F0 = sp.row_band_force(x, box, 0, n_pad, n, w, tm, *lj, skip=False)
+    Fp = sp.row_band_force_plain(x, box, 0, n_pad, n, w, *lj)
+    nan1 = torch.isnan(F1)
+    assert torch.equal(nan1, torch.isnan(F0))
+    assert torch.equal(torch.nan_to_num(F1), torch.nan_to_num(F0))
+    assert bool(nan1[1, 2345]) and not bool((nan1 & ~torch.isnan(Fp)).any())
+    assert 0 < int(nan1[1].sum()) < n_pad

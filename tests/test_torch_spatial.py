@@ -353,3 +353,81 @@ def test_mesh_and_devices():
     with pytest.raises(ValueError, match="axis"):
         ts.make_spatial_lj_runner(make_replica_mesh(device="cpu"),
                                   fluid.potential, 300, **kw)
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repo root's script) as a module: its replicas of
+    the kernels' choices are held here to direct counts."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_row_band_force_takes_skip_and_runs_plain_on_cpu():
+    """``skip`` only steers the kernel: on a CPU tensor both settings run
+    the plain version."""
+    n, n_pad = 450, 512
+    L = (n / 0.1) ** (1 / 3) * SIGMA
+    x3s, w = _band_layout(n, n_pad, L, 1, True)
+    box = _t(np.full((1, 3), L, np.float32))
+    args = (_t(x3s), box, 64, 128, n, w, TM, SIGMA, 0.99, CUTOFF)
+    plain = ts.row_band_force_plain(*args[:6], *args[7:])
+    assert torch.equal(ts.row_band_force(*args, skip=False), plain)
+    assert torch.equal(ts.row_band_force(*args), plain)
+
+
+def test_row_band_vote_replica_matches_a_direct_count():
+    """chip_smoke.py's replica of K8b's choices against a loop over blocks,
+    chunks and warps as the kernel takes them: the warp chunks without a
+    band pair of the block's rows, those beyond the cutoff in x, and the
+    warp steps (one column against the warp's 32 rows) that fire in the
+    others, on a layout with a padding gap and pairs across the seam."""
+    cs = _chip_smoke()
+    n, n_pad, tm = 450, 512, 64
+    L = (n / 0.1) ** (1 / 3) * SIGMA
+    x3s, w = _band_layout(n, n_pad, L, 1, True)
+    got = cs._row_band_votes(torch.from_numpy(x3s),
+                             torch.full((1, 3), L), n, CUTOFF, w, tm)
+
+    n_tiles = n_pad // tm
+    K, nbt = ts.band_window(n, n_pad, tm, w)
+    width = nbt * tm
+    c2, half = CUTOFF * CUTOFF, 0.5 * L
+    chunks = dead = apart = fired = steps = 0
+    for r0 in range(0, n_pad, 32):
+        rows = np.arange(r0, r0 + 32)
+        first = ((r0 // tm) - K) % n_tiles
+        live_rows = rows[rows < n]
+        for c0 in range(0, width, 256):
+            for g in range(8):
+                chunks += 1
+                cl = c0 + 32 * g + np.arange(32)
+                inwin = cl < width
+                col = np.where(inwin, (first * tm + cl) % n_pad, n)
+                xs = np.where(inwin, x3s[:, col % n_pad], 0.0).astype(
+                    np.float32)
+                delta = (col[None, :] - rows[:, None]) % n
+                live = ((col[None, :] < n) & (rows[:, None] < n)
+                        & (delta >= 1) & ((delta <= w) | (delta >= n - w)))
+                if not live.any():
+                    dead += 1
+                    continue
+                dlo = np.float32(x3s[0, live_rows].min() - xs[0].max())
+                dhi = np.float32(x3s[0, live_rows].max() - xs[0].min())
+                if (dlo >= -half and dhi < half
+                        and ((dhi < 0 and dhi * dhi >= c2)
+                             or (dlo > 0 and dlo * dlo >= c2))):
+                    apart += 1
+                    continue
+                d = x3s[:, rows, None] - xs[:, None, :]
+                d = d - L * np.floor(d / L + 0.5)
+                m = live & ((d * d).sum(0) < c2)
+                fired += int(m.any(0).sum())
+                steps += 32
+    assert got == (chunks, dead, apart, fired, steps, 0)
+    assert dead > 0 and apart > 0 and 0 < fired < steps

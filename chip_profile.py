@@ -27,8 +27,11 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    the band runner (a sorted candidate every step, chosen on the device)
    against a copy that reads ``stale`` on the host and sorts only when it
    holds, twice in the order device, host, host, device, with their end
-   states required equal; then profiler rows of 50 band and 100 culled steps; and
-   400 steps of the strip runner at N=4000 from the culled NVT state;
+   states required equal; then profiler rows of 50 band and 100 culled steps;
+   the strip runner at N=4000 from the culled NVT state: three 3000-step
+   windows, then 400 profiled steps (its force pass is one kernel,
+   ``strip_pairs``); and 100 calls of the strip force with the energy (K7's
+   energy instantiation and its sum) on the runner's last layout;
 5. the spatial runners on a mesh of this process alone, from the same
    melted N=100,000 state: windows of the banded one (500 steps, S=25) and
    the dense one (100 steps) in the order band, dense, dense, band,
@@ -71,6 +74,8 @@ NEW_WINDOW_STEPS = 3000
 NEW_PROFILE_STEPS = 400
 FUSED_CALL = 100
 ONE_SHOT_CALLS = 3
+STRIP_ENERGY_CALLS = 100
+STRIP_WINDOW_STEPS = 3000
 
 
 def _card():
@@ -360,6 +365,14 @@ def main():
     strip = make_lj_runner(engine="strip", box_vectors=box, **common)
     state["strip"] = strip.init(melt, box, seed=SEED)
     runs["strip"] = strip.run
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance("strip", STRIP_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"strip {STRIP_WINDOW_STEPS}-step window: {sec:.6f} s, "
+              f"{STRIP_WINDOW_STEPS / sec:.1f} steps/s")
     for label, steps in BIG_PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
     # a latch ends a production run, not this profile: its 400 steps ran
@@ -368,6 +381,10 @@ def main():
         strip.check(state["strip"])
     except RuntimeError as err:
         print(f"strip runner latched in its profiled steps: {err}")
+    xe7, box7 = state["strip"].x, state["strip"].box_diag
+    _profile("strip force_energy (K7)",
+             lambda: [strip.md.force_energy(xe7, box7)
+                      for _ in range(STRIP_ENERGY_CALLS)], STRIP_ENERGY_CALLS)
     # the one-shot calls of the spatial path: the sharded force with the
     # energy (K8a's energy instantiation) and the runners' energy (K2)
     pot = big.potential

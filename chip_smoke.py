@@ -16,9 +16,10 @@ Phases (any failure raises, and the script exits nonzero):
    version, then 400 steps, ``check()`` clean, energy within 1e-5 of the f64
    oracle), BAOAB, the drift latch with the slack and with a budget
    on either side of the measured drift, and K7 on the strip layout of that
-   state (its force, force and energy, and BAOAB phase with the halo
-   refresh).  K6 is held to its plain version at the end of phase 7, on the
-   band layout of the N=100,000 fluid;
+   state (its force, force and energy, each bitwise equal when repeated,
+   its chunks skipped and LJ loop trips counted by a torch replica, and
+   BAOAB phase with the halo refresh).  K6 is held to its plain version at
+   the end of phase 7, on the band layout of the N=100,000 fluid;
 4. run one culled segment, one NpT segment with the barostat's generator
    restored in between, and one strip segment, twice from one carry: the
    results must be bitwise equal (no float atomics anywhere);
@@ -49,8 +50,13 @@ Phases (any failure raises, and the script exits nonzero):
    from phase 5's state (S=50, slack 0.3) for 3000 steps; ``check()``
    clean, ``strip_baoab``, the strip force, the latch and K1 launched (the
    counts are read after the runner's ``energy``); the K1 and K7 energies
-   within 1e-5 of the f64 oracle, T_kin within 5%; and ``engine="auto"``
-   returns the dense runner at N=1000 and the culled runner at N=4000;
+   within 1e-5 of the f64 oracle, T_kin within 5%; K7 on that state with
+   the halo a tile narrower than the band the cutoff needs, where the strip
+   misses pairs, within its tolerances of its plain version, its change
+   from the covering halo equal to the plain version's within 0.02 (it
+   misses the same pairs), and bitwise equal when repeated; and
+   ``engine="auto"`` returns the dense runner at N=1000 and the culled
+   runner at N=4000;
 9. the spatial path at world size 1 (a mesh of this process alone), counted,
    from phase 7's melted N=100,000 state (tm 256): ``make_sharded_lj_force``
    (force, ``force_energy``, ``energy_differentiable``), the banded spatial
@@ -60,9 +66,10 @@ Phases (any failure raises, and the script exits nonzero):
    of its plain version; K8a (force, and force with the slab energy) and
    K8b within 1e-5 (max and 99th percentile, relative to the largest force)
    of their plain versions, with 4 slabs at offsets 0, r, 2r, 3r
-   concatenating to the 1-slab result bit for bit, K8b bitwise equal to K8b
-   taking every slot and its skipped chunks and vote rate counted by a
-   torch replica; both runners
+   concatenating to the 1-slab result bit for bit, K8a's one slab (K1's
+   kernel) equal to K2 bit for bit and half its slab energy to K2's energy,
+   K8b bitwise equal to K8b taking every slot and its skipped chunks and
+   vote rate counted by a torch replica; both runners
    ``check()``-clean or finite with T_kin within 5%, a repeated band
    segment bitwise equal; and one band segment in a 1-rank NCCL group equal
    bit for bit to the group-free one (the gathers run on the card);
@@ -395,6 +402,79 @@ def _row_band_votes(x3, box_diag, n, cutoff, w, tm):
         steps = steps + 32 * taken.sum()
     return (n_tiles * blocks * n_chunks * 8, int(dead_n), int(apart_n),
             int(fired), int(steps), out)
+
+
+def _strip_candidates(n_pad, tm, H, device="cpu"):
+    """A torch replica of K7's index math (``csrc/lj_strip.cu``,
+    ``strip_pairs``): block b holds the particles q = 32 b + lane, and its
+    warps walk chunks of 32 ranks from lane 0's first rank ts - H (ts = q -
+    q mod tm), rounded down to a multiple of 32, to lane 31's end ts + tm +
+    H; a chunk inside every lane's range [ts - H, ts + tm + H) and holding
+    no lane's own rank is taken whole, another rank by rank.  Returns (q, j,
+    take), each (blocks, chunks, 32 lanes, 32 ranks): lane q, rank j, and
+    whether the kernel takes that slot."""
+    import torch
+
+    q = torch.arange(n_pad, device=device).reshape(-1, 32)
+    ts = q - q % tm
+    lo, hi = ts - H, ts + tm + H
+    base = lo[:, :1] & ~31
+    n_chunks = (hi[:, -1:] - base + 31) // 32
+    k = torch.arange(int(n_chunks.max()), device=device)
+    c0 = (base + 32 * k)[:, :, None]                        # (b, c, 1)
+    inner = ((lo[:, None] <= c0) & (c0 + 32 <= hi[:, None])
+             & ((q[:, None] < c0) | (q[:, None] >= c0 + 32))).all(2)
+    j = c0[..., None] + torch.arange(32, device=device)     # (b, c, 1, 32)
+    Q, LO, HI = (t[:, None, :, None] for t in (q, lo, hi))  # (b, 1, 32, 1)
+    take = ((k[None, :] < n_chunks)[..., None, None]
+            & (inner[..., None, None] | ((j >= LO) & (j < HI) & (j != Q))))
+    return Q.expand_as(take), j.expand_as(take), take
+
+
+def _strip_visits(xe, box_diag, tm, H, cutoff):
+    """A torch replica, on the card, of K7's choices on an extended layout:
+    of its warps' chunks of 32 ranks, those whose x ranges put every pair
+    at least the cutoff apart (skipped), and in the others the LJ loop's
+    trips (the warp's largest count of ranks taken within the cutoff a
+    lane) and terms.  Returns (chunks, skipped, trips, terms)."""
+    import torch
+
+    n_pad = xe.shape[1] - H
+    q, j, take = _strip_candidates(n_pad, tm, H, xe.device)
+    c0 = j[:, :, 0, 0]
+    wrapped = c0 < 0
+    live = take.any(3).any(2)
+    # rank j's column (xe[n_pad + j] below 0, rank 0's past the array), the
+    # lanes' points and their halo copies (x + Lx where q < H)
+    jc = j[:, :, 0]
+    cols = xe[:, torch.where(jc < 0, jc + n_pad,
+                             torch.where(jc >= n_pad + H, 0, jc))]
+    ql = q[:, 0, :, 0]
+    pts = xe[:, ql]                                     # (3, b, lanes)
+    halo = torch.where(ql < H, xe[0, (ql + n_pad).clamp(max=n_pad + H - 1)],
+                       pts[0])
+    px = torch.where(wrapped[..., None], halo[:, None], pts[0][:, None])
+    fin_q = torch.isfinite(pts[1:]).all(0) & torch.isfinite(pts[0])
+    fin_h = torch.isfinite(pts[1:]).all(0) & torch.isfinite(halo)
+    fin = (torch.isfinite(cols).all(0).all(2)
+           & torch.where(wrapped, fin_h.all(1)[:, None],
+                         fin_q.all(1)[:, None]))
+    up = px.max(2).values - cols[0].min(2).values
+    down = px.min(2).values - cols[0].max(2).values
+    c2 = cutoff * cutoff
+    apart = fin & (((up < 0) & (up * up >= c2))
+                   | ((down > 0) & (down * down >= c2)))
+    L = box_diag.reshape(3)
+    d = torch.stack([px[..., None] - cols[0][:, :, None],
+                     pts[1][:, None, :, None] - cols[1][:, :, None],
+                     pts[2][:, None, :, None] - cols[2][:, :, None]])
+    for a in (1, 2):
+        d[a] = d[a] - L[a] * torch.floor(d[a] / L[a] + 0.5)
+    r2 = (d * d).sum(0)
+    hit = ~(r2 >= c2) & take & (live & ~apart)[..., None, None]
+    trips = hit.sum(3).max(2).values
+    return (int(live.sum()), int((live & apart).sum()), int(trips.sum()),
+            int(hit.sum()))
 
 
 def _canon(x, v, F, n):
@@ -1024,6 +1104,10 @@ def main():
     _require(err_a < 1e-4, f"K7 approx vs exact rel err {err_a}")
     _require(e_rel < 1e-5 and e_rel_k1 < 1e-5,
              f"K7 energy rel err {e_rel} (plain), {e_rel_k1} (K1)")
+    Fk2, Ek2 = ls.strip_force_energy(*sargs)
+    _require(torch.equal(Fk2, Fk) and torch.equal(Ek2, Ek)
+             and torch.equal(ls.strip_force(*sargs, approx_recip=True), Fa),
+             "K7: a repeated call differs")
     in_cut = _pairs_in_cutoff(s0.x, box_diag, N, cut)
     nr = n_pad // tm
     slots = n_pad * (tm + H) - nr * tm * (tm + 1) // 2
@@ -1051,10 +1135,17 @@ def main():
     print(f"  strip force p99 rel err {p99:.3e} (tolerance 1e-5), approx vs "
           f"exact rel {err_a:.3e} (1e-4), energy rel {e_rel:.3e} to plain "
           f"and {e_rel_k1:.3e} to K1 (1e-5)")
+    chunks, skipped, trips, terms = _strip_visits(s0.x, box_diag, tm, H, cut)
     print(f"    pairs: {slots} strip slots ({nr} row tiles x {tm + H} "
           f"columns, less the leading triangles), {in_cut} within the "
           f"cutoff; bound {results['strip_force']['bound_ms'] * 1e3:.3f} us "
           f"({results['strip_force']['bound_by']})")
+    print(f"  K7 (torch replica): {chunks} warp chunks of 32 ranks, {skipped} "
+          f"beyond the cutoff in x (skipped), {32 * 32 * (chunks - skipped)} "
+          f"distance tests; {terms} LJ terms (each pair from both ends, "
+          f"padding against padding too) in "
+          f"{trips} loop trips, {trips / max(chunks - skipped, 1):.3f} a "
+          f"chunk taken")
 
     # K7's BAOAB phase with the halo refresh, in place on copies
     w0 = s0.v - (0.5 * smd.dt) * s0.F * smd.minv
@@ -1364,6 +1455,51 @@ def main():
              f"strip energy rel err vs f64 oracle {e_rel} (K1), {e_rel7} (K7)")
     t8 = t_kin(sr.velocities(ss))
     _require(abs(t8 - T_KELVIN) / T_KELVIN < 0.05, f"strip T_kin {t8}")
+    # K7 on that layout with the halo a tile narrower than the band the
+    # cutoff needs: the strip then misses pairs (the rows next to the wrap
+    # lose partners within the cutoff, each of which moves a force by
+    # 0.03-0.08), and the kernel must miss the ones its plain version
+    # misses: its change from the covering halo is the plain version's; and
+    # a repeated call bitwise equal
+    md8 = sr.md
+    xs8 = ls.sort_by_key_strip(centre, ())[0]
+    need = int(lb.band_width_needed(torch.where(sr.valid, xs8[0], 3.0e38),
+                                    N, cut, ss.box_diag[0, 0])) + md8.n_pad - N
+    h_full = -(-need // md8.tm) * md8.tm
+    h_narrow = (need // md8.tm - 1) * md8.tm
+
+    def extended(h):
+        halo = xs8[:, :h].clone()
+        halo[0] = halo[0] + ss.box_diag[0, 0]
+        return torch.cat([xs8, halo], dim=1)
+
+    nargs = (extended(h_narrow), ss.box_diag, N, md8.tm, h_narrow, sig, eps,
+             cut)
+    Fn, En = ls.strip_force_energy(*nargs)
+    Fna = ls.strip_force(*nargs, approx_recip=True)
+    Fnp, Enp = ls.strip_force_plain(*nargs, with_energy=True)
+    fargs = (extended(h_full), ss.box_diag, N, md8.tm, h_full, sig, eps, cut)
+    Ffp, _ = ls.strip_force_plain(*fargs)
+    Ffk = ls.strip_force(*fargs, approx_recip=False)
+    scale = float(Fnp.abs().max())
+    diff = (Fn - Fnp)[:, :N].abs()
+    err_n = float(diff.max())
+    p99_n = float(torch.quantile(diff.flatten(), 0.99)) / scale
+    e_rel_n = abs(float(En) - float(Enp)) / abs(float(Enp))
+    missed = float((Fnp - Ffp).abs().max())
+    same_miss = float(((Fn - Ffk) - (Fnp - Ffp)).abs().max())
+    _require(err_n < 0.05 and p99_n < 1e-5 and e_rel_n < 1e-5
+             and float((Fna - Fn).abs().max()) / scale < 1e-4,
+             f"K7 at H={h_narrow} (a tile narrower than the band): err "
+             f"{err_n}, p99 {p99_n}, energy rel {e_rel_n}")
+    _require(missed > 0.02 and same_miss < 0.02,
+             f"K7 at H={h_narrow}: the plain version misses pairs worth "
+             f"{missed}, the kernel's change differs from it by {same_miss}")
+    again = ls.strip_force_energy(*nargs)
+    _require(torch.equal(again[0], Fn) and torch.equal(again[1], En)
+             and torch.equal(ls.strip_force(*nargs, approx_recip=True), Fna),
+             "K7 at the narrow halo: a repeated call differs")
+    del Fn, Fna, Fnp, Ffp, Ffk, diff, again
     small = LennardJonesFluid(nparticles=1000, reduced_density=DENSITY)
     auto_small = make_lj_runner(
         box_vectors=small.box_vectors.value_in_unit_system(
@@ -1381,6 +1517,12 @@ def main():
           f"{e_rel7:.2e}), T_kin {t8:.3f} K, launches {strip_counts}; auto "
           f"picks FastLJRunner at N=1000 and CulledLJRunner at N={N}")
     print(f"    strip {strip_rate:.1f} steps/s (N={N}, {smi})")
+    print(f"  K7 at H={h_narrow}, a tile narrower than the {need} ranks the "
+          f"band needs (the missed pairs move the plain force by up to "
+          f"{missed:.3e}; the kernel's change from H={h_full} differs from "
+          f"the plain version's by {same_miss:.3e}, limit 0.02): max abs err "
+          f"{err_n:.3e} (0.05), p99 rel {p99_n:.3e} (1e-5), energy rel "
+          f"{e_rel_n:.3e} (1e-5); a repeated call bitwise equal")
 
     # ---- 9. the spatial path at full width, world size 1, counted ----
     mesh = make_replica_mesh(axis_name="spatial", device=dev)
@@ -1495,6 +1637,15 @@ def main():
         _require(torch.equal(torch.cat(parts, dim=1), F1),
                  f"{name}: 4 slabs differ from one")
         _require(float(F1[:, N_BAND:].abs().max()) == 0.0, f"{name} padding")
+        # one slab runs K2's kernel on K2's rows: its bits, and half its
+        # energy (K2 halves the same sum)
+        if energy:
+            F2k, E2k = sf.op.force_energy_t(pos3, big_box)
+            same = torch.equal(F1, F2k) and torch.equal(0.5 * E1, E2k)
+        else:
+            same = torch.equal(
+                F1, sf.op.force_only_t(pos3, big_box, approx_recip=False))
+        _require(same, f"{name}: one slab differs from K2 (bitwise)")
         ms = _cuda_ms(lambda energy=energy: sp.row_slab_force(
             pos3, pos3, big_box, 0, *a8, with_energy=energy), reps=5)
         plain_ms = _cuda_ms(lambda energy=energy: sp.row_slab_force_plain(
@@ -1508,15 +1659,17 @@ def main():
             3 * lane_bytes + 12 + (4 if energy else 0))
         _report(f"{name} (K8a vs plain, rel tol 1e-5; p99 rel {p99:.3e}; "
                 f"slab energies rel {max(e_rels, default=0.0):.3e}; 4 slabs "
-                f"= 1 slab bit for bit)", err, "1e-5 rel", ms, plain_ms)
+                f"= 1 slab = K2 bit for bit"
+                f"{', half the energy too' if energy else ''})", err,
+                "1e-5 rel", ms, plain_ms)
         print(f"    pairs: {tests} distance tests (the pairs with a live row "
               f"in the slab), {big_in_cut} LJ terms; bound "
               f"{bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
         results[name] = dict(
-            source="chiron_tpu_torch/csrc/spatial.cu",
+            source="chiron_tpu_torch/csrc/lj_dense.cu",
             replaces="chiron_tpu/parallel/spatial.py:126", max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    del F1, parts, diffs, diff
+    del F1, F2k, parts, diffs, diff
 
     # K8b on the band runner's layout, at 4 row slabs and at one
     xb, sbox, sw, stm = sbs.x, sbs.box_diag, sbr.w, sbr.tm

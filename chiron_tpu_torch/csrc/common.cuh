@@ -210,9 +210,28 @@ __device__ __forceinline__ float block_sum(float v, float* scratch, int tid) {
 
 }  // namespace cull
 
+// The sum of n_parts partials in one fixed order, times scale, into *out:
+// each thread a strided compensated sum, then the threads in order
+// (cull::block_sum).  One block of kSumThreads threads (lj_dense.cu's and
+// lj_strip.cu's energies).
+constexpr int kSumThreads = 256;
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+partial_sum(const float* __restrict__ parts, int n_parts, float scale,
+            float* __restrict__ out) {
+  __shared__ float scratch[kThreads / 32];
+  float acc = 0.0f, comp = 0.0f;
+  for (int k = threadIdx.x; k < n_parts; k += kThreads)
+    kahan_add(acc, comp, parts[k]);
+  const float s = cull::block_sum<kThreads>(acc - comp, scratch, threadIdx.x);
+  if (threadIdx.x == 0) out[0] = scale * s;
+}
+
 // What the banded pair kernels (lj_band.cu, K8b in spatial.cu) share: the
 // minimum image, the range test that allows its cheap form, and block or
-// warp bounds of x.
+// warp bounds of x (the strip pass of lj_strip.cu takes the last, r^2 and
+// x_apart too).
 //
 // Their minimum image of a displacement d on an axis of period L is
 // fma(-L, floor(fma(d, 1/L, 1/2)), d), one rounding an op (floor_image).
@@ -366,7 +385,7 @@ __device__ __forceinline__ bool x_apart(float rmin, float rmax, float cmin,
 
 }  // namespace band
 
-// The tiled pair passes (lj_band.cu, lj_strip.cu) run
+// The tiled pair pass of lj_band.cu runs
 // kThreads threads a block as kRG row groups by kCG column groups.  A block
 // writes partial sums to slots of its own, and a gather kernel adds them
 // per particle.  Every sum below has one order, so a repeated call is

@@ -1,7 +1,10 @@
-// All-pairs minimum-image Lennard-Jones force and energy (K1, and K2).
+// All-pairs minimum-image Lennard-Jones force and energy (K1, K2 and K8a).
 //
 // Replaces chiron_tpu/ops/lj_dense.py: _make_triangle_kernel with
-// _lj_tile_math, launched by _lj_dense_raw (pallas_call at :340).
+// _lj_tile_math, launched by _lj_dense_raw (pallas_call at :340), the square
+// kernel _make_kernel (:231) that computes the same function, and
+// chiron_tpu/parallel/spatial.py: _make_row_slab_force (pallas_call at :126),
+// a slab of rows against every column.
 //
 // The TPU kernel visits each unordered tile pair once and writes the
 // column reaction into one force block shared by its in-order grid.  Blocks
@@ -13,6 +16,14 @@
 // pair once would halve the pair work but add per-block column slots and a
 // fixed-order gather launch; with the culling below most pairs never reach
 // the pair loop at all, and the gather would cost about what it saves.
+//
+// Rows: a block's rows are off + blockIdx.x * 32 + lane of the layout,
+// read from `rows` with row stride rs (pos and n_pad for K1 and K2; K8a's
+// slab, rows_per_dev wide, at global offset off), and their force goes to
+// `force` with the same stride.  A row's sum depends only on its global
+// index and the columns (the warps take the same chunks in the same order,
+// the cull box is the block's own 32 rows), so K8a's slabs at any offsets
+// concatenate to the one-slab result, which is K2's, bit for bit.
 //
 // Bound: pair arithmetic (about 21 f32 operations a distance test on
 // n(n-1)/2 pairs, the LJ term on the few within the cutoff), not memory:
@@ -39,12 +50,14 @@
 // Energy: every thread keeps a compensated sum over its columns; a block
 // folds its threads' sums in a fixed order into one slot of e_part, and a
 // second pass sums the slots in a fixed order (the 1e-6 design bar of
-// lj_dense.py:195-201).  Each pair is seen from both sides, hence the 0.5.
+// lj_dense.py:195-201) and scales the total: 0.5 for K1 and K2, where every
+// pair is seen from both sides, 1 for a K8a slab, whose caller halves the
+// sum over the slabs.
 //
 // kDivide takes the minimum image as d - L floor(d / L + 1/2), the form of
 // the fused MD kernel's force phase (chiron_tpu/ops/lj_md_fused.py:157-159),
-// which lj_md_fused.cu launches through lj_dense_force_divide; K1 and K2
-// multiply by 1/L (lj_dense.py:56-58).
+// which lj_md_fused.cu launches through lj_dense_force_divide; K1, K2 and
+// K8a multiply by 1/L (lj_dense.py:56-58).
 #include "common.cuh"
 
 namespace {
@@ -53,7 +66,6 @@ constexpr int kRows = 32;    // row particles per block: one per lane
 constexpr int kWarps = 32;   // warps per block, each a column group
 constexpr int kChunk = 32;   // columns a warp takes at a time: one a lane
 constexpr int kGroup = 4;    // columns of a chunk taken together
-constexpr int kSumThreads = 256;
 using cull::kFull;
 
 struct Lj {
@@ -118,19 +130,24 @@ __device__ __forceinline__ void chunk_pairs(
   }
 }
 
+// The rows of a launch are rows [off, off + gridDim.x * kRows) of the
+// layout, read from `rows` (and their force written to `force`), arrays of
+// row stride rs.
 template <bool kDivide, bool kApprox, bool kEnergy>
 __global__ void __launch_bounds__(kRows * kWarps, 1)
 lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
-              float* __restrict__ force, float* __restrict__ e_part, int n,
-              int n_pad, Lj lj) {
+              const float* __restrict__ rows, float* __restrict__ force,
+              int rs, int off, float* __restrict__ e_part, int n, int n_pad,
+              Lj lj) {
   __shared__ float4 stage[kWarps][kChunk];
   __shared__ float red[kWarps][4][kRows];
   const int lane = threadIdx.x;
   const int g = threadIdx.y;
-  const int row = blockIdx.x * kRows + lane;
+  const int r = blockIdx.x * kRows + lane;  // the row in the launch's arrays
+  const int row = off + r;                  // its global index
   const float L[3] = {box[0], box[1], box[2]};
   const float iL[3] = {1.0f / L[0], 1.0f / L[1], 1.0f / L[2]};
-  const float xi = pos[row], yi = pos[n_pad + row], zi = pos[2 * n_pad + row];
+  const float xi = rows[r], yi = rows[rs + r], zi = rows[2 * rs + r];
   const float c2_row = row < n ? lj.cutoff2 : -1.0f;
   cull::BoxAcc racc(__shfl_sync(kFull, xi, 0), __shfl_sync(kFull, yi, 0),
                     __shfl_sync(kFull, zi, 0));
@@ -163,7 +180,7 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
     stage[g][lane] = make_float4(xj, yj, zj, 0.0f);
     __syncwarp();
     const int col0 = c * kChunk;
-    if (c == static_cast<int>(blockIdx.x) || col0 + kChunk > n) {
+    if (col0 == row - lane || col0 + kChunk > n) {  // the block's own rows
       chunk_pairs<kDivide, kApprox, kEnergy, true>(
           stage[g], col0, row, n, xi, yi, zi, c2_row, L, iL, lj, fx, fy, fz, e,
           ec);
@@ -186,9 +203,9 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
       sfy += red[k][1][lane];
       sfz += red[k][2][lane];
     }
-    force[row] = sfx;
-    force[n_pad + row] = sfy;
-    force[2 * n_pad + row] = sfz;
+    force[r] = sfx;
+    force[rs + r] = sfy;
+    force[2 * rs + r] = sfz;
   } else if (kEnergy && g == 1) {
     // each lane's energy over the warps, then the lanes in order
     float acc = 0.0f, comp = 0.0f;
@@ -201,28 +218,40 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
   }
 }
 
-// The blocks' energies: each thread a strided compensated sum, then the
-// threads in a fixed order (cull::block_sum); halved, since every pair was
-// counted from both sides.
-__global__ void __launch_bounds__(kSumThreads)
-lj_dense_energy_sum(const float* __restrict__ e_part, int n_parts,
-                    float* __restrict__ energy) {
-  __shared__ float scratch[kSumThreads / 32];
-  float acc = 0.0f, comp = 0.0f;
-  for (int k = threadIdx.x; k < n_parts; k += kSumThreads)
-    kahan_add(acc, comp, e_part[k]);
-  const float s =
-      cull::block_sum<kSumThreads>(acc - comp, scratch, threadIdx.x);
-  if (threadIdx.x == 0) energy[0] = 0.5f * s;
-}
+// The rows [off, off + n_rows) of a launch: their positions, their force
+// and the row stride of both.
+struct Rows {
+  const float* pos;
+  float* force;
+  int rs, off;
+};
 
 template <bool kDivide, bool kApprox, bool kEnergy>
-cudaError_t launch_rows(const float* pos, const float* box, float* force,
-                        float* e_part, int n, int n_pad, const Lj& lj,
-                        cudaStream_t s) {
+cudaError_t launch_rows(const float* pos, const float* box, const Rows& rows,
+                        int n_rows, float* e_part, int n, int n_pad,
+                        const Lj& lj, cudaStream_t s) {
   lj_dense_rows<kDivide, kApprox, kEnergy>
-      <<<n_pad / kRows, dim3(kRows, kWarps), 0, s>>>(pos, box, force, e_part,
-                                                     n, n_pad, lj);
+      <<<n_rows / kRows, dim3(kRows, kWarps), 0, s>>>(
+          pos, box, rows.pos, rows.force, rows.rs, rows.off, e_part, n, n_pad,
+          lj);
+  return cudaGetLastError();
+}
+
+// A launch's rows, with the energy (scaled by e_scale) into *energy when
+// with_energy, else the force only.
+template <bool kApprox>
+cudaError_t launch_pass(const float* pos, const float* box, const Rows& rows,
+                        int n_rows, float* e_part, float* energy, int n,
+                        int n_pad, const Lj& lj, int with_energy,
+                        float e_scale, cudaStream_t s) {
+  if (!with_energy)
+    return launch_rows<false, kApprox, false>(pos, box, rows, n_rows, e_part,
+                                              n, n_pad, lj, s);
+  cudaError_t err = launch_rows<false, kApprox, true>(pos, box, rows, n_rows,
+                                                      e_part, n, n_pad, lj, s);
+  if (err != cudaSuccess) return err;
+  partial_sum<kSumThreads><<<1, kSumThreads, 0, s>>>(e_part, n_rows / kRows,
+                                                     e_scale, energy);
   return cudaGetLastError();
 }
 
@@ -234,13 +263,13 @@ cudaError_t lj_dense_force_divide(const float* pos, const float* box,
                                   float r2_floor, cudaStream_t s) {
   const Lj lj{sigma2, coef_scale, 0.0f, cutoff2, r2_floor,
               cutoff2 * cull::kRaise};
-  return launch_rows<true, true, false>(pos, box, force, nullptr, n, n_pad,
-                                        lj, s);
+  return launch_rows<true, true, false>(pos, box, Rows{pos, force, n_pad, 0},
+                                        n_pad, nullptr, n, n_pad, lj, s);
 }
 
-// pos, force: (3, n_pad) f32; box: (3,) f32; e_part: (n_pad / 32,) f32
-// scratch; energy: (1,) f32, written only when with_energy.  n_pad must be
-// a multiple of 32.
+// K1 and K2.  pos, force: (3, n_pad) f32; box: (3,) f32; e_part: (n_pad /
+// 32,) f32 scratch; energy: (1,) f32, written only when with_energy.  n_pad
+// must be a multiple of 32.
 CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
                                   float* force, float* e_part, float* energy,
                                   int n, int n_pad, float sigma2,
@@ -250,22 +279,32 @@ CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Lj lj{sigma2, coef_scale, eps4, cutoff2, r2_floor,
               cutoff2 * cull::kRaise};
-  cudaError_t err;
-  if (with_energy) {
-    err = approx ? launch_rows<false, true, true>(pos, box, force, e_part, n,
-                                                  n_pad, lj, s)
-                 : launch_rows<false, false, true>(pos, box, force, e_part, n,
-                                                   n_pad, lj, s);
-  } else {
-    err = approx ? launch_rows<false, true, false>(pos, box, force, e_part, n,
-                                                   n_pad, lj, s)
-                 : launch_rows<false, false, false>(pos, box, force, e_part,
-                                                    n, n_pad, lj, s);
-  }
-  if (err == cudaSuccess && with_energy) {
-    lj_dense_energy_sum<<<1, kSumThreads, 0, s>>>(e_part, n_pad / kRows,
-                                                  energy);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
+  const Rows rows{pos, force, n_pad, 0};
+  return static_cast<int>(
+      approx ? launch_pass<true>(pos, box, rows, n_pad, e_part, energy, n,
+                                 n_pad, lj, with_energy, 0.5f, s)
+             : launch_pass<false>(pos, box, rows, n_pad, e_part, energy, n,
+                                  n_pad, lj, with_energy, 0.5f, s));
+}
+
+// K8a: the slab rows (3, rows_per_dev) f32 at global rows [off, off +
+// rows_per_dev) against every column of pos (3, n_pad) f32, exact
+// reciprocal; force: (3, rows_per_dev) f32.  With with_energy also the
+// slab's pair energy, every pair from its row's side, not halved, into
+// energy (1,) f32, through e_part (rows_per_dev / 32,) f32 scratch.
+// rows_per_dev and off are multiples of 32 and off + rows_per_dev <= n_pad.
+CHIRON_EXPORT int chiron_row_slab_force(const float* rows, const float* pos,
+                                        const float* box, float* force,
+                                        float* e_part, float* energy, int n,
+                                        int n_pad, int rows_per_dev, int off,
+                                        float sigma2, float coef_scale,
+                                        float eps4, float cutoff2,
+                                        float r2_floor, int with_energy,
+                                        void* stream) {
+  const Lj lj{sigma2, coef_scale, eps4, cutoff2, r2_floor,
+              cutoff2 * cull::kRaise};
+  return static_cast<int>(launch_pass<false>(
+      pos, box, Rows{rows, force, rows_per_dev, off}, rows_per_dev, e_part,
+      energy, n, n_pad, lj, with_energy, 1.0f,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -18,26 +18,57 @@
 //   finaliser, (mix >> 8) 2^-24, and the cos branch of Box-Muller only.
 //   Bound: memory (7 floats read, 2 written a lane, plus the halo).
 //
-// strip_rows / strip_gather: row tile i (rows i tm .. i tm + tm) against
-// the extended columns [i tm, i tm + tm + H), in chunks of tm columns.
-// x takes no minimum image (the halo carries it), y and z take
-// floor(d/L + 1/2); chunk 0's col <= row slots and the pairs at or beyond
-// the cutoff get r^2 + 1e18, so their terms underflow to exactly 0; the
-// energy counts a slot only where r^2 > 0 before the clamp (padding
-// against padding has r^2 == 0 exactly and would add the clamp's value).
-// The TPU kernel writes the column reactions into the extended force in
-// grid order; on Hopper block (i, s) takes chunks s, s + S, ... and writes
-// each chunk's column partials, reduced over its row groups in a fixed
-// order, to R[i n_chunks + j], and its row sums to P[s].  strip_gather then
-// gives each rank q its row partials, minus the partials of every chunk
-// that covers extended column q and, for q < H, column n_pad + q (the halo
-// fold), in a fixed order, times 24 eps.  A repeated call is bitwise
-// identical.  Bound: pair arithmetic, n_pad (tm + H) candidate slots less
-// the leading triangle, of which the LJ term is needed only within the
-// cutoff; this kernel takes it on every slot.
+// strip_pairs: the function of the TPU pass.  Row tile i (rows i tm ..
+// i tm + tm) meets the extended columns [i tm, i tm + tm + H), except the
+// leading tile's col <= row slots; x takes no minimum image (the halo
+// carries it), y and z take floor(d/L + 1/2); only pairs within the cutoff
+// add a term, r^2 clamped at r2_floor; the energy counts a pair only where
+// r^2 > 0 (padding against padding has r^2 == 0 exactly); the reaction on an
+// extended column n_pad + q folds onto rank q.  The TPU kernel writes the
+// column reactions into the extended force in grid order.  Here each
+// particle q owns its sum and meets every pair it is in from its own side,
+// so there are no reactions, no partials and no gather launch:
+//   * as a row, its forward strip: ranks (q, ts + tm + H), ts = q - q mod tm,
+//     the extended columns past n_pad being the halo copies;
+//   * as a column, the rows of the tiles whose strip covers it: ranks
+//     [ts - H, q), where a rank j < 0 is row n_pad + j against q's halo copy
+//     (x + Lx, the column n_pad + q of the TPU pass).
+// So its candidates are the ranks [ts - H, ts + tm + H) but q, and every
+// pair term is coef(r^2) (p_q - p_j) with the lane's own point first (its
+// halo copy for j < 0): a pair is taken from its two ends with r^2 of the
+// same bits, since RN(a - b) = -RN(b - a) and the y and z images are odd
+// but where |d| is half a box, beyond the cutoff.  Each particle's sum has
+// one order, so a repeated call is bitwise identical.
+//
+// Bound: pair arithmetic (about 17 f32 operations a distance test on the
+// n_pad (tm + H) slots less the leading triangles, the LJ term on the pairs
+// within the cutoff), not memory: xe (3 x (n_pad + H) floats) stays in L2.
+// Visiting each pair from both sides doubles the distance tests; in return
+// the pass needs no column partials, no block barrier a chunk and no second
+// launch.  For this card:
+//   * occupancy: a block is 32 particles (one a lane) x 32 warps, the warps
+//     splitting the particles' candidate ranks in chunks of 32 (warp g the
+//     chunks g, g + 32, ...), so N = 4000 gives 128 blocks of 32 warps;
+//   * culling: the layout is x-sorted, so a chunk's x range is narrow; a
+//     chunk whose every pair is at least the cutoff apart in x alone
+//     (band::x_apart: with no x image and r^2 = fma(dz, dz, fma(dx, dx,
+//     dy dy)), r^2 >= RN(dx dx) >= cutoff^2) is skipped whole, unless some
+//     coordinate of the chunk or of the lanes' points is not finite;
+//   * distances first: each lane takes a chunk's 32 columns (broadcast from
+//     shared memory, each warp staging its own chunk, loaded during the one
+//     before) into a bit a column where r^2 < cutoff^2 or r^2 is NaN, and
+//     the rank tests only on chunks at a lane's range edges or holding its
+//     own rank; then the LJ term only on the set bits (__ffs), a loop as
+//     long as the warp's largest count, a few a chunk where under 3% of the
+//     candidates lie within the cutoff.
+// A NaN distance takes the term (its r^2 clamp keeps the NaN), so a NaN
+// reaches every component of both ends of every slot it lies in, as in the
+// plain version.  The approximate reciprocal is the hardware seed, the
+// exact one the seed with two Newton steps; the energy instantiation takes
+// the exact one.  The energy: a compensated sum a lane, the block's lanes
+// folded in a fixed order into e_part, then one block sums e_part in a fixed
+// order, halved (each pair was met twice).
 #include "common.cuh"
-
-using namespace pair_pass;
 
 namespace {
 
@@ -72,137 +103,181 @@ __global__ void strip_baoab(float* __restrict__ xe, float* __restrict__ w,
   if (col < H) xe[axis * n_ext + n_pad + col] = axis == 0 ? x + box[0] : x;
 }
 
-struct Params {
-  const float* xe;  // (3, n_pad + H) extended positions
-  const float* box; // (3,)
-  float* P;         // (S, 3, n_pad) row partials
-  float* R;         // (nr n_chunks, 3, tm) column partials
-  float* e_part;    // (nr S,) energy partials
-  float* F;         // (3, n_pad) folded output force
-  float* energy;    // (1,) output energy, or null
-  int n_pad, tm, H, nr, n_chunks;
-  float sigma2, cutoff2, r2_floor, big, coef_scale, e_scale;
-  int approx;
+constexpr int kLanes = 32;  // particles per block: one a lane
+constexpr int kWarps = 32;  // warps per block, each a column group
+constexpr int kChunk = 32;  // candidate ranks a warp takes at a time
+using band::kFull;
+
+struct Strip {
+  const float* xe;   // (3, n_pad + H) extended positions
+  const float* box;  // (3,)
+  float* F;          // (3, n_pad) output force
+  float* e_part;     // (n_pad / 32,) energy partials, or null
+  int n_pad, tm, H;
+  float sigma2, cutoff2, r2_floor, coef_scale;
 };
 
-template <int RPT, bool kEnergy>
-__global__ void __launch_bounds__(kThreads) strip_rows(Params p) {
-  extern __shared__ float smem[];
-  const int tm = p.tm, n_ext = p.n_pad + p.H;
-  float* sx = smem;
-  float* sy = sx + tm;
-  float* sz = sy + tm;
-  float* red = sz + tm;  // [kRG][3][tm] columns, then [kCG][3][tm] rows
-  const int i = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
-  const int tid = threadIdx.x, rg = tid / kCG, cg = tid % kCG;
-  const int row0 = i * tm;
-  const float Ly = p.box[1], Lz = p.box[2];
-  const float iLy = 1.0f / Ly, iLz = 1.0f / Lz;
+// The periods of y and z and their inverses.
+struct YZ {
+  float Ly, Lz, iLy, iLz;
+};
 
-  float xi[RPT], yi[RPT], zi[RPT], fx[RPT], fy[RPT], fz[RPT];
+// The lane's point minus column c, y and z min-imaged by floor(d/L + 1/2),
+// one rounding an op; returns r^2 = fma(dz, dz, fma(dx, dx, dy dy)).
+__device__ __forceinline__ float strip_delta(float x, float y, float z,
+                                             const float4& c, const YZ& b,
+                                             float& dx, float& dy, float& dz) {
+  dx = __fsub_rn(x, c.x);
+  dy = __fsub_rn(y, c.y);
+  dz = __fsub_rn(z, c.z);
+  dy = __fmaf_rn(-b.Ly, floorf(__fmaf_rn(dy, b.iLy, 0.5f)), dy);
+  dz = __fmaf_rn(-b.Lz, floorf(__fmaf_rn(dz, b.iLz, 0.5f)), dz);
+  return band::norm2(dx, dy, dz);
+}
+
+// One chunk of 32 candidate ranks from c0 against the lane's point:
+// the distances into a bit a rank, then the LJ term on the set bits.
+// kEdge also tests each rank against the lane's range [lo, hi) and rank q.
+template <bool kApprox, bool kEnergy, bool kEdge>
+__device__ __forceinline__ void strip_chunk(const float4* cols, int c0, int q,
+                                            int lo, int hi, float x, float y,
+                                            float z, const YZ& b,
+                                            const Strip& p, float& fx,
+                                            float& fy, float& fz, float& e,
+                                            float& ec) {
+  unsigned mask = 0u;
 #pragma unroll
-  for (int u = 0; u < RPT; ++u) {
-    const int r = row0 + rg * RPT + u;
-    xi[u] = p.xe[r];
-    yi[u] = p.xe[n_ext + r];
-    zi[u] = p.xe[2 * n_ext + r];
-    fx[u] = fy[u] = fz[u] = 0.0f;
-  }
-  [[maybe_unused]] float ea = 0.0f, ec = 0.0f;
-
-  for (int j = split; j < p.n_chunks; j += n_split) {
-    const int col0 = row0 + j * tm;
-    __syncthreads();  // the previous chunk's staging and partials are read
-    for (int t = tid; t < tm; t += kThreads) {
-      sx[t] = p.xe[col0 + t];
-      sy[t] = p.xe[n_ext + col0 + t];
-      sz[t] = p.xe[2 * n_ext + col0 + t];
+  for (int k = 0; k < kChunk; ++k) {
+    float dx, dy, dz;
+    const float r2 = strip_delta(x, y, z, cols[k], b, dx, dy, dz);
+    bool hit = !(r2 >= p.cutoff2);  // within the cutoff, or NaN
+    if constexpr (kEdge) {
+      const int j = c0 + k;
+      hit = hit && j >= lo && j < hi && j != q;
     }
-    __syncthreads();
-    for (int t = cg; t < tm; t += kCG) {
-      const float xj = sx[t], yj = sy[t], zj = sz[t];
-      float cx_sum = 0.0f, cy_sum = 0.0f, cz_sum = 0.0f;
-#pragma unroll
-      for (int u = 0; u < RPT; ++u) {
-        const float dx = xi[u] - xj;
-        float dy = yi[u] - yj;
-        dy = dy - Ly * floorf(dy * iLy + 0.5f);
-        float dz = zi[u] - zj;
-        dz = dz - Lz * floorf(dz * iLz + 0.5f);
-        float r2 = dx * dx + dy * dy + dz * dz;
-        if (j == 0 && t <= rg * RPT + u) r2 = r2 + p.big;
-        r2 = r2 + (r2 < p.cutoff2 ? 0.0f : p.big);
-        [[maybe_unused]] const bool pair_ok = r2 > 0.0f;
-        r2 = fmaxf(r2, p.r2_floor);
-        const float seed = rcp_approx(r2);
-        const float inv = p.approx != 0 ? seed : lj_newton2(r2, seed);
-        const float i2 = p.sigma2 * inv;
-        const float i6 = i2 * i2 * i2;
-        const float coef = (2.0f * (i6 * i6) - i6) * inv;
-        const float tx = coef * dx, ty = coef * dy, tz = coef * dz;
-        fx[u] += tx;
-        fy[u] += ty;
-        fz[u] += tz;
-        cx_sum += tx;
-        cy_sum += ty;
-        cz_sum += tz;
-        if constexpr (kEnergy) {
-          const float inv_e = p.approx != 0 ? lj_newton2(r2, seed) : inv;
-          const float i2e = p.sigma2 * inv_e;
-          const float i6e = i2e * i2e * i2e;
-          kahan_add(ea, ec, pair_ok ? i6e * i6e - i6e : 0.0f);
-        }
-      }
-      red[(rg * 3 + 0) * tm + t] = cx_sum;
-      red[(rg * 3 + 1) * tm + t] = cy_sum;
-      red[(rg * 3 + 2) * tm + t] = cz_sum;
+    mask |= static_cast<unsigned>(hit) << k;
+  }
+  while (mask != 0u) {
+    const int k = __ffs(mask) - 1;
+    mask &= mask - 1u;
+    float dx, dy, dz;
+    const float r2 = strip_delta(x, y, z, cols[k], b, dx, dy, dz);
+    const float r2s = r2 < p.r2_floor ? p.r2_floor : r2;  // keeps a NaN
+    const float inv = lj_recip(r2s, kApprox);
+    const float i2 = __fmul_rn(p.sigma2, inv);
+    const float i6 = __fmul_rn(i2, __fmul_rn(i2, i2));
+    const float i12 = __fmul_rn(i6, i6);
+    const float coef = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, i12), i6), inv);
+    fx = __fmaf_rn(coef, dx, fx);
+    fy = __fmaf_rn(coef, dy, fy);
+    fz = __fmaf_rn(coef, dz, fz);
+    if constexpr (kEnergy) {
+      if (r2 > 0.0f) kahan_add(e, ec, __fsub_rn(i12, i6));
     }
-    __syncthreads();
-    store_col_partials(
-        red, tm, p.R + (static_cast<size_t>(i) * p.n_chunks + j) * 3 * tm);
-  }
-  store_row_partials<RPT>(
-      red, tm, fx, fy, fz,
-      p.P + static_cast<size_t>(split) * 3 * p.n_pad + row0, p.n_pad);
-  if constexpr (kEnergy)
-    store_energy_partial(red, ea - ec, p.e_part + i * n_split + split);
-}
-
-// Subtract from f the column partials of every chunk that covers extended
-// column c, row tile by row tile in increasing order.
-__device__ __forceinline__ void sub_column(const Params& p, int c, float* f) {
-  const int tm = p.tm, ct = c / tm, t = c - ct * tm;
-  const int i0 = ct - p.n_chunks + 1 > 0 ? ct - p.n_chunks + 1 : 0;
-  const int i1 = ct < p.nr - 1 ? ct : p.nr - 1;
-  for (int i = i0; i <= i1; ++i) {
-    const float* Rj =
-        p.R + (static_cast<size_t>(i) * p.n_chunks + (ct - i)) * 3 * tm;
-    f[0] -= Rj[t];
-    f[1] -= Rj[tm + t];
-    f[2] -= Rj[2 * tm + t];
   }
 }
 
-__global__ void strip_gather(Params p, int n_split, int n_parts) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= p.n_pad) return;
-  float f[3];
-  sum_row_partials(p.P, n_split, p.n_pad, q, f);
-  sub_column(p, q, f);
-  if (q < p.H) sub_column(p, p.n_pad + q, f);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) p.F[a * p.n_pad + q] = p.coef_scale * f[a];
-  if (p.energy != nullptr && q == 0)
-    p.energy[0] = p.e_scale * sum_energy_partials(p.e_part, n_parts);
+// A warp's x range (as order keys) and whether every point is finite.
+__device__ __forceinline__ void warp_x_range(float x, float y, float z,
+                                             float& lo, float& hi,
+                                             bool& finite) {
+  finite = __all_sync(kFull, isfinite(x) && isfinite(y) && isfinite(z));
+  lo = band::key_value(__reduce_min_sync(kFull, band::order_key(x)));
+  hi = band::key_value(__reduce_max_sync(kFull, band::order_key(x)));
 }
 
-template <int RPT>
-cudaError_t launch_rows(const Params& p, int n_split, size_t smem,
-                        cudaStream_t s) {
-  const dim3 grid(p.nr, n_split);
-  return p.energy != nullptr
-             ? launch_pass(strip_rows<RPT, true>, grid, smem, s, p)
-             : launch_pass(strip_rows<RPT, false>, grid, smem, s, p);
+template <bool kApprox, bool kEnergy>
+__global__ void __launch_bounds__(kLanes * kWarps, 1)
+strip_pairs(Strip p) {
+  __shared__ float4 stage[kWarps][kChunk];
+  __shared__ float red[kWarps][4][kLanes];
+  const int lane = threadIdx.x, g = threadIdx.y;
+  const int n_pad = p.n_pad, H = p.H, n_ext = n_pad + H;
+  const int q = blockIdx.x * kLanes + lane;
+  const float* xe = p.xe;
+  const YZ b{p.box[1], p.box[2], __fdiv_rn(1.0f, p.box[1]),
+             __fdiv_rn(1.0f, p.box[2])};
+  // the lane's point, and its halo copy where it has one (q < H)
+  const float xq = xe[q], yq = xe[n_ext + q], zq = xe[2 * n_ext + q];
+  const float xh = q < H ? xe[n_pad + q] : xq;
+  const int ts = q - q % p.tm;
+  const int lo = ts - H, hi = ts + p.tm + H;  // the lane's ranks, q aside
+  // the warp's ranks in chunks aligned to multiples of 32: a chunk is all
+  // below 0 (rows n_pad + j against the halo copies) or all at or above
+  const int base = __shfl_sync(kFull, lo, 0) & ~(kChunk - 1);
+  const int n_chunks = (__shfl_sync(kFull, hi, kLanes - 1) - base +
+                        kChunk - 1) / kChunk;
+  float qlo, qhi, hlo, hhi;
+  bool q_fin, h_fin;
+  warp_x_range(xq, yq, zq, qlo, qhi, q_fin);
+  warp_x_range(xh, yq, zq, hlo, hhi, h_fin);
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f, e = 0.0f, ec = 0.0f;
+
+  // rank j's column: xe[j], or xe[n_pad + j] below 0; past the extended
+  // array (tm = 16 with H an odd number of tiles) a rank no lane takes
+  auto load = [&](int c0) {
+    int j = c0 + lane;
+    if (j < 0) j += n_pad;
+    if (j >= n_ext) j = 0;
+    return make_float4(xe[j], xe[n_ext + j], xe[2 * n_ext + j], 0.0f);
+  };
+  float4 next = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (g < n_chunks) next = load(base + g * kChunk);
+  for (int k = g; k < n_chunks; k += kWarps) {
+    const float4 mine = next;
+    const int c0 = base + k * kChunk;
+    if (k + kWarps < n_chunks) next = load(c0 + kWarps * kChunk);
+    const bool wrapped = c0 < 0;
+    const float x = wrapped ? xh : xq;
+    float clo, chi;
+    bool c_fin;
+    warp_x_range(mine.x, mine.y, mine.z, clo, chi, c_fin);
+    if (c_fin && (wrapped ? h_fin : q_fin) &&
+        band::x_apart(wrapped ? hlo : qlo, wrapped ? hhi : qhi, clo, chi,
+                      p.cutoff2))
+      continue;
+    __syncwarp();  // the previous chunk's columns have been read
+    stage[g][lane] = mine;
+    __syncwarp();
+    const bool inner = __all_sync(
+        kFull, lo <= c0 && c0 + kChunk <= hi && (q < c0 || q >= c0 + kChunk));
+    if (inner) {
+      strip_chunk<kApprox, kEnergy, false>(stage[g], c0, q, lo, hi, x, yq, zq,
+                                           b, p, fx, fy, fz, e, ec);
+    } else {
+      strip_chunk<kApprox, kEnergy, true>(stage[g], c0, q, lo, hi, x, yq, zq,
+                                          b, p, fx, fy, fz, e, ec);
+    }
+  }
+
+  // the warps' sums of each particle, added in warp order: warp a the
+  // component a, warp 3 the energy
+  red[g][0][lane] = fx;
+  red[g][1][lane] = fy;
+  red[g][2][lane] = fz;
+  red[g][3][lane] = e - ec;
+  __syncthreads();
+  if (g < 3) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w][g][lane]);
+    p.F[g * n_pad + q] = __fmul_rn(p.coef_scale, s);
+  } else if (kEnergy && g == 3) {
+    // each lane's energy over the warps, then the lanes in order
+    float acc = 0.0f, comp = 0.0f;
+    for (int w = 0; w < kWarps; ++w) kahan_add(acc, comp, red[w][3][lane]);
+    const float mine = acc - comp;
+    acc = comp = 0.0f;
+    for (int l = 0; l < kLanes; ++l)
+      kahan_add(acc, comp, __shfl_sync(kFull, mine, l));
+    if (lane == 0) p.e_part[blockIdx.x] = acc - comp;
+  }
+}
+
+template <bool kApprox, bool kEnergy>
+cudaError_t launch_pairs(const Strip& p, cudaStream_t s) {
+  strip_pairs<kApprox, kEnergy>
+      <<<p.n_pad / kLanes, dim3(kLanes, kWarps), 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -224,34 +299,35 @@ CHIRON_EXPORT int chiron_strip_baoab(float* xe, float* w, const float* F,
   return static_cast<int>(cudaGetLastError());
 }
 
-// xe: (3, n_pad + H) f32; box: (3,) f32; P: (n_split, 3, n_pad) f32;
-// R: (n_pad / tm * (tm + H) / tm, 3, tm) f32; e_part: (n_pad / tm *
-// n_split,) f32; F: (3, n_pad) f32; energy: (1,) f32 or null.  tm must be
-// 16, 32, 64 or 128 and divide n_pad and H.  approx sets the force's
-// reciprocal; the energy's is always exact.
-CHIRON_EXPORT int chiron_strip_force(
-    const float* xe, const float* box, float* P, float* R, float* e_part,
-    float* F, float* energy, int n_pad, int tm, int H, int n_split,
-    float sigma2, float cutoff2, float r2_floor, float big, float coef_scale,
-    float e_scale, int approx, void* stream) {
+// xe: (3, n_pad + H) f32; box: (3,) f32; F: (3, n_pad) f32; e_part:
+// (n_pad / 32,) f32 scratch and energy (1,) f32, or both null for the force
+// alone.  tm must be 16, 32, 64 or 128 and divide H and n_pad, and n_pad a
+// multiple of 32.  approx sets the force's reciprocal; with the energy both
+// take the exact one.  e_scale scales the energy sum (each pair counted
+// twice).
+CHIRON_EXPORT int chiron_strip_force(const float* xe, const float* box,
+                                     float* F, float* e_part, float* energy,
+                                     int n_pad, int tm, int H, float sigma2,
+                                     float cutoff2, float r2_floor,
+                                     float coef_scale, float e_scale,
+                                     int approx, void* stream) {
+  if ((tm != 16 && tm != 32 && tm != 64 && tm != 128) || H % tm ||
+      n_pad % tm || n_pad % kLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nr = n_pad / tm;
-  Params p{xe, box, P, R, e_part, F, energy, n_pad, tm, H, nr, (tm + H) / tm,
-           sigma2, cutoff2, r2_floor, big, coef_scale, e_scale, approx};
-  const int red_floats = kRG * 3 * tm;  // kRG == kCG: rows fit the same
-  const int floats = 3 * tm + (red_floats > kThreads ? red_floats : kThreads);
-  const size_t smem = static_cast<size_t>(floats) * sizeof(float);
+  const Strip p{xe,  box,    F,       e_part,   n_pad,     tm,
+                H,   sigma2, cutoff2, r2_floor, coef_scale};
   cudaError_t err;
-  switch (tm / kRG) {
-    case 1: err = launch_rows<1>(p, n_split, smem, s); break;
-    case 2: err = launch_rows<2>(p, n_split, smem, s); break;
-    case 4: err = launch_rows<4>(p, n_split, smem, s); break;
-    case 8: err = launch_rows<8>(p, n_split, smem, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (energy != nullptr) {
+    err = launch_pairs<false, true>(p, s);
+    if (err == cudaSuccess) {
+      partial_sum<kSumThreads><<<1, kSumThreads, 0, s>>>(
+          e_part, n_pad / kLanes, e_scale, energy);
+      err = cudaGetLastError();
+    }
+  } else {
+    err = approx ? launch_pairs<true, false>(p, s)
+                 : launch_pairs<false, false>(p, s);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kGather = 256;
-  strip_gather<<<(n_pad + kGather - 1) / kGather, kGather, 0, s>>>(
-      p, n_split, nr * n_split);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -33,8 +33,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libchiron_kernels.so"
-# the band and strip pair passes (csrc/common.cuh, pair_pass) split each row
-# tile's work over this many blocks
+# the band pair pass (csrc/common.cuh, pair_pass) splits each row tile's work
+# over this many blocks
 PASS_SPLIT = 4
 
 launches: collections.Counter = collections.Counter()
@@ -55,8 +55,7 @@ _SIGNATURES = {
     "chiron_strip_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _I, _I, _F, _F, _F, _F, _P),
     "chiron_strip_force": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _F, _I, _P),
+        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_row_slab_force": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_row_band_force": (

@@ -11,9 +11,11 @@ cutoff.
 Kernel K7 (``csrc/lj_strip.cu``) replaces ``strip_md_raw``,
 ``strip_force_raw`` and ``strip_force_energy_raw``: ``strip_baoab_`` is a
 step's BAOAB phase with the halo refresh, ``strip_force`` and
-``strip_force_energy`` the strip force pass with the halo fold.  On a CPU
-tensor each runs its plain version (``strip_baoab_plain``,
-``strip_force_plain``).
+``strip_force_energy`` the strip force pass with the halo fold, one launch
+in which each particle meets every pair it is in from its own end (its
+strip ahead as a row, the rows whose strips cover it as a column), so no
+column reactions are gathered.  On a CPU tensor each runs its plain version
+(``strip_baoab_plain``, ``strip_force_plain``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ from .lj_dense import _round_up
 
 _PAD_X = 1.0e18  # padding-slot sentinel: any pair with padding -> r2 ~ 1e36
 _BIG = 1.0e18    # additive r2 mask for col <= row slots and beyond the cutoff
+# the kernel's blocks (csrc/lj_strip.cu) own STRIP_ROWS particles each and
+# leave one energy partial each
+STRIP_ROWS = 32
 # the strip width tm + H is a whole number of these once it exceeds one
 # (lj_strip.py:64): part of the function, since H sets the pair set
 _SUBW = 2048
@@ -101,6 +106,19 @@ def strip_baoab_(xe, w, F, minv, sigv, box_diag, seed: int, step_offset,
     )
 
 
+def strip_slots(n_pad: int, tm: int, H: int, device="cpu"):
+    """The slots of the strip pass (``_strip_force_pass``): each row tile
+    i's rows ``rid`` (n_pad / tm, tm) and extended columns ``cid``
+    (n_pad / tm, tm + H), and the (tm, tm + H) mask ``tri`` of the leading
+    tile's col <= row slots, which take no pair."""
+    tiles = torch.arange(n_pad // tm, device=device)[:, None] * tm
+    rid = tiles + torch.arange(tm, device=device)
+    cid = tiles + torch.arange(tm + H, device=device)
+    tri = (torch.arange(tm + H, device=device)[None, :]
+           <= torch.arange(tm, device=device)[:, None])
+    return rid, cid, tri
+
+
 def strip_force_plain(xe, box_diag, n: int, tm: int, H: int, sigma: float,
                       epsilon: float, cutoff: float, with_energy: bool = False):
     """Plain version of the strip force pass and fold
@@ -118,13 +136,11 @@ def strip_force_plain(xe, box_diag, n: int, tm: int, H: int, sigma: float,
     dev = xe.device
     n_ext = xe.shape[1]
     n_pad = n_ext - H
-    nr = n_pad // tm
     sigma2 = sigma * sigma
     box = box_diag.reshape(3)
     Ly, Lz = box[1], box[2]
     iLy, iLz = 1.0 / Ly, 1.0 / Lz
-    rid = (torch.arange(nr, device=dev) * tm)[:, None] + torch.arange(tm, device=dev)
-    cid = (torch.arange(nr, device=dev) * tm)[:, None] + torch.arange(tm + H, device=dev)
+    rid, cid, tri = strip_slots(n_pad, tm, H, dev)
     xi = xe[:, rid][..., None]        # (3, nr, tm, 1)
     xj = xe[:, cid][:, :, None, :]    # (3, nr, 1, tm + H)
     dx = xi[0] - xj[0]
@@ -133,7 +149,6 @@ def strip_force_plain(xe, box_diag, n: int, tm: int, H: int, sigma: float,
     dz = xi[2] - xj[2]
     dz = dz - Lz * torch.floor(dz * iLz + 0.5)
     r2 = dx * dx + dy * dy + dz * dz
-    tri = torch.arange(tm + H, device=dev)[None, :] <= torch.arange(tm, device=dev)[:, None]
     r2 = r2 + torch.where(tri, _BIG, 0.0)
     r2 = r2 + torch.where(r2 < cutoff * cutoff, 0.0, _BIG)
     pair_ok = r2 > 0.0
@@ -169,25 +184,26 @@ def _strip_launch(kernel: str, xe, box_diag, n: int, tm: int, H: int,
     _build.require(xe, "xe", (3, n_ext), torch.float32)
     _build.require(box_diag, "box_diag", None, torch.float32, dev)
     if (tm not in (16, 32, 64, 128) or H <= 0 or H % tm or n_pad % tm
-            or n_pad < 2 * (tm + H) or box_diag.numel() != 3):
+            or n_pad % STRIP_ROWS or n_pad < 2 * (tm + H)
+            or box_diag.numel() != 3):
         raise ValueError(
             f"strip kernel takes tm in (16, 32, 64, 128) dividing n_pad and "
-            f"H, n_pad >= 2 (tm + H) and 3 box lengths (got tm={tm}, H={H}, "
-            f"n_pad={n_pad})"
+            f"H, n_pad a multiple of {STRIP_ROWS} and >= 2 (tm + H), and 3 "
+            f"box lengths (got tm={tm}, H={H}, n_pad={n_pad})"
         )
-    nr = n_pad // tm
-    n_chunks = (tm + H) // tm
-    F, P, R, e_part, energy = _build.pass_buffers(
-        n_pad, nr, nr * n_chunks, tm, with_energy, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    F = torch.empty((3, n_pad), **f32)
+    e_part = torch.empty(n_pad // STRIP_ROWS, **f32) if with_energy else None
+    energy = torch.empty(1, **f32) if with_energy else None
     sigma2 = sigma * sigma
     _build.launch(
         kernel, "chiron_strip_force",
-        xe.data_ptr(), box_diag.data_ptr(), P.data_ptr(), R.data_ptr(),
-        e_part.data_ptr(), F.data_ptr(),
+        xe.data_ptr(), box_diag.data_ptr(), F.data_ptr(),
+        None if e_part is None else e_part.data_ptr(),
         None if energy is None else energy.data_ptr(),
-        n_pad, tm, H, _build.PASS_SPLIT, sigma2, cutoff * cutoff, 1e-4 * sigma2,
-        _BIG, 24.0 * epsilon, 4.0 * epsilon, int(approx_recip),
-        _build.stream_of(xe),
+        n_pad, tm, H, sigma2, cutoff * cutoff, 1e-4 * sigma2, 24.0 * epsilon,
+        # each pair is met from both ends
+        0.5 * 4.0 * epsilon, int(approx_recip), _build.stream_of(xe),
     )
     return F, (energy[0] if with_energy else None)
 

@@ -4,12 +4,14 @@
 Each process of the mesh (``parallel.mesh``) owns the contiguous slab of
 ``rows_per_dev`` rows ``[rank * rows_per_dev, (rank + 1) * rows_per_dev)``
 of the (3, n_pad) lane layout and computes the forces of its rows only, on
-the kernels of K8 (``csrc/spatial.cu``):
+the kernels of K8:
 
 * ``row_slab_force`` (K8a, replacing ``_make_row_slab_force``): the slab
-  against every column, with the slab's pair energy when asked;
-* ``row_band_force`` (K8b, replacing ``_make_row_band_force``): the slab of
-  the x-sorted layout against the cyclic rank band, both directions.
+  against every column, with the slab's pair energy when asked, on K1's
+  kernel (``csrc/lj_dense.cu``) taking the slab's rows;
+* ``row_band_force`` (K8b, replacing ``_make_row_band_force``,
+  ``csrc/spatial.cu``): the slab of the x-sorted layout against the cyclic
+  rank band, both directions.
 
 Each has its plain PyTorch version here, which a wrapper runs for a CPU
 tensor.  The energies of the runners come from K2, ``LJDense(triangle=
@@ -79,8 +81,9 @@ def row_slab_force(rows3, pos3, box_diag, off: int, n: int, sigma: float,
     """K8a: the LJ force on the (3, rows) slab ``rows3`` (global rows
     ``off ..``) from every column of ``pos3`` (3, n_pad), with the exact
     reciprocal; with ``with_energy`` also the () slab energy, not halved.
-    Launches ``csrc/spatial.cu`` on CUDA tensors (counted as
-    ``row_slab_force`` or ``row_slab_force_energy``); runs
+    Launches K1's kernel (``csrc/lj_dense.cu``) on the slab's rows for CUDA
+    tensors (counted as ``row_slab_force`` or ``row_slab_force_energy``):
+    one slab of every row has K2's bits, and half its energy is K2's.  Runs
     ``row_slab_force_plain`` on CPU tensors."""
     if rows3.device.type == "cpu":
         return row_slab_force_plain(rows3, pos3, box_diag, off, n, sigma,

@@ -917,3 +917,141 @@ def test_row_band_kernel_nan_keeps_the_rows_of_every_slot(cuda):
     assert torch.equal(torch.nan_to_num(F1), torch.nan_to_num(F0))
     assert bool(nan1[1, 2345]) and not bool((nan1 & ~torch.isnan(Fp)).any())
     assert 0 < int(nan1[1].sum()) < n_pad
+
+
+def test_row_slab_kernel_is_k2_bitwise(spatial_state):
+    """K8a runs K1's kernel on a slab of rows: one slab of every row equals
+    K2 (the same kernel on the same rows) bit for bit, force only and with
+    the energy, whose half equals K2's energy; 4 slabs equal 1; no host
+    sync; a NaN y coordinate reaches the rows and components K2's reaches,
+    and the rest keeps K2's bits."""
+    from chiron_tpu_torch.parallel import spatial as sp
+
+    runner, st, kw = spatial_state
+    pot, n, n_pad = kw["potential"], runner.n, runner.n_pad
+    args = (n, pot.sigma, pot.epsilon, pot.cutoff)
+    r = n_pad // 4
+    nan = st.x.clone()
+    nan[1, 4321] = float("nan")
+    for x in (st.x, nan):
+        box = st.box_diag
+        _build.reset_launch_counts()
+        with _NoSync():
+            Ff, _ = sp.row_slab_force(x, x, box, 0, *args)
+            F1, E1 = sp.row_slab_force(x, x, box, 0, *args, with_energy=True)
+            slabs = [sp.row_slab_force(x[:, k * r:(k + 1) * r].contiguous(),
+                                       x, box, k * r, *args)[0]
+                     for k in range(4)]
+            F2f = runner.op.force_only_t(x, box, approx_recip=False)
+            F2, E2 = runner.op.force_energy_t(x, box)
+        assert dict(_build.launches) == {"row_slab_force": 5,
+                                         "row_slab_force_energy": 1,
+                                         "lj_dense_square": 2}
+        for a, b in ((Ff, F2f), (F1, F2), (torch.cat(slabs, dim=1), Ff)):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+        if x is nan:
+            assert bool(torch.isnan(Ff[1, :n]).all())
+            assert not bool(torch.isnan(Ff[0]).any())
+        else:
+            assert torch.equal(0.5 * E1, E2)
+
+
+def _strip_layout(cuda, n, tm, narrow, seed=1):
+    """A jittered bench-density fluid of n particles in the strip layout:
+    x-sorted with the padding at the sentinel, extended by a halo that
+    covers the band the cutoff needs (the padding gap included), rounded up
+    to tm, or with ``narrow`` one strip-runner tile (128 ranks) less than
+    that band, rounded down to 128, so that the rows next to the wrap lose
+    partners within the cutoff.  Returns (xe, box, H, the potential, the
+    covering halo's xe and H)."""
+    from chiron_tpu_torch.ops import lj_band as lb
+    from chiron_tpu_torch.ops import lj_strip as ls
+
+    fluid, pos, box = _jittered_fluid(n, seed)
+    pot = fluid.potential
+    n_pad = -(-n // 128) * 128
+    x3 = torch.full((3, n_pad), ls._PAD_X, device=cuda)
+    x3[:, :n] = torch.from_numpy(pos.T).to(cuda)
+    box_diag = torch.from_numpy(np.diagonal(box).copy()).reshape(1, 3).to(cuda)
+    xs = ls.sort_by_key_strip(x3, ())[0]
+    valid = torch.arange(n_pad, device=cuda) < n
+    W = int(lb.band_width_needed(torch.where(valid, xs[0], 3.0e38), n,
+                                 pot.cutoff, box_diag[0, 0]))
+    full = -(-(W + n_pad - n) // tm) * tm
+
+    def extend(h):
+        halo = xs[:, :h].clone()
+        halo[0] = halo[0] + box_diag[0, 0]
+        return torch.cat([xs, halo], dim=1)
+
+    H = ((W + n_pad - n) // 128 - 1) * 128 if narrow else full
+    return extend(H), box_diag, H, pot, extend(full), full
+
+
+@pytest.mark.parametrize("tm", [16, 32, 64, 128])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_strip_kernel_at_each_tile_matches_plain_and_repeats(cuda, tm,
+                                                             narrow):
+    """K7 at N=4000 against ``strip_force_plain`` at every row tile, with a
+    halo covering the band and a tile narrower: exact force max abs 0.05
+    and p99 1e-5 relative, approximate within 1e-4, energy 1e-5, zero
+    padding rows, a repeated call bitwise equal, one counted launch a call,
+    no host sync.  The narrow strip misses pairs within the cutoff (one
+    such pair moves a force by 0.03-0.08), and the kernel must miss the
+    same ones: its change from the covering halo equals the plain
+    version's within 0.02."""
+    from chiron_tpu_torch.ops import lj_strip as ls
+
+    n = 4000
+    xe, box, H, pot, xe_full, full = _strip_layout(cuda, n, tm, narrow)
+    args = (xe, box, n, tm, H, pot.sigma, pot.epsilon, pot.cutoff)
+    _build.reset_launch_counts()
+    with _NoSync():
+        Fk, Ek = ls.strip_force_energy(*args)
+        Fa = ls.strip_force(*args, approx_recip=True)
+        Fe = ls.strip_force(*args, approx_recip=False)
+        again = ls.strip_force_energy(*args)
+        Fa2 = ls.strip_force(*args, approx_recip=True)
+    assert dict(_build.launches) == {"strip_force_energy": 2,
+                                     "strip_force": 3}
+    Fp, Ep = ls.strip_force_plain(*args, with_energy=True)
+    scale = float(Fp.abs().max())
+    err = (Fk - Fp)[:, :n].abs()
+    assert float(err.max()) < 0.05
+    assert float(torch.quantile(err.flatten(), 0.99)) / scale < 1e-5
+    assert float((Fa - Fk).abs().max()) / scale < 1e-4
+    assert float(Fk[:, n:].abs().max()) == 0.0
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    for a, b in ((again[0], Fk), (again[1], Ek), (Fa2, Fa), (Fe, Fk)):
+        assert torch.equal(a, b)
+    if narrow:
+        full_args = (xe_full, box, n, tm, full, pot.sigma, pot.epsilon,
+                     pot.cutoff)
+        Fpf, _ = ls.strip_force_plain(*full_args)
+        Fkf = ls.strip_force(*full_args, approx_recip=False)
+        assert float((Fp - Fpf).abs().max()) > 0.02
+        assert float(((Fk - Fkf) - (Fp - Fpf)).abs().max()) < 0.02
+
+
+def test_strip_kernel_nan_reaches_the_entries_of_plain(cuda):
+    """A NaN y coordinate (one at a rank with a halo copy, one past it)
+    reaches, through the LJ term a NaN distance takes, the same force
+    entries as in the plain version (every component of both ends of each
+    slot), and the energy skips those slots as the plain version's does."""
+    from chiron_tpu_torch.ops import lj_strip as ls
+
+    n, tm = 4000, 128
+    xe, box, H, pot, _, _ = _strip_layout(cuda, n, tm, False)
+    n_pad = xe.shape[1] - H
+    for rank in (5, 2345):
+        x = xe.clone()
+        x[1, rank] = float("nan")
+        if rank < H:
+            x[1, n_pad + rank] = float("nan")
+        args = (x, box, n, tm, H, pot.sigma, pot.epsilon, pot.cutoff)
+        Fk, Ek = ls.strip_force_energy(*args)
+        Fp, Ep = ls.strip_force_plain(*args, with_energy=True)
+        assert torch.equal(torch.isnan(Fk), torch.isnan(Fp))
+        assert 0 < int(torch.isnan(Fk[0]).sum()) < n
+        assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5

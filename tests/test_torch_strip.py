@@ -1,7 +1,8 @@
 """The halo-strip engine (K7) and its runner on the CPU against the JAX
 package in interpret mode: the jittered-lattice system of
 tests/test_lj_strip.py (N=1000, L=5 nm, TM=8), and the strip runner on
-LennardJonesFluid(1000, 0.3)."""
+LennardJonesFluid(1000, 0.3); and chip_smoke.py's replica of the CUDA
+kernel's candidate ranks against the plain pass's slots."""
 
 import dataclasses
 
@@ -319,3 +320,167 @@ def test_strip_runner_check_raises_on_latched_carries(runners):
         trt.make_strip_lj_runner(potential=fluid.potential,
                                  n_particles=N + 1, topology=fluid.topology,
                                  device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# K7's candidate sets (csrc/lj_strip.cu): each particle meets every pair it
+# is in from its own side
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repo root's script) as a module: its replicas of
+    the kernels' index math."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _slot(q, j, n_pad):
+    """The (row, extended column) slot of the strip pass that lane q's rank
+    j stands for in K7: ahead (j > q) the slot (q, j); behind, (j, q), and
+    below rank 0 the row n_pad + j against q's halo copy n_pad + q."""
+    ahead, wrapped = j > q, j < 0
+    row = torch.where(ahead, q, torch.where(wrapped, j + n_pad, j))
+    col = torch.where(ahead, j, torch.where(wrapped, q + n_pad, q))
+    return row, col
+
+
+def _halos(s, tm):
+    """(H covering the band the cutoff needs on the fixture's state, the
+    padding gap included, rounded up to tm; and 64 ranks narrower, which
+    misses pairs of this state)."""
+    tmd = s["tmd"]
+    valid = torch.arange(tmd.n_pad) < N
+    W = int(tb.band_width_needed(torch.where(valid, s["tx3s"][0], 3.0e38), N,
+                                 CUTOFF, L))
+    full = -(-(W + tmd.n_pad - N) // tm) * tm
+    return full, full - 64
+
+
+def _extend(x3s, H):
+    halo = x3s[:, :H].clone()
+    halo[0] = halo[0] + L
+    return torch.cat([x3s, halo], dim=1)
+
+
+@pytest.mark.parametrize("tm", [16, 32])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_kernel_candidates_take_each_plain_pair_from_both_ends(strip, tm,
+                                                               narrow):
+    """The replica of K7's chunks and rank tests gives, over all particles,
+    every slot of ``strip_force_plain``'s pass (row tile against its
+    extended columns, the leading triangle out, the halo folded) exactly
+    twice: once from the row's end and once from the column's, and nothing
+    else; with the halo covering the band and narrower."""
+    cs = _chip_smoke()
+    n_pad = strip["tmd"].n_pad
+    H = _halos(strip, tm)[int(narrow)]
+    n_ext = n_pad + H
+    q, j, take = cs._strip_candidates(n_pad, tm, H)
+    q, j = q[take], j[take]
+    row, col = _slot(q, j, n_pad)
+    rid, cid, tri = ts_.strip_slots(n_pad, tm, H)
+    want = (rid[:, :, None] * n_ext + cid[:, None, :])[:, ~tri]
+    want = torch.sort(want.reshape(-1)).values
+    got = row * n_ext + col
+    keys, counts = torch.unique(got, return_counts=True)
+    assert torch.equal(keys, want) and bool((counts == 2).all())
+    at_row, at_col = q == row, q == col % n_pad
+    assert bool((at_row ^ at_col).all())
+    for end in (at_row, at_col):
+        assert torch.equal(torch.sort(got[end]).values, want)
+    # the wrapped ranks stand for rows below n_pad against halo columns
+    assert bool((col[j < 0] >= n_pad).all()) and bool((row < n_pad).all())
+
+
+@pytest.mark.parametrize("tm", [16, 32])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_kernel_candidate_sums_equal_the_plain_pass(strip, tm, narrow):
+    """Each particle's sum over the replica's candidates, the lane's point
+    (its halo copy below rank 0) minus the column, a term where r^2 is below
+    the cutoff, equals ``strip_force_plain`` (f64, 1e-9 of the largest
+    force), and half the energy sum its energy.  With the halo narrower
+    than the band the strip misses pairs: the plain force moves, and the
+    sums miss the same pairs."""
+    cs = _chip_smoke()
+    n_pad = strip["tmd"].n_pad
+    full, H = _halos(strip, tm)
+    if not narrow:
+        H = full
+    xe = _extend(strip["tx3s"], H).double()
+    box = torch.full((1, 3), L, dtype=torch.float64)
+    q, j, take = cs._strip_candidates(n_pad, tm, H)
+    q, j = q[take], j[take]
+    point = xe[:, torch.where(j < 0, q + n_pad, q)]
+    d = point - xe[:, torch.where(j < 0, j + n_pad, j)]
+    d[1:] = d[1:] - L * torch.floor(d[1:] / L + 0.5)
+    r2 = (d * d).sum(0)
+    hit = r2 < CUTOFF * CUTOFF
+    sigma2 = SIGMA * SIGMA
+    inv = 1.0 / torch.clamp_min(r2, 1e-4 * sigma2)
+    i6 = (sigma2 * inv) ** 3
+    coef = torch.where(hit, (2.0 * i6 * i6 - i6) * inv, 0.0)
+    F = torch.zeros((3, n_pad), dtype=torch.float64)
+    F.index_add_(1, q, coef * d)
+    F = 24.0 * EPS * F
+    E = 0.5 * 4.0 * EPS * torch.where(hit & (r2 > 0), i6 * i6 - i6, 0.0).sum()
+    Fp, Ep = ts_.strip_force_plain(xe, box, N, tm, H, SIGMA, EPS, CUTOFF,
+                                   with_energy=True)
+    scale = float(Fp.abs().max())
+    assert float((F - Fp).abs().max()) / scale < 1e-9
+    assert abs(float(E) - float(Ep)) / abs(float(Ep)) < 1e-9
+    if narrow:
+        Ff, _ = ts_.strip_force_plain(_extend(strip["tx3s"], full).double(),
+                                      box, N, tm, full, SIGMA, EPS, CUTOFF)
+        assert float((Fp - Ff).abs().max()) / scale > 1e-3
+
+
+def test_strip_visit_replica_matches_a_direct_count(strip):
+    """chip_smoke.py's replica of K7's choices against a loop over blocks
+    and chunks as the kernel takes them: the chunks skipped by x, and in the
+    others the LJ loop's trips and terms."""
+    cs = _chip_smoke()
+    tm = 32
+    n_pad = strip["tmd"].n_pad
+    H = _halos(strip, tm)[0]
+    xe = _extend(strip["tx3s"], H)
+    chunks, skipped, trips, terms = cs._strip_visits(
+        xe, torch.full((1, 3), L), tm, H, CUTOFF)
+    xs = xe.numpy().astype(np.float32)
+    c2 = np.float32(CUTOFF * CUTOFF)
+    want = [0, 0, 0, 0]
+    for b in range(n_pad // 32):
+        q = np.arange(32 * b, 32 * b + 32)
+        ts = q - q % tm
+        lo, hi = ts - H, ts + tm + H
+        base = lo[0] - lo[0] % 32
+        for c0 in range(base, hi[-1], 32):
+            want[0] += 1
+            j = np.arange(c0, c0 + 32)
+            cols = xs[:, np.where(j < 0, j + n_pad, j)]
+            pts = xs[:, q].copy()
+            if c0 < 0:
+                pts[0] = np.where(q < H, xs[0, np.minimum(q + n_pad,
+                                                          n_pad + H - 1)],
+                                  pts[0])
+            up = np.float32(pts[0].max() - cols[0].min())
+            down = np.float32(pts[0].min() - cols[0].max())
+            if (up < 0 and up * up >= c2) or (down > 0 and down * down >= c2):
+                want[1] += 1
+                continue
+            d = pts[:, :, None] - cols[:, None, :]
+            d[1:] = d[1:] - L * np.floor(d[1:] / np.float32(L) + 0.5)
+            r2 = (d * d).sum(0)
+            ok = ((j[None, :] >= lo[:, None]) & (j[None, :] < hi[:, None])
+                  & (j[None, :] != q[:, None]))
+            hit = ~(r2 >= c2) & ok
+            want[2] += int(hit.sum(1).max())
+            want[3] += int(hit.sum())
+    assert (chunks, skipped, trips, terms) == tuple(want)
+    assert 0 < skipped < chunks and terms > 0

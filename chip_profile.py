@@ -18,7 +18,8 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    each dense one, after a warm-up of the same length: wall per step
    (profiler on), device busy per step (the union of the kernel, memcpy and
    memset intervals), the device's idle share, and the top device rows with
-   their time per launch;
+   their time per launch; then of 10 calls of K3's segment alone (S=40, one
+   C call each, with the latch) on the culled state;
 4. the band runner (``make_lj_runner(engine="auto")`` at N=100,000, melted
    from the lattice by 2000 band steps) and the culled runner (S=50, slack
    0.2, as ``benchmarks/large_n.py`` tunes it above 16k), both started from
@@ -30,8 +31,9 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    states required equal; then profiler rows of 50 band and 100 culled steps;
    the strip runner at N=4000 from the culled NVT state: three 3000-step
    windows, then 400 profiled steps (its force pass is one kernel,
-   ``strip_pairs``); and 100 calls of the strip force with the energy (K7's
-   energy instantiation and its sum) on the runner's last layout;
+   ``strip_pairs``); 100 calls of the strip force with the energy (K7's
+   energy instantiation and its sum) on the runner's last layout; and 100
+   calls of the drift latch on the N=100,000 culled state;
 5. the spatial runners on a mesh of this process alone, from the same
    melted N=100,000 state: windows of the banded one (500 steps, S=25) and
    the dense one (100 steps) in the order band, dense, dense, band,
@@ -45,6 +47,27 @@ S=50 and slack 0.2, and the dense NpT runner) and prints:
    megakernel, fused and back, then profiler rows of 400 steps of each, and
    the count and entries per row tile of each culled path's last list.
 
+Then, where the strip runner latched, it replays the strip runner from its
+first state segment by segment (the run is bitwise repeatable) and says
+which of its checks fired first: the band width W + (n_pad - n) against the
+halo H at a segment's head, or the top-2 joint drift from the sort against
+the slack at its end.
+
+    python3 chip_profile.py --strip-latch DIR
+
+runs that replay alone on the state the profile's strip runner starts from
+(the dense melt, 400 culled steps, then the strip runner's ``init``) over
+as many segments as the profile runs, prints each segment's numbers and
+writes them, with that first state, to ``DIR/strip_latch.npz``
+(``scripts/strip_latch_reference.py`` replays the JAX package's strip
+runner from it on the CPU).
+
+    python3 chip_profile.py --segment-dump OUT [REF]
+
+writes K3's segments (NVT, exact reciprocal, NpT) and a megakernel segment
+from one state to ``OUT`` and, given another tree's ``REF``, compares them
+bit for bit (``segment_dump``); it runs in the parent tree too.
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -57,6 +80,7 @@ from dataclasses import replace
 
 N = 4000
 SEED = 1234
+MELT_STEPS = 1000
 WINDOWS = 3
 WINDOW_STEPS = {"culled": 3000, "dense": 1000, "culled_npt": 3000,
                 "dense_npt": 1000}
@@ -76,6 +100,13 @@ FUSED_CALL = 100
 ONE_SHOT_CALLS = 3
 STRIP_ENERGY_CALLS = 100
 STRIP_WINDOW_STEPS = 3000
+SEGMENT_STEPS = 40
+SEGMENT_CALLS = 10
+LATCH_CALLS = 100
+# the strip segments the profile runs: three windows, then the profiler's
+# warm-up and recorded calls
+STRIP_SEGMENTS = (WINDOWS * STRIP_WINDOW_STEPS
+                  + 2 * BIG_PROFILE_STEPS["strip"]) // 50
 
 
 def _card():
@@ -156,6 +187,152 @@ def _host_checked(band):
     return hc
 
 
+def strip_replay(strip, start, n_segments, steps, dump=None):
+    """Replay ``strip`` from ``start`` one segment at a time, with the
+    segment head's band width and the end's top-2 drift beside the latch;
+    print the first latching segment and a summary, and with ``dump`` write
+    every segment's numbers and ``start`` to ``dump/strip_latch.npz``.
+    Returns the first latching segment or None."""
+    import numpy as np
+    import torch
+
+    from chiron_tpu_torch.ops.lj_cull import (
+        live_nonfinite,
+        skin_drift_top2_plain,
+        tile_skin_drift_bad,
+    )
+    from chiron_tpu_torch.ops.lj_strip import _PAD_X, sort_by_key_strip
+
+    md = strip.md
+    n, n_pad, H = md.n, md.n_pad, md.H
+    s, first, rows = start, None, []
+    for k in range(n_segments):
+        center = s.x[:, :n_pad]
+        nonfinite = bool(live_nonfinite(center, n))
+        x3s, _ = sort_by_key_strip(torch.where(strip.valid, center, _PAD_X),
+                                   ())
+        width = int(strip._width(x3s, s.box_diag[0, 0])) + (n_pad - n)
+        s1 = strip.segment(s, steps)
+        x_end = s1.x[:, :n_pad].contiguous()
+        top2 = float(skin_drift_top2_plain(x_end, x3s, n, s.box_diag))
+        kernel = bool(tile_skin_drift_bad(x_end, x3s, n, md.slack_t,
+                                          s.box_diag))
+        latched = bool(s1.overflowed) and not bool(s.overflowed)
+        rows.append((k, width, top2, kernel, nonfinite, latched))
+        if latched and first is None:
+            first = k
+            print(f"strip replay: segment {k} (steps {k * steps}-"
+                  f"{(k + 1) * steps}) latched first: band width "
+                  f"W + (n_pad - n) = {width} against H = {H} "
+                  f"({'fired' if width > H else 'held'}), top-2 drift "
+                  f"{top2:.6f} nm against the slack {md.slack} "
+                  f"({'fired' if top2 > md.slack else 'held'}; the latch "
+                  f"kernel says {kernel}), non-finite {nonfinite}")
+        s = s1
+    w = np.array([r[1] for r in rows])
+    t = np.array([r[2] for r in rows])
+    print(f"strip replay: {n_segments} segments of {steps} steps, H = {H}: "
+          f"band width {w.min()}-{w.max()} (over H in "
+          f"{int((w > H).sum())}), top-2 drift {t.min():.6f}-{t.max():.6f} "
+          f"nm (over the slack in {int((t > md.slack).sum())}), the latch "
+          f"kernel set in {sum(r[3] for r in rows)}, first latch "
+          f"{first}")
+    print("strip replay rows (segment, W + pad, top-2 drift): "
+          + " ".join(f"{k}:{wk}:{tk:.4f}"
+                     for k, wk, tk, *_ in rows[::max(1, n_segments // 28)]))
+    if dump is not None:
+        os.makedirs(dump, exist_ok=True)
+        np.savez(os.path.join(dump, "strip_latch.npz"),
+                 x=start.x.cpu().numpy(), v=start.v.cpu().numpy(),
+                 F=start.F.cpu().numpy(),
+                 step=start.step.cpu().numpy(),
+                 box_diag=start.box_diag.cpu().numpy(), H=H, seed=strip.seed,
+                 n=n, tm=md.tm, slack=md.slack, steps=steps, width=w, top2=t,
+                 kernel=np.array([r[3] for r in rows]),
+                 latched=np.array([r[5] for r in rows]))
+    return first
+
+
+def segment_dump(common, box, pos0, out, ref=None):
+    """K3's and K11's segments from one state, written to ``out`` (npz):
+    from the dense melt (K1 only) the culled runner's ``init`` (sort, list,
+    K4) and, on its list, 40-step segments in NVT (with the latch), with
+    the exact reciprocal, and in NpT (anchor, budget 0.1, final energy),
+    and a megakernel segment (pure x, P=16).  It makes only calls that
+    older trees of the port have too, so that it runs in a parent tree;
+    with ``ref``, an npz of another tree, each array is compared bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from chiron_tpu_torch.ops import lj_mega
+    from chiron_tpu_torch.runtime import (
+        make_culled_lj_runner,
+        make_fast_lj_runner,
+    )
+
+    fast = make_fast_lj_runner(**common)
+    dense = fast.run(fast.init(pos0, box, seed=SEED), MELT_STEPS)
+    arrays = {}
+    for sort_mode in ("auto", "x"):
+        runner = make_culled_lj_runner(slack=0.15, segment_steps=40,
+                                       sort_mode=sort_mode, **common)
+        c = runner.init(fast.positions(dense), box, seed=SEED)
+        md = runner.md
+        if sort_mode == "x":
+            w = c.v - 0.5 * md.dt * c.F * md.minv
+            out_m = lj_mega.mega_segment(md, c.x, w, c.F, c.box_diag,
+                                         runner.capacity, SEED, c.step + 7,
+                                         40, 16)
+            arrays.update({f"mega_{k}": t for k, t in
+                           zip(("x", "w", "F", "flag"), out_m)})
+            continue
+        modes = {"nvt": dict(drift_slack=md.slack_t),
+                 "exact": dict(approx_recip=False, drift_slack=md.slack_t),
+                 "npt": dict(final_energy=True, drift_anchor=c.x * 1.0001,
+                             drift_budget=torch.tensor(0.1, device=c.x.device))}
+        for mode, kw in modes.items():
+            got = md.run_segment(c.x, c.v, c.F, c.box_diag, c.pairs, SEED,
+                                 c.step + 7, 40, **kw)
+            names = ("x", "v", "F", "flag", "energy")[:len(got)]
+            arrays.update({f"{mode}_{k}": t for k, t in zip(names, got)})
+    arrays = {k: t.cpu().numpy() for k, t in arrays.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez(out, **arrays)
+    print(f"segment dump: {len(arrays)} arrays to {out}; flags "
+          f"{[bool(v) for k, v in arrays.items() if k.endswith('flag')]}")
+    if ref is None:
+        return
+    other = np.load(ref)
+    same = {k: bool(np.array_equal(np.atleast_1d(v).view(np.uint8),
+                                   np.atleast_1d(other[k]).view(np.uint8)))
+            for k, v in arrays.items()}
+    print(f"segment dump against {ref}: "
+          f"{'every array bit for bit equal' if all(same.values()) else same}")
+    for k, v in arrays.items():
+        if not same[k] and v.dtype == np.float32:
+            print(f"  {k}: max abs difference "
+                  f"{float(np.abs(v - other[k]).max())!r}")
+
+
+def _strip_start(common, box, pos0):
+    """The profile's strip runner and its first state: the dense melt, 400
+    culled steps, then ``init`` on those positions."""
+    from chiron_tpu_torch.runtime import (
+        make_culled_lj_runner,
+        make_fast_lj_runner,
+        make_lj_runner,
+    )
+
+    fast = make_fast_lj_runner(**common)
+    dense = fast.run(fast.init(pos0, box, seed=SEED), MELT_STEPS)
+    runner = make_culled_lj_runner(slack=0.15, segment_steps=40, **common)
+    culled = runner.run(runner.init(fast.positions(dense), box, seed=SEED),
+                        400)
+    strip = make_lj_runner(engine="strip", box_vectors=box, **common)
+    return strip, strip.init(runner.positions(culled), box, seed=SEED)
+
+
 def main():
     import torch
 
@@ -193,8 +370,20 @@ def main():
     common = dict(potential=fluid.potential, n_particles=N,
                   topology=fluid.topology, temperature=120.0 * units.kelvin,
                   timestep=2.0 * units.femtoseconds, device=dev)
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--segment-dump":
+        segment_dump(common, box, pos0, *sys.argv[2:])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--strip-latch":
+        strip, start = _strip_start(common, box, pos0)
+        print(f"strip runner: H = {strip.md.H}, slack {strip.md.slack}, "
+              f"S = {strip.segment_steps}")
+        strip_replay(strip, start, STRIP_SEGMENTS, strip.segment_steps,
+                     dump=sys.argv[2])
+        print(f"card after: {_card()}")
+        return 0
     fast = make_fast_lj_runner(**common)
-    state = {"dense": fast.run(fast.init(pos0, box, seed=SEED), 1000)}
+    state = {"dense": fast.run(fast.init(pos0, box, seed=SEED),
+                                MELT_STEPS)}
     runner = make_culled_lj_runner(slack=0.15, segment_steps=40, **common)
     state["culled"] = runner.run(
         runner.init(fast.positions(state["dense"]), box, seed=SEED), 400)
@@ -234,6 +423,22 @@ def main():
 
     for label, steps in PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
+    # K3's segment alone, as the runner calls it: one C call of 40 steps
+    # with the latch, 10 times from the culled state on its list
+    from chiron_tpu_torch.ops.lj_cull import (
+        LatchScratch,
+        SegmentWorkspace,
+        tile_skin_drift_bad,
+    )
+
+    c, md = state["culled"], runner.md
+    work = SegmentWorkspace(md, runner.capacity)
+    _profile("culled_md segments (S=40, one C call each)",
+             lambda: [md.run_segment(c.x, c.v, c.F, c.box_diag, c.pairs, SEED,
+                                     c.step, SEGMENT_STEPS,
+                                     drift_slack=md.slack_t, workspace=work)
+                      for _ in range(SEGMENT_CALLS)],
+             SEGMENT_CALLS * SEGMENT_STEPS)
 
     # the last three kernels' paths from the culled NVT state
     start = runner.positions(state["culled"])
@@ -282,7 +487,7 @@ def main():
     # in its workspace): how many entries, and how they spread over the row
     # tiles
     for path in ("culled", *extra):
-        pairs = (extra[path]._workspace.pairs if path == "megakernel"
+        pairs = (extra[path]._segment_ws.pairs if path == "megakernel"
                  else state[path].pairs)
         ptr2 = pairs.ptr2[0].cpu()
         seg = ptr2[2::2] - ptr2[0:-1:2]
@@ -319,6 +524,14 @@ def main():
               f"{sec:.6f} s, {BIG_WINDOW_STEPS / sec:.1f} steps/s")
     band.check(state["band"])
     culled_big.check(state["culled_100k"])
+    # the drift latch at N=100,000 (several blocks and a ticket)
+    cb = state["culled_100k"]
+    scratch = LatchScratch(culled_big.md.n_pad, dev)
+    _profile(f"latch (N={N_BAND}, {LATCH_CALLS} calls)",
+             lambda: [tile_skin_drift_bad(cb.x, cb.x_anchor, N_BAND,
+                                          culled_big.md.slack_t, cb.box_diag,
+                                          scratch)
+                      for _ in range(LATCH_CALLS)], LATCH_CALLS)
     # the re-sort chosen on the device (the runner) against a host branch,
     # from one state: the same steps, so the same re-sorts
     hc = _host_checked(band)
@@ -363,7 +576,7 @@ def main():
               f"{steps / sec:.2f} steps/s")
     sband.check(state["spatial_band"])
     strip = make_lj_runner(engine="strip", box_vectors=box, **common)
-    state["strip"] = strip.init(melt, box, seed=SEED)
+    state["strip"] = strip_start = strip.init(melt, box, seed=SEED)
     runs["strip"] = strip.run
     for _ in range(WINDOWS):
         torch.cuda.synchronize()
@@ -376,11 +589,13 @@ def main():
     for label, steps in BIG_PROFILE_STEPS.items():
         _profile(label, lambda: advance(label, steps), steps)
     # a latch ends a production run, not this profile: its 400 steps ran
-    # the same kernels, so the rows above stand, and the latch is reported
+    # the same kernels, so the rows above stand, and the replay says which
+    # check fired
     try:
         strip.check(state["strip"])
     except RuntimeError as err:
-        print(f"strip runner latched in its profiled steps: {err}")
+        print(f"strip runner latched in its windows or profiled steps: {err}")
+        strip_replay(strip, strip_start, STRIP_SEGMENTS, strip.segment_steps)
     xe7, box7 = state["strip"].x, state["strip"].box_diag
     _profile("strip force_energy (K7)",
              lambda: [strip.md.force_energy(xe7, box7)

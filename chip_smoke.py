@@ -15,7 +15,13 @@ Phases (any failure raises, and the script exits nonzero):
    final step, the culled runner at a row tile of 256 (K5 against its plain
    version, then 400 steps, ``check()`` clean, energy within 1e-5 of the f64
    oracle), BAOAB, the drift latch with the slack and with a budget
-   on either side of the measured drift, and K7 on the strip layout of that
+   on either side of the measured drift (and, exactly, at the top-2 sum
+   that a torch replica merges from the kernel's partials, where it holds,
+   and one ulp under it, where it latches), K3's segment as one C call
+   (``culled_md``) bitwise equal to the step-by-step sequence of the same
+   kernels at S = 1, 2 and 40 in NVT, with the exact reciprocal and in NpT
+   (anchor, budget, final energy), a NaN latching both, and within 1e-5 nm
+   of its plain loop over 5 steps, and K7 on the strip layout of that
    state (its force, force and energy, each bitwise equal when repeated,
    its chunks skipped and LJ loop trips counted by a torch replica, and
    BAOAB phase with the halo refresh).  K6 is held to its plain version at
@@ -82,8 +88,10 @@ Phases (any failure raises, and the script exits nonzero):
    plain version on every output at nslab 0 and 4, then, counted, the
    culled runner with ``fused_rebuild`` (S=40, slack 0.15) for 3000 steps
    on the kernel path: ``check()`` clean, energy within 1e-5 of the oracle,
-   T_kin within 5%; (c) K11, its ``tile_build`` and ``mega_repair`` bitwise
-   equal to their plain versions, a P=0 ``mega_segment`` from a freshly
+   T_kin within 5%; (c) K11, its ``tile_build`` and ``mega_repair`` (at
+   P = 1, 16 and 256) bitwise equal to their plain versions, the repair also
+   to a torch replica of its windows at the kernel's chunk, each timed
+   against its bound, a P=0 ``mega_segment`` from a freshly
    sorted state bitwise equal to the classic kernel path, a P=16 one a pure
    permutation of it with the padding unmoved, the segment within 1e-5 nm of
    its plain version over 5 steps, then, counted, the culled runner with
@@ -95,7 +103,11 @@ Phases (any failure raises, and the script exits nonzero):
 
 The ``kernels`` line gives each kernel's launches on the eight counted
 paths (phases 5-10, under ``launches_by_path``; ``launches`` is their sum), its
-error and times, and its bound.  K6's and K7's energy passes run on no
+error and times, and its bound.  The C entries of K3's and K11's segments
+(``culled_md``, ``mega_md``) count one launch a call and each kernel they
+enqueue under that kernel's name (``baoab`` once a segment,
+``culled_force`` once a step: the gather's epilogue performs the other
+steps' BAOAB updates).  K6's and K7's energy passes run on no
 runner's path (both runners take their energy from K1, as in the JAX
 package): they are held to their plain versions in [3] and [7] and show
 no launches.  The bound is the larger of the f32 operations its
@@ -151,17 +163,19 @@ DEEP_STEPS = 400
 # JAX runners do): those two are held to their plain versions and listed
 # with no launches on any path.
 PATH_KERNELS = {
-    "nvt": ("lj_dense", "culled_force", "baoab", "tile_skin_drift"),
-    "npt": ("lj_dense", "culled_force", "culled_force_energy", "baoab",
+    "nvt": ("lj_dense", "culled_md", "culled_force", "baoab",
             "tile_skin_drift"),
+    "npt": ("lj_dense", "culled_md", "culled_force", "culled_force_energy",
+            "baoab", "tile_skin_drift"),
     "band": ("band_force", "lj_dense"),
     "strip": ("strip_baoab", "strip_force", "tile_skin_drift", "lj_dense"),
     "spatial": ("lj_dense_square", "row_slab_force", "row_slab_force_energy",
                 "row_band_force"),
     "fused": ("fused_md", "lj_dense"),
-    "fused_rebuild": ("sort_build", "baoab", "culled_force", "tile_skin_drift",
-                      "lj_dense"),
-    "mega": ("mega_md", "culled_force", "lj_dense"),
+    "fused_rebuild": ("sort_build", "culled_md", "baoab", "culled_force",
+                      "tile_skin_drift", "lj_dense"),
+    "mega": ("mega_md", "tile_build", "baoab", "culled_force",
+             "tile_skin_drift", "mega_repair", "lj_dense"),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -188,6 +202,9 @@ ENERGY_FLOPS = 3
 # latch's image fold, norm and reductions; the fused update's kick, drifts,
 # divide-wrap and a whole Box-Muller draw (its cos branch only)
 LANE_FLOPS = {"baoab": 40, "tile_skin_drift": 20, "fused_update": 60}
+# a repair comparison: the difference and its image fold (multiply, round,
+# multiply, subtract)
+REPAIR_FLOPS = 5
 
 
 def _run(cmd):
@@ -225,6 +242,15 @@ def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _segment_flops(listed, in_cut, n_pad):
+    """The operations of a K3 segment of SEGMENT steps on one list:
+    ``listed`` distance tests and ``in_cut`` LJ terms a step, BAOAB on the
+    3 n_pad lanes a step, and the latch once."""
+    return (SEGMENT * (listed * TEST_FLOPS["culled"] + in_cut * LJ_FLOPS
+                       + 3 * n_pad * LANE_FLOPS["baoab"])
+            + n_pad * LANE_FLOPS["tile_skin_drift"])
 
 
 def _slab_pairs(n, off, rows):
@@ -477,6 +503,174 @@ def _strip_visits(xe, box_diag, tm, H, cutoff):
             int(hit.sum()))
 
 
+# K11's repair (csrc/lj_mega.cu, launch_repair): chunks of round_up(P, 32)
+# lanes, 32 to 512, a window of the chunk and P lanes each side in shared
+# memory while it fits REPAIR_SMEM bytes, else one block over the whole order
+REPAIR_SMEM = 200 * 1024
+
+
+def _repair_geometry(n_pad, passes):
+    """The repair kernel's (chunk, blocks, window) at n_pad and P passes, as
+    ``launch_repair`` chooses them."""
+    halo = min(passes, n_pad)
+    chunk = min(max(-(-halo // 32) * 32, 32), 512)
+    window = min(chunk + 2 * halo, n_pad)
+    if 8 * window > REPAIR_SMEM:
+        return n_pad, 1, n_pad
+    return chunk, -(-n_pad // chunk), window
+
+
+def _repair_windows(x, w, F, n, box_diag, passes, chunk):
+    """A torch replica of the repair kernel's algorithm: each chunk of
+    ``chunk`` lanes runs the P odd-even passes on its own window of lanes
+    [c0 - P, c1 + P) clipped to [0, n_pad) (the parity from the global lane,
+    a pair (i, i + 1) only inside the window and for i < n - 1), and keeps
+    the source lanes of its own chunk.  Returns the reordered (x, w, F)."""
+    import torch
+
+    n_pad = x.shape[1]
+    dev = x.device
+    halo = min(passes, n_pad)
+    c0 = torch.arange(0, n_pad, chunk, device=dev)
+    c1 = torch.clamp_max(c0 + chunk, n_pad)
+    w0 = torch.clamp_min(c0 - halo, 0)
+    w1 = torch.clamp_max(c1 + halo, n_pad)
+    g = w0[:, None] + torch.arange(int((w1 - w0).max()), device=dev)
+    inside = g < w1[:, None]
+    src = torch.where(inside, g, 0)
+    keys = x[0][src]
+    Lx = box_diag.reshape(3)[0]
+    inv_Lx = 1.0 / Lx
+    for p in range(passes):
+        d = keys[:, :-1] - keys[:, 1:]
+        d = d - Lx * torch.round(d * inv_Lx)
+        swap = ((g[:, :-1] % 2 == p % 2) & inside[:, 1:]
+                & (g[:, :-1] < n - 1) & (d > 0))
+        lo = torch.nn.functional.pad(swap, (0, 1))   # t takes t + 1
+        hi = torch.nn.functional.pad(swap, (1, 0))   # t takes t - 1
+        keys, src = (torch.where(lo, t.roll(-1, 1),
+                                 torch.where(hi, t.roll(1, 1), t))
+                     for t in (keys, src))
+    own = (g >= c0[:, None]) & (g < c1[:, None]) & inside
+    perm = torch.empty(n_pad, dtype=torch.long, device=dev)
+    perm[g[own]] = src[own]
+    return x[:, perm], w[:, perm], F[:, perm]
+
+
+def _top2_partial(d):
+    """The latch kernel's partial of a set of lane drifts ``d`` (1-D f32):
+    (m1, m2, the count at m1), NaN-absorbing, (-1, -1, 0) for no lanes."""
+    import math
+
+    m1, m2, c = -1.0, -1.0, 0
+    for v in d.tolist():
+        m1, m2, c = _top2_merge((m1, m2, c), (v, -1.0, 1))
+        if math.isnan(m1):
+            break
+    return m1, m2, c
+
+
+def _top2_merge(a, b):
+    """The latch kernel's merge of two partials (csrc/drift.cu, merge):
+    exact and independent of the order."""
+    if a[0] != a[0]:
+        return a
+    if b[0] != b[0]:
+        return b
+    if a[0] == b[0]:
+        return a[0], max(a[1], b[1]), a[2] + b[2]
+    if a[0] > b[0]:
+        return a[0], max(a[1], b[0]), a[2]
+    return b[0], max(b[1], a[0]), b[2]
+
+
+def _top2_value(part):
+    """() f32 top-2 sum of a merged partial: m1 + (m1 if two lanes tie at
+    m1, else max(m2, 0)), in f32."""
+    import torch
+
+    m1, m2, c = part
+    second = m1 if c > 1 else max(m2, 0.0)
+    return (torch.tensor(m1, dtype=torch.float32)
+            + torch.tensor(second, dtype=torch.float32))
+
+
+def _latch_replica(x, anchor, n, threshold, box_diag, splits):
+    """The latch kernel's flag and top-2 sum from partials over ``splits``
+    (lane index tensors, a partition of the lanes, merged in their order),
+    the drifts and the finite test taken lane by lane as the kernel takes
+    them.  Returns (() bool flag, () f32 top-2 sum)."""
+    import functools
+
+    import torch
+
+    from chiron_tpu_torch.ops.lj_cull import skin_drift_plain
+
+    d = skin_drift_plain(x, anchor, n, box_diag).cpu()
+    live = torch.arange(x.shape[1]) < n
+    finite = bool((x.cpu().abs() < 3.0e38)[:, live].all())
+    part = functools.reduce(_top2_merge,
+                            (_top2_partial(d[ix]) for ix in splits))
+    top2 = _top2_value(part)
+    return (top2 > torch.as_tensor(threshold).cpu()) | (not finite), top2
+
+
+def _latch_splits(n_pad):
+    """The lanes each thread of the latch kernel folds: 4 a thread, block b
+    and thread t taking b 4 threads + t + u threads for u < 4, with one
+    block of 1024 threads up to n_pad 4096 and blocks of 256 above."""
+    import torch
+
+    threads = 1024 if n_pad <= 4096 else 256
+    block_lanes = 4 * threads
+    lane = torch.arange(n_pad)
+    key = (lane // block_lanes) * threads + lane % threads
+    return [lane[key == k] for k in range(int(key.max()) + 1)]
+
+
+def _epilogue_noise(seed, step, n_pad, device="cpu"):
+    """A torch replica of the culled gather's epilogue noise: particle q's
+    axis a takes counter lane a n_pad/2 + q mod n_pad/2 of the (3, n_pad/2)
+    stream, its Box-Muller cos branch below n_pad/2 and its sin branch
+    above.  Returns the (3, n_pad) noise."""
+    import torch
+
+    from chiron_tpu_torch.ops.lj_cull import _MASK32, counter_uniforms
+
+    half = n_pad // 2
+    q = torch.arange(n_pad, dtype=torch.int64, device=device)
+    lane = (torch.arange(3, dtype=torch.int64, device=device)[:, None] * half
+            + q % half)
+    base = ((seed & _MASK32) * 0x9E3779B9
+            + (step & _MASK32) * 0x85EBCA6B) & _MASK32
+    c1 = ((lane * 2) * 0x9E3779B9 + base) & _MASK32
+    c2 = ((lane * 2 + 1) * 0x9E3779B9 + base) & _MASK32
+    u1, u2 = counter_uniforms(c1, c2)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = 6.2831853071795864 * u2
+    return torch.where(q < half, r * torch.cos(theta), r * torch.sin(theta))
+
+
+def _culled_md_plain(md, x3, v3, f3, box_diag, pairs, seed, step, n_steps,
+                     slack=None):
+    """K3's segment as a loop of plain versions on the tensors' device:
+    (x, v, F) and, with ``slack``, the latch against the entry."""
+    from chiron_tpu_torch.ops import lj_cull as lc
+
+    half = 0.5 * md.dt
+    x, w, F = x3, v3 - half * f3 * md.minv, f3
+    for k in range(n_steps):
+        x, w, F = lc.baoab_phase_plain(x, w, F, md.minv, md.sigv, box_diag,
+                                       seed, step + k, md.dt, md.a, md.b)
+        F, _ = lc.row_force_pass_plain(x, box_diag, pairs, md.n, md.tm,
+                                       md.tn, md.sigma, md.epsilon, md.cutoff)
+    out = (x, w + half * F * md.minv, F)
+    if slack is None:
+        return out
+    return out + (lc.tile_skin_drift_bad_plain(x, x3, md.n, slack,
+                                               box_diag),)
+
+
 def _canon(x, v, F, n):
     """The live lanes' (x, v, F) columns in lexicographic order (numpy)."""
     import numpy as np
@@ -659,11 +853,47 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
                              cap)
     same = [torch.equal(getattr(kt, f), getattr(pt, f))
             for f in lc.TilePairList._fields]
+    geometry = {}
+    for passes in (1, REPAIR_PASSES, DEEP_REPAIR):
+        kr = lm.mega_repair(x5, v5, F5, N, box1, passes)
+        pr = lm.repair_plain(x5, v5, F5, N, box1, passes)
+        chunk, blocks, window = geometry[passes] = _repair_geometry(
+            n_pad, passes)
+        rr = _repair_windows(x5, v5, F5, N, box1, passes, chunk)
+        same += [torch.equal(p, q) and torch.equal(p, r)
+                 for p, q, r in zip(kr, pr, rr)]
     kr = lm.mega_repair(x5, v5, F5, N, box1, REPAIR_PASSES)
-    pr = lm.repair_plain(x5, v5, F5, N, box1, REPAIR_PASSES)
-    same += [torch.equal(p, q) for p, q in zip(kr, pr)]
     _require(all(same), f"tile_build / mega_repair differ from plain: {same}")
     moved = int((kr[0] != x5).any(dim=0).sum())
+    ms = _cuda_ms(lambda: lm.tile_build(x5, N, md.tm, md.tn, box1, md.cutoff,
+                                        md.slack, cap))
+    plain_ms = _cuda_ms(lambda: lc.build_tile_pairs(
+        x5, N, md.tm, md.tn, box1, md.cutoff, md.slack, cap), reps=5)
+    nr = n_pad // md.tm
+    list_bytes = 4 * (3 * cap + 2 * nr + 1 + nr + 1) + 1
+    bound_ms, bound_by = _bound(0, lane_bytes + 12 + list_bytes)
+    _report("tile_build (bitwise)", 0.0, "equal", ms, plain_ms)
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    results["tile_build"] = dict(
+        source="chiron_tpu_torch/csrc/lj_mega.cu",
+        replaces="chiron_tpu/ops/lj_mega.py:368", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    ms = _cuda_ms(lambda: lm.mega_repair(x5, v5, F5, N, box1, REPAIR_PASSES))
+    deep_ms = _cuda_ms(lambda: lm.mega_repair(x5, v5, F5, N, box1,
+                                              DEEP_REPAIR))
+    plain_ms = _cuda_ms(lambda: lm.repair_plain(x5, v5, F5, N, box1,
+                                                REPAIR_PASSES), reps=5)
+    # reads and writes the nine (x, w, F) rows once
+    bound_ms, bound_by = _bound(0, 2 * 3 * lane_bytes + 12)
+    _report(f"mega_repair (P={REPAIR_PASSES}, bitwise; chunk, blocks, window "
+            f"{geometry[REPAIR_PASSES]}; at P={DEEP_REPAIR} "
+            f"{geometry[DEEP_REPAIR]} {deep_ms:.4f} ms)", 0.0, "equal", ms,
+            plain_ms)
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    results["mega_repair"] = dict(
+        source="chiron_tpu_torch/csrc/lj_mega.cu",
+        replaces="chiron_tpu/ops/lj_mega.py:368", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     # P = 0 from the freshly sorted init state: the classic kernel path
     half = 0.5 * md.dt
     xs, vs, Fs = s0.x, s0.v, s0.F
@@ -696,8 +926,9 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
     err_w = float((k5[1] - p5[1]).abs().max())
     _require(err_x < 1e-5 and err_w < 1e-4 and bool(k5[3]) == bool(p5[3]),
              f"mega_md vs plain over 5 steps: x err {err_x}, w err {err_w}")
-    print(f"    (c) K11: tile_build and mega_repair ({REPAIR_PASSES} passes, "
-          f"{moved} lanes moved) bitwise equal to plain; a P=0 segment "
+    print(f"    (c) K11: tile_build and mega_repair (1, {REPAIR_PASSES} and "
+          f"{DEEP_REPAIR} passes, {moved} lanes moved at {REPAIR_PASSES}) "
+          f"bitwise equal to plain and to the windowed replica; a P=0 segment "
           f"(S={SEGMENT}) from the sorted init state equals the classic "
           f"kernel path bit for bit; P={REPAIR_PASSES} is a permutation of "
           f"it with the padding unmoved; 5 steps (exact reciprocal, P=0) x "
@@ -708,29 +939,24 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
         REPAIR_PASSES), reps=1)
     count = int(pairs.count)
     in_cut = _pairs_in_cutoff(xs, box_diag, N, cut)
-    nr = n_pad // md.tm
-    list_bytes = 4 * (3 * cap + 2 * nr + 1 + nr + 1) + 1
-    step_ms = (
-        _bound(3 * n_pad * LANE_FLOPS["baoab"],
-               6 * lane_bytes + 2 * n_pad * 4 + 16)[0]
-        + _bound(count * md.tm * md.tn * TEST_FLOPS["culled"]
-                 + in_cut * LJ_FLOPS,
-                 2 * lane_bytes + list_bytes)[0])
-    bound_ms = (_bound(0, lane_bytes + 12 + list_bytes)[0]
-                + SEGMENT * step_ms
-                + _bound(n_pad * LANE_FLOPS["tile_skin_drift"],
-                         2 * lane_bytes + 20)[0]
-                + _bound(0, 2 * 3 * lane_bytes)[0])
+    # one bound over the segment's totals: its steps' operations, the
+    # latch's and the repair's; its inputs read once (x, w, F, 1/m,
+    # sigma_v, the box, the step, the slack) and outputs written once (x,
+    # w, F, the flag); the list lives and dies inside the segment
+    bound_ms, bound_by = _bound(
+        _segment_flops(count * md.tm * md.tn, in_cut, n_pad)
+        + REPAIR_PASSES * (N // 2) * REPAIR_FLOPS,
+        6 * lane_bytes + 2 * n_pad * 4 + 21)
     _report(f"mega_md (S={SEGMENT}, P={REPAIR_PASSES} a call; error over 5 "
             f"steps)", max(err_x, err_w), "x 1e-5", ms, plain_ms)
-    print(f"    bound {bound_ms * 1e3:.3f} us (operations: the build, "
-          f"{SEGMENT} x K3's step on {count} entries and {in_cut} pairs "
-          f"within the cutoff, the latch, the repair; {smi})")
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}: {SEGMENT} x K3's "
+          f"step on {count} entries and {in_cut} pairs within the cutoff, "
+          f"the latch and {REPAIR_PASSES} repair passes; {smi})")
     results["mega_md"] = dict(
         source="chiron_tpu_torch/csrc/lj_mega.cu",
         replaces="chiron_tpu/ops/lj_mega.py:368",
         max_abs_err=max(err_x, err_w), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="operations")
+        bound_ms=bound_ms, bound_by=bound_by)
 
     def in_order(carry):
         d = carry.x[0, 1:N] - carry.x[0, :N - 1]
@@ -1050,8 +1276,9 @@ def main():
         _require(fk == fp and (expect is None or fk == expect),
                  f"drift latch kernel {fk}, plain {fp}, expected {expect}")
         flags.append(fk)
+    latch_scratch = lc.LatchScratch(n_pad, dev)
     ms = _cuda_ms(lambda: lc.tile_skin_drift_bad(x_end, anchor, N, slack_t,
-                                                 box_diag))
+                                                 box_diag, latch_scratch))
     plain_ms = _cuda_ms(lambda: lc.tile_skin_drift_bad_plain(
         x_end, anchor, N, slack_t, box_diag))
     # the NpT mode: the threshold is a budget on the device, set on either
@@ -1068,14 +1295,95 @@ def main():
         _require(fk == fp == expect,
                  f"budgeted latch kernel {fk}, plain {fp}, expected {expect}")
         flags.append(fk)
+    # the kernel's top-2 sum is the plain one's bit for bit: its partials,
+    # merged as the kernel's threads fold them (the replica), give the
+    # plain sum, and the flag flips exactly there
+    _, top2_r = _latch_replica(x_end, anchor, N, slack_t, box_diag,
+                               _latch_splits(n_pad))
+    top2_t = lc.skin_drift_top2_plain(x_end, anchor, N, box_diag)
+    _require(torch.equal(top2_r, top2_t.cpu()),
+             f"latch replica {float(top2_r)} vs plain {float(top2_t)}")
+    below = torch.nextafter(top2_t, torch.zeros_like(top2_t))
+    for thr, expect in ((top2_t, False), (below, True)):
+        fk = bool(lc.tile_skin_drift_bad(x_end, anchor, N, thr, box_diag))
+        _require(fk == expect, f"latch at the top-2 sum {float(top2_t)!r} "
+                               f"and threshold {float(thr)!r}: {fk}")
     _report(f"tile_skin_drift (flags {flags} equal to plain; top-2 drift "
-            f"{top2:.6f} nm)", 0.0, "equal", ms, plain_ms)
+            f"{top2:.6f} nm; threshold at the sum holds and one ulp under "
+            f"it latches, as the replica's merge of the kernel's partials "
+            f"predicts)", 0.0, "equal", ms, plain_ms)
     bound_ms, bound_by = _bound(n_pad * LANE_FLOPS["tile_skin_drift"],
                                 2 * lane_bytes + 20)
     results["tile_skin_drift"] = dict(
         source="chiron_tpu_torch/csrc/drift.cu",
         replaces="chiron_tpu/ops/lj_cull.py:984", max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    # K3's segment: one C call, bit for bit the step-by-step sequence of
+    # the same tree's kernels (baoab_phase_ and culled_force_pass S times,
+    # then tile_skin_drift_bad) in NVT, with the exact reciprocal, and in
+    # NpT (anchor, budget, final energy), and its time against the plain
+    # loop
+    seg_ws = lc.SegmentWorkspace(md, runner.capacity)
+    budget = torch.tensor(0.5 * SLACK, device=dev)
+    modes = {"nvt": dict(drift_slack=slack_t),
+             "exact": dict(approx_recip=False, drift_slack=slack_t),
+             "npt": dict(final_energy=True, drift_anchor=c1.x_anchor,
+                         drift_budget=budget)}
+
+    def segment(steps, stepwise=False, x3=c0.x, **kw):
+        if stepwise:
+            return md.run_segment_stepwise(x3, c0.v, c0.F, box_diag, pairs,
+                                           SEED, c0.step, steps, **kw)
+        return md.run_segment(x3, c0.v, c0.F, box_diag, pairs, SEED,
+                              c0.step, steps, workspace=seg_ws, **kw)
+
+    for mode, kw in modes.items():
+        for steps in (1, 2, SEGMENT):
+            one, seq = segment(steps, **kw), segment(steps, True, **kw)
+            _require(len(one) == len(seq)
+                     and all(torch.equal(p, q) for p, q in zip(one, seq)),
+                     f"the {mode} segment of {steps} steps differs from the "
+                     f"step-by-step sequence")
+    poisoned = c0.x.clone()
+    poisoned[1, 17] = float("nan")
+    one = segment(SEGMENT, x3=poisoned, **modes["nvt"])
+    seq = segment(SEGMENT, True, x3=poisoned, **modes["nvt"])
+    _require(bool(one[3]) and bool(seq[3]), "a NaN segment did not latch")
+    ke = segment(5, approx_recip=False)
+    pe = _culled_md_plain(md, c0.x, c0.v, c0.F, box_diag, pairs, SEED, 0, 5)
+    err_x = float((ke[0] - pe[0]).abs().max())
+    err_v = float((ke[1] - pe[1]).abs().max())
+    _require(err_x < 1e-5 and err_v < 1e-4,
+             f"culled_md vs plain over 5 steps: x err {err_x}, v err {err_v}")
+    ms = _cuda_ms(lambda: segment(SEGMENT, **modes["nvt"]), reps=10)
+    step_ms = _cuda_ms(lambda: segment(SEGMENT, True, **modes["nvt"]),
+                       reps=10)
+    plain_ms = _cuda_ms(lambda: _culled_md_plain(
+        md, c0.x, c0.v, c0.F, box_diag, pairs, SEED, 0, SEGMENT, slack_t),
+        reps=1)
+    # one bound over the segment's totals: S steps' operations and the
+    # latch's; its inputs read once (x, v, F, 1/m, sigma_v, the list and
+    # the box, the step, the slack; the anchor is the entry x) and outputs
+    # written once (x, v, F, the flag)
+    bound_ms, bound_by = _bound(
+        _segment_flops(listed, in_cut, n_pad),
+        6 * lane_bytes + 2 * n_pad * 4 + list_bytes + 9)
+    print(f"  culled_md (K3's segment, one C call): bitwise equal to the "
+          f"step-by-step sequence at S = 1, 2, {SEGMENT} in NVT, with the "
+          f"exact reciprocal and in NpT (anchor, budget {float(budget)}, "
+          f"final energy); a NaN latches both; the sequence takes "
+          f"{step_ms:.4f} ms a segment")
+    _report(f"culled_md (S={SEGMENT} a call; error over 5 steps, exact "
+            f"reciprocal)", max(err_x, err_v), "x 1e-5", ms, plain_ms)
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}: {SEGMENT} x K3's "
+          f"step on {count} entries and {in_cut} pairs within the cutoff, "
+          f"the latch)")
+    results["culled_md"] = dict(
+        source="chiron_tpu_torch/csrc/lj_cull_force.cu",
+        replaces="chiron_tpu/ops/lj_cull.py:984",
+        max_abs_err=max(err_x, err_v), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
 
     # K7: the halo-strip kernels on the strip layout of the melted state
     strip = make_lj_runner(engine="strip", box_vectors=box, **common)

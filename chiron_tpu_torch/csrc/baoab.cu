@@ -14,10 +14,13 @@
 // logf, sqrtf, cosf and sinf (the library is built without fast math).
 //
 // Bound: memory, 7 floats read and 3 written a lane, all of it L2-resident
-// at the main path's n_pad; at that size the launch itself dominates.
-// One thread takes the two lanes that share a uniform pair, so the counters
-// and the logarithm run once for both.  The step offset is read
-// from device memory so that the segment loop never waits on the host.
+// at the main path's n_pad; at that size the launch itself dominates.  A
+// culled segment (lj_cull_force.cu, cull_md_steps) launches it once, for
+// its first step: the gather's epilogue applies every later step's update
+// through the same baoab_lane (common.cuh), so both round alike.  One
+// thread takes the two lanes that share a uniform pair, so the counters and
+// the logarithm run once for both.  The step offset is read from device
+// memory so that the segment loop never waits on the host.
 #include "common.cuh"
 
 namespace {
@@ -37,22 +40,19 @@ __global__ void baoab_phase(float* __restrict__ x, float* __restrict__ w,
   const int col = lane - row * half;
   const uint32_t step = static_cast<uint32_t>(s) +
                         static_cast<uint32_t>(step_offset[0]);
-  float u1, u2;
-  lane_uniforms(seed, step, static_cast<uint32_t>(lane), u1, u2);
-  const float r = sqrtf(-2.0f * logf(u1));
-  const float theta = kTwoPi * u2;
-  const float noise[2] = {r * cosf(theta), r * sinf(theta)};
+  float r, theta;
+  box_muller(seed, step, static_cast<uint32_t>(lane), r, theta);
+  const float noise[2] = {__fmul_rn(r, cosf(theta)),
+                          __fmul_rn(r, sinf(theta))};
   const float L = box[row];
-  const float invL = 1.0f / L;
+  const float invL = __fdiv_rn(1.0f, L);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int c = col + h * half;
     const int j = row * n_pad + c;
-    float v = w[j] + dt * F[j] * minv[c];
-    float xx = x[j] + half_dt * v;
-    v = a * v + b * sigv[c] * noise[h];
-    xx = xx + half_dt * v;
-    xx = xx - floorf(xx * invL) * L;
+    float xx = x[j], v = w[j];
+    baoab_lane(xx, v, F[j], minv[c], sigv[c], noise[h], L, invL, dt, half_dt,
+               a, b);
     x[j] = xx;
     w[j] = v;
     F[j] = 0.0f;

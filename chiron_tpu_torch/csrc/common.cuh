@@ -73,9 +73,41 @@ __device__ __forceinline__ void lane_uniforms(uint32_t seed, uint32_t step,
        (1.0f / 16777216.0f);
 }
 
+// The radius and angle of a lane's two-output Box-Muller draw.
+__device__ __forceinline__ void box_muller(uint32_t seed, uint32_t step,
+                                           uint32_t lane, float& r,
+                                           float& theta) {
+  float u1, u2;
+  lane_uniforms(seed, step, lane, u1, u2);
+  r = __fsqrt_rn(__fmul_rn(-2.0f, logf(u1)));
+  theta = __fmul_rn(kTwoPi, u2);
+}
+
+// One lane's BAOAB update of K3 (lj_cull.py:545, _baoab_phase), in the
+// half-kick convention w = v - dt/2 F/m, given the lane's force F and noise:
+//   v = w + dt F minv; x += dt/2 v; v = a v + b sigv noise; x += dt/2 v;
+//   x wrapped by x - floor(x invL) L.
+// The standalone BAOAB phase (baoab.cu) and the culled gather's epilogue
+// (lj_cull_force.cu) both call it; every op is an explicit _rn intrinsic in
+// the order and contraction the parent's SASS of baoab_phase had, so that
+// both kernels round alike and as before.
+__device__ __forceinline__ void baoab_lane(float& x, float& w, float F,
+                                           float minv, float sigv,
+                                           float noise, float L, float invL,
+                                           float dt, float half_dt, float a,
+                                           float b) {
+  float v = __fmaf_rn(__fmul_rn(dt, F), minv, w);
+  float xx = __fmaf_rn(half_dt, v, x);
+  v = __fmaf_rn(a, v, __fmul_rn(__fmul_rn(b, sigv), noise));
+  xx = __fmaf_rn(half_dt, v, xx);
+  xx = __fmaf_rn(-floorf(__fmul_rn(xx, invL)), L, xx);
+  x = xx;
+  w = v;
+}
+
 // Entry points that other entries enqueue: the fused MD segment
-// (lj_md_fused.cu) runs K1's pair kernel with the divide, and the megakernel
-// segment (lj_mega.cu) runs K3's kernels.
+// (lj_md_fused.cu) runs K1's pair kernel with the divide, and the culled
+// and megakernel segments (lj_cull_force.cu, lj_mega.cu) run K3's kernels.
 cudaError_t lj_dense_force_divide(const float* pos, const float* box,
                                   float* force, int n, int n_pad, float sigma2,
                                   float coef_scale, float cutoff2,
@@ -85,17 +117,47 @@ CHIRON_EXPORT int chiron_baoab(float* x, float* w, float* F, const float* minv,
                                const int* step_offset, int s, uint32_t seed,
                                int n_pad, float dt, float half_dt, float a,
                                float b, void* stream);
-CHIRON_EXPORT int chiron_cull_force(
-    const float* x, const float* box, const int* rows, const int* cols,
-    const float* ccx, const int* ptr2, const float* rowcx, const int* count,
-    float* P, float* R, float* e_part, float* F, float* energy, int n,
-    int n_pad, int tm, int tn, int capacity, float inv_sigma,
-    float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
-    int approx, void* stream);
-CHIRON_EXPORT int chiron_drift(const float* x, const float* anchor,
-                               const float* box, int n, int n_pad,
-                               const float* threshold, bool* flag,
-                               void* stream);
+
+// The steps of one culled MD segment (K3's grid over the steps,
+// lj_cull.py:984), enqueued back to back on one stream: step 0's BAOAB
+// phase alone, then for each step k the culled pair pass and the gather,
+// whose epilogue applies step k + 1's BAOAB update to the lanes it has just
+// written (not on the last step).  x, w, F are updated in place; energy,
+// when not null, takes the last step's exact-reciprocal energy.
+struct CullMD {
+  float* x;
+  float* w;
+  float* F;
+  const float* minv;
+  const float* sigv;
+  const float* box;
+  const int* step_offset;
+  uint32_t seed;
+  int n_steps;
+  const int* rows;
+  const int* cols;
+  const float* ccx;
+  const int* ptr2;
+  const float* rowcx;
+  const int* count;
+  float* P;
+  float* R;
+  float* e_part;
+  float* energy;
+  int n, n_pad, tm, tn, capacity;
+  float dt, half_dt, a, b;
+  float inv_sigma, sigma_fold, cutoff2_s, eps_scale, e_scale;
+  int approx;
+};
+cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s);
+
+// The drift latch (drift.cu) on one stream: `part` holds 4 ints for each
+// kLatchBlockLanes lanes, `ticket` one int that is 0 before the launch and
+// after it.
+constexpr int kLatchBlockLanes = 1024;
+cudaError_t drift_latch(const float* x, const float* anchor, const float* box,
+                        int n, int n_pad, const float* threshold, int* part,
+                        unsigned* ticket, bool* flag, cudaStream_t s);
 
 // Culling a warp's whole block of pairs at once (lj_dense.cu,
 // lj_cull_force.cu).  A warp gathers the bounding box of its particles:

@@ -34,6 +34,23 @@
 // Every sum has one order and no float atomics, so a repeated call is
 // bitwise identical.
 //
+// K3's segment (culled_md_raw, :984, one pallas_call with a grid over the
+// steps) is chiron_cull_md_segment: one host call that enqueues the whole
+// segment on the caller's stream (cull_md_steps, shared with the megakernel
+// segment of lj_mega.cu, as the TPU kernels share _baoab_phase and
+// _row_force_pass): step 0's BAOAB phase alone (baoab.cu), then each step's
+// cull_pairs and cull_gather, and the drift latch (drift.cu).  The gather's
+// epilogue takes step k + 1's BAOAB update: a thread that has written its
+// particle's force goes on to update that particle's x and w in place
+// (baoab_lane, common.cuh, as baoab_phase does), with the JAX kernel's noise
+// lane a (n_pad/2) + q mod n_pad/2, its cos branch below n_pad/2 and its sin
+// branch above.  That is safe because nothing in the gather reads x, and
+// the step's cull_pairs, which does, has finished before it on the stream;
+// F needs no zeroing, since the next gather overwrites every lane.  The last
+// step's gather, and with it the energy step, runs without the epilogue.
+// So a segment of S steps is one host call and 2 S + 2 kernels, where the
+// step-by-step sequence was 2 S + 1 host calls and 3 S + 1 kernels.
+//
 // Bound: pair arithmetic, the distance test on each of the count x tm x tn
 // listed pairs and the LJ term on the few within the cutoff.  What the
 // design does about the pairs it need not compute: each warp holds the
@@ -302,7 +319,21 @@ __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
 constexpr int kBatch = 4;
 constexpr int kScan = kBatch * kGather;  // list entries scanned a round
 
-__global__ void __launch_bounds__(kGather) cull_gather(Params p) {
+// The epilogue's BAOAB update of step s (kBaoab); x is the pair pass's
+// input, written here only after that pass has run.
+struct Step {
+  float* x;
+  float* w;
+  const float* minv;
+  const float* sigv;
+  const int* step_offset;
+  uint32_t seed;
+  int s;
+  float dt, half_dt, a, b;
+};
+
+template <bool kBaoab>
+__global__ void __launch_bounds__(kGather) cull_gather(Params p, Step st) {
   __shared__ int hit_k[kScan];
   __shared__ int hit_c[kScan];
   __shared__ int wsum[kGather / 32];
@@ -406,8 +437,35 @@ __global__ void __launch_bounds__(kGather) cull_gather(Params p) {
     __syncthreads();
   }
   if (q0 + tid < n_pad) {
+    float Fq[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) p.F[a * n_pad + q] = p.eps_scale * f[a];
+    for (int a = 0; a < 3; ++a) {
+      Fq[a] = __fmul_rn(p.eps_scale, f[a]);
+      p.F[a * n_pad + q] = Fq[a];
+    }
+    if constexpr (kBaoab) {
+      const int half = n_pad / 2;
+      // warp-uniform where half is a multiple of 32, as the runners pad it
+      const bool second = q >= half;
+      const uint32_t col = static_cast<uint32_t>(second ? q - half : q);
+      const uint32_t step = static_cast<uint32_t>(st.s) +
+                            static_cast<uint32_t>(st.step_offset[0]);
+      const float minv = st.minv[q], sigv = st.sigv[q];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float r, theta;
+        box_muller(st.seed, step, static_cast<uint32_t>(a * half) + col, r,
+                   theta);
+        const float noise = __fmul_rn(r, second ? sinf(theta) : cosf(theta));
+        const float L = p.box[a];
+        const int j = a * n_pad + q;
+        float xx = st.x[j], v = st.w[j];
+        baoab_lane(xx, v, Fq[a], minv, sigv, noise, L, __fdiv_rn(1.0f, L),
+                   st.dt, st.half_dt, st.a, st.b);
+        st.x[j] = xx;
+        st.w[j] = v;
+      }
+    }
   }
   if (p.energy != nullptr && blockIdx.x == 0) {
     const int n_parts = count * S;
@@ -420,8 +478,8 @@ __global__ void __launch_bounds__(kGather) cull_gather(Params p) {
 }
 
 template <int RPT, int KRG>
-cudaError_t launch_pairs(const Params& p, int blocks, bool approx,
-                         cudaStream_t s) {
+cudaError_t launch_pairs_at(const Params& p, int blocks, bool approx,
+                            cudaStream_t s) {
   if (p.energy != nullptr) {
     if (approx) {
       cull_pairs<RPT, KRG, true, true><<<blocks, kThreads, 0, s>>>(p);
@@ -436,7 +494,62 @@ cudaError_t launch_pairs(const Params& p, int blocks, bool approx,
   return cudaGetLastError();
 }
 
+// The pair pass at row tile tm (16, 32, 64, 128 or 256).
+cudaError_t launch_pairs(const Params& p, int blocks, bool approx,
+                         cudaStream_t s) {
+  switch (p.tm) {
+    case 16: return launch_pairs_at<1, 16>(p, blocks, approx, s);
+    case 32: return launch_pairs_at<1, 32>(p, blocks, approx, s);
+    case 64: return launch_pairs_at<2, 32>(p, blocks, approx, s);
+    case 128: return launch_pairs_at<4, 32>(p, blocks, approx, s);
+    case 256: return launch_pairs_at<8, 32>(p, blocks, approx, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool tiles_ok(int tm, int tn, int capacity) {
+  return capacity >= 1 && tn > 0 && tn % 16 == 0 &&
+         (tm == 16 || tm == 32 || tm == 64 || tm == 128 || tm == 256);
+}
+
+int gather_blocks(int n_pad) { return (n_pad + kGather - 1) / kGather; }
+
 }  // namespace
+
+// Enqueues step 0's BAOAB phase and n_steps culled force passes (lj_cull.py's
+// segment_launches lists them for the launch counts).
+cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s) {
+  if (m.n_steps < 1 || m.n_pad % 2 != 0 ||
+      !tiles_ok(m.tm, m.tn, m.capacity)) {
+    return cudaErrorInvalidValue;
+  }
+  int rc = chiron_baoab(m.x, m.w, m.F, m.minv, m.sigv, m.box, m.step_offset,
+                        0, m.seed, m.n_pad, m.dt, m.half_dt, m.a, m.b, s);
+  if (rc != 0) return static_cast<cudaError_t>(rc);
+  const int n_slices = (m.tn + kSlice - 1) / kSlice;
+  Params p{m.x, m.box, m.rows, m.cols, m.ccx, m.ptr2, m.rowcx, m.count, m.P,
+           m.R, m.e_part, m.F, nullptr, m.n, m.n_pad, m.tm, m.tn, n_slices,
+           m.inv_sigma, m.sigma_fold, m.cutoff2_s,
+           m.cutoff2_s * cull::kRaise, m.eps_scale, m.e_scale};
+  Step st{m.x, m.w, m.minv, m.sigv, m.step_offset, m.seed, 0,
+          m.dt, m.half_dt, m.a, m.b};
+  const int blocks = m.capacity * n_slices;
+  for (int k = 0; k < m.n_steps; ++k) {
+    const bool last = k == m.n_steps - 1;
+    p.energy = last ? m.energy : nullptr;
+    cudaError_t err = launch_pairs(p, blocks, m.approx != 0, s);
+    if (err != cudaSuccess) return err;
+    if (last) {
+      cull_gather<false><<<gather_blocks(m.n_pad), kGather, 0, s>>>(p, st);
+    } else {
+      st.s = k + 1;
+      cull_gather<true><<<gather_blocks(m.n_pad), kGather, 0, s>>>(p, st);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
 // x, F: (3, n_pad) f32; box (3,) f32; rows, cols, ccx: (capacity,); ptr2:
 // (2 nr + 1,) i32; rowcx: (nr,) f32; count: (1,) i32; with S = ceil(tn /
@@ -452,24 +565,55 @@ CHIRON_EXPORT int chiron_cull_force(
     float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
     int approx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (capacity < 1 || tn % 16 != 0 || tn <= 0) {
+  if (!tiles_ok(tm, tn, capacity)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_slices = (tn + kSlice - 1) / kSlice;
   const Params p{x, box, rows, cols, ccx, ptr2, rowcx, count, P, R, e_part,
                  F, energy, n, n_pad, tm, tn, n_slices, inv_sigma, sigma_fold,
                  cutoff2_s, cutoff2_s * cull::kRaise, eps_scale, e_scale};
-  const int blocks = capacity * n_slices;
-  cudaError_t err;
-  switch (tm) {
-    case 16: err = launch_pairs<1, 16>(p, blocks, approx != 0, s); break;
-    case 32: err = launch_pairs<1, 32>(p, blocks, approx != 0, s); break;
-    case 64: err = launch_pairs<2, 32>(p, blocks, approx != 0, s); break;
-    case 128: err = launch_pairs<4, 32>(p, blocks, approx != 0, s); break;
-    case 256: err = launch_pairs<8, 32>(p, blocks, approx != 0, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = launch_pairs(p, capacity * n_slices, approx != 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cull_gather<false><<<gather_blocks(n_pad), kGather, 0, s>>>(p, Step{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One culled MD segment of n_steps >= 1 on a fixed list (K3): copies x_in
+// and F_in into x and F, takes w in place (the velocity before the trailing
+// half-kick), runs cull_md_steps and, where flag is not null, the drift
+// latch of the final x against anchor with the device-side threshold (the
+// engine's slack, or the NpT runner's remaining budget).  The list and the
+// pass's scratch (P, R, e_part) are as chiron_cull_force takes them;
+// latch_part and ticket as drift_latch takes them; energy: (1,) f32, the
+// last step's exact energy, or null.  x, w, F: (3, n_pad) f32, none
+// aliasing x_in, F_in or anchor; n_pad even.
+CHIRON_EXPORT int chiron_cull_md_segment(
+    const float* x_in, const float* F_in, float* x, float* w, float* F,
+    const float* minv, const float* sigv, const float* box,
+    const int* step_offset, uint32_t seed, int n_steps, const int* rows,
+    const int* cols, const float* ccx, const int* ptr2, const float* rowcx,
+    const int* count, float* P, float* R, float* e_part, float* energy,
+    const float* anchor, const float* threshold, int* latch_part,
+    unsigned* ticket, bool* flag, int n, int n_pad, int tm, int tn,
+    int capacity, float dt, float half_dt, float a, float b, float inv_sigma,
+    float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
+    int approx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = sizeof(float) * 3 * static_cast<size_t>(n_pad);
+  cudaError_t err =
+      cudaMemcpyAsync(x, x_in, bytes, cudaMemcpyDeviceToDevice, s);
+  if (err == cudaSuccess) {
+    err = cudaMemcpyAsync(F, F_in, bytes, cudaMemcpyDeviceToDevice, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  cull_gather<<<(n_pad + kGather - 1) / kGather, kGather, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const CullMD m{x, w, F, minv, sigv, box, step_offset, seed, n_steps, rows,
+                 cols, ccx, ptr2, rowcx, count, P, R, e_part, energy, n,
+                 n_pad, tm, tn, capacity, dt, half_dt, a, b, inv_sigma,
+                 sigma_fold, cutoff2_s, eps_scale, e_scale, approx};
+  err = cull_md_steps(m, s);
+  if (err == cudaSuccess && flag != nullptr) {
+    err = drift_latch(x, anchor, box, n, n_pad, threshold, latch_part, ticket,
+                      flag, s);
+  }
+  return static_cast<int>(err);
 }

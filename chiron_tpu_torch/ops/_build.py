@@ -36,6 +36,9 @@ LIB_NAME = "libchiron_kernels.so"
 # the band pair pass (csrc/common.cuh, pair_pass) splits each row tile's work
 # over this many blocks
 PASS_SPLIT = 4
+# the drift latch (csrc/drift.cu) leaves 4 ints of partial for each this
+# many lanes
+LATCH_BLOCK_LANES = 1024
 
 launches: collections.Counter = collections.Counter()
 
@@ -48,7 +51,12 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _F, _F, _F, _F, _P),
-    "chiron_drift": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "chiron_cull_md_segment": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P),
+    "chiron_drift": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "chiron_band_force": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _I, _I, _P),
@@ -69,10 +77,13 @@ _SIGNATURES = {
     "chiron_tile_build": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I,
         _P),
-    "chiron_mega_repair": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "chiron_mega_repair": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "chiron_repair_scratch_lanes": (_I, _I),
     "chiron_mega_segment": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _U, _I,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
 }
@@ -158,14 +169,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, entry: str, *args):
-    """Call the C entry ``entry`` and count one launch of ``kernel``."""
+def launch(kernel: str, entry: str, *args, enqueued=()):
+    """Call the C entry ``entry`` and count one launch of ``kernel``; an
+    entry that enqueues other kernels names them in ``enqueued``, as
+    (kernel, launches) pairs, and each is counted too."""
     lib = library()
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = lib.chiron_error_string(rc).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
     launches[kernel] += 1
+    for name, k in enqueued:
+        launches[name] += k
 
 
 def stream_of(t) -> int:

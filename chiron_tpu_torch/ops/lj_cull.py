@@ -6,16 +6,21 @@ Two layers, as in the JAX package:
   per-tile bounding boxes and the capacity-padded tile-pair Verlet list
   (``build_tile_pairs``), all device-side with no host synchronisation;
 * the engine: ``CulledLJMD.run_segment`` advances S BAOAB steps on a fixed
-  list.  On a CUDA tensor each step launches the BAOAB kernel
-  (``csrc/baoab.cu``) and the culled force pass (``csrc/lj_cull_force.cu``),
-  and the segment ends with the drift latch (``csrc/drift.cu``); together
-  they replace the fused TPU kernel ``culled_md_raw`` (K3), and the force
-  pass alone replaces ``culled_force_raw`` (K4).  On a CPU tensor each
-  wrapper runs its plain version: ``row_force_pass_plain``,
-  ``baoab_phase_plain`` and ``tile_skin_drift_bad_plain``.
+  list (K3, the fused TPU kernel ``culled_md_raw``).  On a CUDA tensor it
+  is one call of ``chiron_cull_md_segment`` (``csrc/lj_cull_force.cu``),
+  counted as ``culled_md``, which enqueues the whole segment on the current
+  stream: the BAOAB kernel once (``csrc/baoab.cu``), each step's culled
+  force pass, whose gather applies the next step's BAOAB update in its
+  epilogue, and the drift latch (``csrc/drift.cu``), each counted under its
+  own name; the force pass alone replaces ``culled_force_raw`` (K4).  Its
+  scratch comes from a ``SegmentWorkspace`` the runners hold across
+  segments.  On a CPU tensor, and in ``run_segment_stepwise`` on either
+  device, the segment is a Python loop of the wrappers ``baoab_phase_``,
+  ``culled_force_pass`` and ``tile_skin_drift_bad``, each of which runs its
+  plain version (``baoab_phase_plain``, ``row_force_pass_plain``,
+  ``tile_skin_drift_bad_plain``) on a CPU tensor.
 
-The segment loop is a Python loop of launches on the current stream; the
-step counter, the list and the latch stay on the device.
+The step counter, the list and the latch stay on the device.
 """
 
 from __future__ import annotations
@@ -323,11 +328,9 @@ def check_cull_tiles(n_pad: int, tm: int, tn: int):
         )
 
 
-def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
-                       tm: int, tn: int, sigma: float, epsilon: float,
-                       cutoff: float, approx_recip: bool, with_energy: bool):
-    """Check the inputs and launch ``csrc/lj_cull_force.cu``, counted under
-    ``kernel``.  Returns ((3, n_pad) force, () energy or None)."""
+def _check_cull_inputs(x3, box_diag, pairs: TilePairList, tm: int, tn: int):
+    """Raise unless ``x3``, the box and the list are what the culled kernels
+    take.  Returns the list's capacity."""
     _build.check_cuda(x3, "x3")
     dev = x3.device
     n_pad = x3.shape[1]
@@ -347,15 +350,32 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
     check_cull_tiles(n_pad, tm, tn)
     if box_diag.numel() != 3:
         raise ValueError("culled force kernel takes 3 box lengths")
+    return capacity
+
+
+def list_pointers(pairs: TilePairList, with_overflow: bool = True):
+    """The list arrays' device pointers in the kernels' order (rows, cols,
+    ccx, ptr2, rowcx, count), then the overflow flag that a build writes."""
+    names = ("rows", "cols", "ccx", "ptr2", "rowcx", "count")
+    if with_overflow:
+        names += ("overflowed",)
+    return tuple(getattr(pairs, name).data_ptr() for name in names)
+
+
+def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
+                       tm: int, tn: int, sigma: float, epsilon: float,
+                       cutoff: float, approx_recip: bool, with_energy: bool):
+    """Check the inputs and launch ``csrc/lj_cull_force.cu``, counted under
+    ``kernel``.  Returns ((3, n_pad) force, () energy or None)."""
+    capacity = _check_cull_inputs(x3, box_diag, pairs, tm, tn)
+    n_pad = x3.shape[1]
     F, P, R, e_part, energy = cull_buffers(n_pad, tm, tn, capacity,
-                                           with_energy, dev)
+                                           with_energy, x3.device)
     inv_sigma = 1.0 / sigma
     _build.launch(
         kernel, "chiron_cull_force",
-        x3.data_ptr(), box_diag.data_ptr(), pairs.rows.data_ptr(),
-        pairs.cols.data_ptr(), pairs.ccx.data_ptr(), pairs.ptr2.data_ptr(),
-        pairs.rowcx.data_ptr(), pairs.count.data_ptr(), P.data_ptr(),
-        R.data_ptr(), e_part.data_ptr(), F.data_ptr(),
+        x3.data_ptr(), box_diag.data_ptr(), *list_pointers(pairs, False),
+        P.data_ptr(), R.data_ptr(), e_part.data_ptr(), F.data_ptr(),
         None if energy is None else energy.data_ptr(),
         n, n_pad, tm, tn, capacity, inv_sigma, 1.0 / inv_sigma,
         (cutoff / sigma) ** 2, 48.0 * epsilon / sigma, 4.0 * epsilon,
@@ -504,9 +524,9 @@ def baoab_phase_(x, w, F, minv, sigv, box_diag, seed: int, step_offset,
 # ---------------------------------------------------------------------------
 
 
-def skin_drift_top2_plain(x, anchor, n: int, box_diag):
-    """() f32 sum of the two largest min-image drifts of the live lanes from
-    ``anchor`` (two lanes tied at the largest count it twice)."""
+def skin_drift_plain(x, anchor, n: int, box_diag):
+    """(n_pad,) f32 min-image drift of each lane from ``anchor``, 0 on the
+    padding lanes (lane >= n)."""
     n_pad = x.shape[1]
     valid = torch.arange(n_pad, device=x.device) < n
     L = box_diag.reshape(3, 1)
@@ -515,7 +535,14 @@ def skin_drift_top2_plain(x, anchor, n: int, box_diag):
     d2 = dxa[0] * dxa[0]
     d2 = d2 + dxa[1] * dxa[1]
     d2 = d2 + dxa[2] * dxa[2]
-    d = torch.sqrt(torch.where(valid, d2, 0.0))
+    return torch.sqrt(torch.where(valid, d2, 0.0))
+
+
+def skin_drift_top2_plain(x, anchor, n: int, box_diag):
+    """() f32 sum of the two largest min-image drifts of the live lanes from
+    ``anchor`` (two lanes tied at the largest count it twice); NaN where a
+    live lane's drift is NaN."""
+    d = skin_drift_plain(x, anchor, n, box_diag)
     m1 = torch.max(d)
     others = torch.where(d == m1, -1.0, d)
     m2 = torch.clamp_min(torch.max(others), 0.0)
@@ -539,12 +566,41 @@ def tile_skin_drift_bad_plain(x, anchor, n: int, threshold, box_diag):
     return (top2 > threshold) | ~finite_ok
 
 
-def tile_skin_drift_bad(x, anchor, n: int, threshold, box_diag):
+class LatchScratch:
+    """The drift latch's scratch for one n_pad: 4 ints of partial a block
+    of ``_build.LATCH_BLOCK_LANES`` lanes, and the last-block ticket, which
+    the kernel leaves at 0.  Latches that run at once on different streams
+    need one each."""
+
+    def __init__(self, n_pad: int, device):
+        blocks = -(-n_pad // _build.LATCH_BLOCK_LANES)
+        self.n_pad = n_pad
+        self.part = torch.empty(4 * blocks, dtype=torch.int32, device=device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def pointers(self):
+        return self.part.data_ptr(), self.ticket.data_ptr()
+
+
+def _threshold(threshold, device):
+    """A latch threshold as a 0-dim f32 tensor on ``device`` (a float is put
+    there, one more launch)."""
+    if not torch.is_tensor(threshold):
+        threshold = torch.full((), threshold, dtype=torch.float32,
+                               device=device)
+    _build.require(threshold, "threshold", (), torch.float32, device)
+    return threshold
+
+
+def tile_skin_drift_bad(x, anchor, n: int, threshold, box_diag,
+                        scratch: LatchScratch = None):
     """The drift latch: () bool tensor on the device of ``x``.
 
     ``threshold`` is a 0-dim f32 tensor on the device, read there by the
     kernel: the engine's ``slack_t`` in NVT, the NpT runner's remaining
-    budget.  A float is put on the device first, one more launch.
+    budget.  A float is put on the device first, one more launch.  The
+    kernel takes its scratch from ``scratch``, or from a new one (a fill
+    launch for its ticket).
     """
     if x.device.type == "cpu":
         return tile_skin_drift_bad_plain(x, anchor, n, threshold, box_diag)
@@ -553,19 +609,51 @@ def tile_skin_drift_bad(x, anchor, n: int, threshold, box_diag):
     _build.require(x, "x", (3, n_pad), torch.float32)
     _build.require(anchor, "anchor", (3, n_pad), torch.float32, x.device)
     _build.require(box_diag, "box_diag", None, torch.float32, x.device)
-    if not torch.is_tensor(threshold):
-        threshold = torch.full((), threshold, dtype=torch.float32,
-                               device=x.device)
-    _build.require(threshold, "threshold", (), torch.float32, x.device)
+    threshold = _threshold(threshold, x.device)
     if box_diag.numel() != 3:
         raise ValueError("drift: the box needs 3 lengths")
+    if scratch is None:
+        scratch = LatchScratch(n_pad, x.device)
+    if scratch.n_pad != n_pad:
+        raise ValueError(f"latch scratch for n_pad {scratch.n_pad}, not "
+                         f"{n_pad}")
     flag = torch.empty((), dtype=torch.bool, device=x.device)
     _build.launch(
         "tile_skin_drift", "chiron_drift",
         x.data_ptr(), anchor.data_ptr(), box_diag.data_ptr(), n, n_pad,
-        threshold.data_ptr(), flag.data_ptr(), _build.stream_of(x),
+        threshold.data_ptr(), *scratch.pointers(), flag.data_ptr(),
+        _build.stream_of(x),
     )
     return flag
+
+
+class SegmentWorkspace:
+    """The scratch of K3's segments on one engine and list capacity,
+    allocated once and reused by every segment: the force pass's row,
+    column and energy partials, and the drift latch's."""
+
+    def __init__(self, md, capacity: int):
+        _, self.P, self.R, self.e_part, _ = cull_buffers(
+            md.n_pad, md.tm, md.tn, capacity, False, md.device)
+        self.capacity = capacity
+        self.latch = LatchScratch(md.n_pad, md.device)
+
+    def check(self, capacity: int):
+        if self.capacity != capacity:
+            raise ValueError(f"the workspace holds capacity {self.capacity}, "
+                             f"not {capacity}")
+
+
+def segment_launches(n_steps: int, latch: bool):
+    """The kernels that K3's segment enqueues from its C entry, as
+    ``_build.launch`` counts them: ``cull_md_steps`` (lj_cull_force.cu)
+    launches step 0's BAOAB phase and each step's culled force pass (the
+    other steps' BAOAB updates run in its gather), and the entry then the
+    latch where it has a flag.  K11's entry runs the same steps and latch."""
+    out = [("baoab", 1), ("culled_force", n_steps)]
+    if latch:
+        out.append(("tile_skin_drift", 1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +729,8 @@ class CulledLJMD:
     def run_segment(self, x3, v3, f3, box_diag, pairs: TilePairList, seed: int,
                     step_offset, n_steps: int, approx_recip: bool = True,
                     drift_slack: float = None, final_energy: bool = False,
-                    drift_anchor=None, drift_budget=None):
+                    drift_anchor=None, drift_budget=None,
+                    workspace: SegmentWorkspace = None):
         """Advance ``n_steps`` on a fixed list from (x3, v3, f3) (K3).
 
         ``step_offset`` is the (1, 1) int32 step counter of the noise
@@ -653,7 +742,83 @@ class CulledLJMD:
           ``drift_budget``;
         * with ``final_energy``, the () energy of the final configuration,
           taken by the last step's force pass with the exact reciprocal.
+
+        On a CUDA tensor the segment is one C call on ``workspace``'s
+        scratch (a new one if None), its inputs checked once; it equals
+        ``run_segment_stepwise`` bit for bit.  On a CPU tensor it is that
+        loop of plain versions.
         """
+        if x3.device.type == "cpu":
+            return self.run_segment_stepwise(
+                x3, v3, f3, box_diag, pairs, seed, step_offset, n_steps,
+                approx_recip, drift_slack, final_energy, drift_anchor,
+                drift_budget)
+        capacity = _check_cull_inputs(x3, box_diag, pairs, self.tm, self.tn)
+        dev, n_pad = x3.device, self.n_pad
+        for name, t in (("x3", x3), ("v3", v3), ("f3", f3)):
+            _build.require(t, name, (3, n_pad), torch.float32, dev)
+        if n_steps < 1:
+            raise ValueError(f"a segment takes n_steps >= 1 (got {n_steps})")
+        if workspace is None:
+            workspace = SegmentWorkspace(self, capacity)
+        workspace.check(capacity)
+        if not torch.is_tensor(step_offset):
+            step_offset = torch.tensor([[step_offset]], dtype=torch.int32,
+                                       device=dev)
+        _build.require(step_offset, "step_offset", (1, 1), torch.int32, dev)
+        if drift_anchor is not None:
+            anchor = drift_anchor
+            threshold = _threshold(drift_budget, dev)
+            _build.require(anchor, "drift_anchor", (3, n_pad), torch.float32,
+                           dev)
+        elif drift_slack is not None:
+            anchor, threshold = x3, _threshold(drift_slack, dev)
+        else:
+            anchor = threshold = None
+        half_dt = 0.5 * self.dt
+        w = v3 - half_dt * f3 * self.minv
+        x, F = torch.empty_like(x3), torch.empty_like(f3)
+        flag = (None if anchor is None
+                else torch.empty((), dtype=torch.bool, device=dev))
+        energy = (torch.empty(1, dtype=torch.float32, device=dev)
+                  if final_energy else None)
+        inv_sigma = 1.0 / self.sigma
+        _build.launch(
+            "culled_md", "chiron_cull_md_segment",
+            x3.data_ptr(), f3.data_ptr(), x.data_ptr(), w.data_ptr(),
+            F.data_ptr(), self.minv.data_ptr(), self.sigv.data_ptr(),
+            box_diag.data_ptr(), step_offset.data_ptr(), seed & _MASK32,
+            n_steps, *list_pointers(pairs, False), workspace.P.data_ptr(),
+            workspace.R.data_ptr(), workspace.e_part.data_ptr(),
+            None if energy is None else energy.data_ptr(),
+            None if anchor is None else anchor.data_ptr(),
+            None if threshold is None else threshold.data_ptr(),
+            *workspace.latch.pointers(),
+            None if flag is None else flag.data_ptr(),
+            self.n, n_pad, self.tm, self.tn, capacity, self.dt, half_dt,
+            self.a, self.b, inv_sigma, 1.0 / inv_sigma,
+            (self.cutoff / self.sigma) ** 2, 48.0 * self.epsilon / self.sigma,
+            4.0 * self.epsilon, int(approx_recip), _build.stream_of(x3),
+            enqueued=segment_launches(n_steps, flag is not None),
+        )
+        out = [x, w + half_dt * F * self.minv, F]
+        if flag is not None:
+            out.append(flag)
+        if final_energy:
+            out.append(energy[0])
+        return tuple(out)
+
+    def run_segment_stepwise(self, x3, v3, f3, box_diag, pairs: TilePairList,
+                             seed: int, step_offset, n_steps: int,
+                             approx_recip: bool = True,
+                             drift_slack: float = None,
+                             final_energy: bool = False, drift_anchor=None,
+                             drift_budget=None):
+        """``run_segment`` as a Python loop of the step's wrappers:
+        ``baoab_phase_`` and ``culled_force_pass`` each step, then
+        ``tile_skin_drift_bad`` (2 S + 1 calls).  On a CPU tensor these run
+        their plain versions; on a CUDA tensor, their kernels, which
+        ``run_segment``'s one call must equal bit for bit."""
         if not torch.is_tensor(step_offset):
             step_offset = torch.tensor([[step_offset]], dtype=torch.int32,
                                        device=x3.device)

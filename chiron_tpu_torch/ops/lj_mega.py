@@ -7,13 +7,14 @@ their current order, S BAOAB steps on the culled force, the drift latch
 against the entry positions, and P odd-even transposition passes that
 repair the spatial order in place of a re-sort.  On a CUDA tensor one C
 entry of ``csrc/lj_mega.cu`` enqueues all of it on the current stream,
-counted as ``mega_md``: its own ``tile_build`` and ``mega_repair`` kernels
-and K3's BAOAB, culled force and drift kernels, on list and scratch buffers
-a ``MegaWorkspace`` holds across segments.  On a CPU tensor it runs
-``mega_segment_plain``: ``build_tile_pairs``, then ``baoab_phase_plain``,
-``row_force_pass_plain`` and ``tile_skin_drift_bad_plain``, then
-``repair_plain``.  ``tile_build`` and ``mega_repair`` are the two kernels'
-own wrappers.
+counted as ``mega_md`` and each kernel it enqueues under its own name: its
+own ``tile_build`` and ``mega_repair`` and K3's steps (``baoab`` once, the
+culled force S times, the next step's BAOAB update in its gather) and
+latch, on list and scratch buffers a ``MegaWorkspace`` holds across
+segments.  On a CPU tensor it runs ``mega_segment_plain``:
+``build_tile_pairs``, then ``baoab_phase_plain``, ``row_force_pass_plain``
+and ``tile_skin_drift_bad_plain``, then ``repair_plain``.  ``tile_build``
+and ``mega_repair`` are the two kernels' own wrappers.
 
 The repair's comparator is the minimum-image x difference, so the order it
 keeps is cyclic: a particle that wrapped across the x boundary stays near
@@ -29,14 +30,16 @@ from . import _build
 from .lj_cull import (
     _MASK32,
     CulledLJMD,
+    SegmentWorkspace,
     TilePairList,
     baoab_phase_plain,
     build_tile_pairs,
-    cull_buffers,
+    list_pointers,
     row_force_pass_plain,
+    segment_launches,
     tile_skin_drift_bad_plain,
 )
-from .sortbuild import list_buffers, list_pointers
+from .sortbuild import list_buffers
 
 
 def repair_plain(x, w, F, n: int, box_diag, passes: int):
@@ -96,9 +99,25 @@ def tile_build(x3, n: int, tm: int, tn: int, box_diag, cutoff: float,
     return pairs
 
 
+def repair_scratch(n_pad: int, passes: int, device):
+    """The repair's global window scratch (keys, idx) where its window at
+    n_pad and P outgrows shared memory (the kernel's launch decides), else
+    None."""
+    lanes = _build.library().chiron_repair_scratch_lanes(n_pad, passes)
+    if lanes == 0:
+        return None
+    return (torch.empty(lanes, dtype=torch.float32, device=device),
+            torch.empty(lanes, dtype=torch.int32, device=device))
+
+
+def _scratch_pointers(scratch):
+    return (None, None) if scratch is None else tuple(
+        t.data_ptr() for t in scratch)
+
+
 def mega_repair(x, w, F, n: int, box_diag, passes: int):
     """``passes`` repair passes over (x, w, F): returns new tensors.  On a
-    CUDA tensor one launch on copies, counted as ``mega_repair``."""
+    CUDA tensor one launch, counted as ``mega_repair``, into new tensors."""
     if x.device.type == "cpu":
         return repair_plain(x, w, F, n, box_diag, passes)
     _build.check_cuda(x, "x")
@@ -106,11 +125,15 @@ def mega_repair(x, w, F, n: int, box_diag, passes: int):
     for name, t in (("x", x), ("w", w), ("F", F)):
         _build.require(t, name, (3, n_pad), torch.float32, x.device)
     _build.require(box_diag, "box_diag", None, torch.float32, x.device)
-    x, w, F = x.clone(), w.clone(), F.clone()
+    if passes < 0:
+        raise ValueError(f"repair passes {passes} < 0")
+    out = tuple(torch.empty_like(t) for t in (x, w, F))
+    scratch = repair_scratch(n_pad, passes, x.device)
     _build.launch("mega_repair", "chiron_mega_repair", x.data_ptr(),
-                  w.data_ptr(), F.data_ptr(), box_diag.data_ptr(), n, n_pad,
-                  passes, _build.stream_of(x))
-    return x, w, F
+                  w.data_ptr(), F.data_ptr(), *(t.data_ptr() for t in out),
+                  box_diag.data_ptr(), n, n_pad, passes,
+                  *_scratch_pointers(scratch), _build.stream_of(x))
+    return out
 
 
 def mega_segment_plain(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
@@ -134,19 +157,31 @@ def mega_segment_plain(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
     return x, w, F, flag
 
 
-class MegaWorkspace:
+class MegaWorkspace(SegmentWorkspace):
     """The list and scratch buffers of K11's segments on one engine and
-    capacity, allocated once and reused by every segment."""
+    capacity, allocated once and reused by every segment: K3's segment
+    scratch, the list, the (x, w, F) the steps update in place, the drift
+    latch's flag and, once a repair needs it, the repair's window
+    scratch."""
 
     def __init__(self, md: CulledLJMD, capacity: int):
         n_pad = md.n_pad
         check_mega_tiles(n_pad, md.tm, md.tn)
+        super().__init__(md, capacity)
         dev = md.device
-        self.capacity = capacity
         self.pairs = list_buffers(n_pad, md.tm, capacity, dev)
-        _, self.P, self.R, self.e_part, _ = cull_buffers(
-            n_pad, md.tm, md.tn, capacity, False, dev)
+        self.state = torch.empty((3, 3, n_pad), dtype=torch.float32,
+                                 device=dev)
         self.drift_bad = torch.empty((), dtype=torch.bool, device=dev)
+        self._repair = None
+
+    def repair_pointers(self, passes: int):
+        """The repair's (keys, idx) scratch pointers at P = ``passes``,
+        allocated on the first repair that needs them."""
+        if self._repair is None:
+            self._repair = repair_scratch(self.state.shape[2], passes,
+                                          self.state.device)
+        return _scratch_pointers(self._repair)
 
 
 def mega_segment(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
@@ -172,33 +207,39 @@ def mega_segment(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
     n_pad = md.n_pad
     if workspace is None:
         workspace = MegaWorkspace(md, capacity)
-    if workspace.capacity != capacity:
-        raise ValueError(f"the workspace holds capacity {workspace.capacity}, "
-                         f"not {capacity}")
+    workspace.check(capacity)
     for name, t in (("x3", x3), ("w3", w3), ("f3", f3)):
         _build.require(t, name, (3, n_pad), torch.float32, dev)
     _build.require(box_diag, "box_diag", None, torch.float32, dev)
     if box_diag.numel() != 3:
         raise ValueError("mega_segment: the box needs 3 lengths")
+    if n_steps < 1 or repair_passes < 0:
+        raise ValueError(f"mega_segment: n_steps {n_steps} must be >= 1 and "
+                         f"repair_passes {repair_passes} >= 0")
     if not torch.is_tensor(step_offset):
         step_offset = torch.tensor([[step_offset]], dtype=torch.int32,
                                    device=dev)
     _build.require(step_offset, "step_offset", (1, 1), torch.int32, dev)
-    x, w, F = x3.clone(), w3.clone(), f3.clone()
+    x, w, F = (torch.empty_like(t) for t in (x3, w3, f3))
     flag = torch.empty((), dtype=torch.bool, device=dev)
     inv_sigma = 1.0 / md.sigma
+    ws = workspace
     _build.launch(
         "mega_md", "chiron_mega_segment",
-        x.data_ptr(), w.data_ptr(), F.data_ptr(), x3.data_ptr(),
+        x3.data_ptr(), w3.data_ptr(), f3.data_ptr(),
+        *(ws.state[q].data_ptr() for q in range(3)),
+        x.data_ptr(), w.data_ptr(), F.data_ptr(),
         md.minv.data_ptr(), md.sigv.data_ptr(), box_diag.data_ptr(),
         step_offset.data_ptr(), seed & _MASK32, n_steps,
-        *list_pointers(workspace.pairs), workspace.P.data_ptr(),
-        workspace.R.data_ptr(), workspace.e_part.data_ptr(),
-        md.slack_t.data_ptr(), workspace.drift_bad.data_ptr(),
+        *list_pointers(ws.pairs), ws.P.data_ptr(), ws.R.data_ptr(),
+        ws.e_part.data_ptr(), md.slack_t.data_ptr(), *ws.latch.pointers(),
+        ws.drift_bad.data_ptr(), *ws.repair_pointers(repair_passes),
         flag.data_ptr(), md.n, n_pad, md.tm, md.tn, capacity,
         md.cutoff, md.slack, (md.cutoff + md.slack) ** 2,
         md.dt, md.dt * 0.5, md.a, md.b, inv_sigma, 1.0 / inv_sigma,
         (md.cutoff / md.sigma) ** 2, 48.0 * md.epsilon / md.sigma,
         int(approx_recip), repair_passes, _build.stream_of(x),
+        enqueued=(("tile_build", 1), *segment_launches(n_steps, True),
+                  ("mega_repair", 1)),
     )
     return x, w, F, flag

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .lj_cull import TilePairList, build_tile_pairs, slab_y_key
+from .lj_cull import TilePairList, build_tile_pairs, list_pointers, slab_y_key
 
 # the sort runs in one block's shared memory
 MAX_N_PAD = 4096
@@ -82,11 +82,6 @@ def list_buffers(n_pad: int, tm: int, capacity: int, device) -> TilePairList:
         count=torch.empty((1, 1), **i32),
         overflowed=torch.empty((), dtype=torch.bool, device=device),
     )
-
-
-def list_pointers(pairs: TilePairList):
-    return tuple(getattr(pairs, name).data_ptr() for name in (
-        "rows", "cols", "ccx", "ptr2", "rowcx", "count", "overflowed"))
 
 
 def sort_build(x3, v3, f3, box_diag, n: int, tm: int, tn: int, nslab: int,

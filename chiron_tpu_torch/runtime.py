@@ -41,6 +41,8 @@ from . import units
 from .integrators import LangevinCarry
 from .ops.lj_cull import (
     CulledLJMD,
+    LatchScratch,
+    SegmentWorkspace,
     TilePairList,
     build_tile_pairs,
     live_nonfinite,
@@ -306,6 +308,7 @@ class _CulledRunner:
         self.seed = None      # the noise seed, set by init()
         self.nslab = None     # resolved from the box in init()
         self.capacity = None  # resolved from the initial list in init()
+        self._segment_ws = None  # K3's segment scratch on the card
 
     def _start(self, positions, box_vectors, seed: int):
         """The start of ``init``: resolve the layout, sort, build the list
@@ -338,6 +341,18 @@ class _CulledRunner:
         pairs = md.build_pairs(xs, box_diag[0], self.capacity)
         return xs, v3, F3, pairs, carry.overflowed | nonfinite | pairs.overflowed
 
+    def _segment_workspace(self, kind=SegmentWorkspace):
+        """The segments' scratch on the card (K3's, or K11's with
+        ``kind=MegaWorkspace``) for the current capacity, made once (None on
+        the CPU)."""
+        md = self.md
+        if md.device.type != "cuda":
+            return None
+        ws = self._segment_ws
+        if not isinstance(ws, kind) or ws.capacity != self.capacity:
+            ws = self._segment_ws = kind(md, self.capacity)
+        return ws
+
     def check(self, state):
         if bool(state.overflowed):
             raise RuntimeError(
@@ -369,7 +384,6 @@ class CulledLJRunner(_CulledRunner):
         super().__init__(md, dense, segment_steps, sort_mode, exact_forces)
         self.path = path
         self.repair_passes = repair_passes
-        self._workspace = None  # the megakernel's buffers on the card
 
     def init(self, positions, box_vectors, seed: int = 0) -> CullCarry:
         md = self.md
@@ -403,6 +417,7 @@ class CulledLJRunner(_CulledRunner):
             xs, v3, F3, carry.box_diag, pairs, seed=self.seed,
             step_offset=carry.step, n_steps=n_steps,
             approx_recip=not self.exact_forces, drift_slack=md.slack_t,
+            workspace=self._segment_workspace(),
         )
         return CullCarry(
             x=x1, v=v1, F=F1, step=carry.step + n_steps,
@@ -419,16 +434,13 @@ class CulledLJRunner(_CulledRunner):
                 "megakernel supports the pure-x sort regime only (nslab == "
                 "0); use sort_mode='x' or the default path for slab-key "
                 "workloads")
-        ws = self._workspace
-        if md.device.type == "cuda" and (ws is None
-                                         or ws.capacity != self.capacity):
-            ws = self._workspace = MegaWorkspace(md, self.capacity)
         half_dt = 0.5 * md.dt
         w = carry.v - half_dt * carry.F * md.minv
         x1, w1, F1, flag = mega_segment(
             md, carry.x, w, carry.F, carry.box_diag, self.capacity,
             self.seed, carry.step, n_steps, self.repair_passes,
-            approx_recip=not self.exact_forces, workspace=ws)
+            approx_recip=not self.exact_forces,
+            workspace=self._segment_workspace(MegaWorkspace))
         return CullCarry(
             x=x1, v=w1 + half_dt * F1 * md.minv, F=F1,
             step=carry.step + n_steps, box_diag=carry.box_diag,
@@ -733,6 +745,7 @@ class CulledNPTRunner(_CulledRunner):
                 final_energy=True, drift_anchor=carry.x_anchor,
                 # against the WORST evaluated scaling, not just the accepted
                 drift_budget=md.slack - carry.eval_peak,
+                workspace=self._segment_workspace(),
             )
             carry = replace(carry, x=x1, v=v1, F=F1, U=U1,
                             overflowed=carry.overflowed | stale,
@@ -1126,6 +1139,9 @@ class StripRunner:
         self.seed = None  # the noise seed, set by init()
         self.valid = torch.arange(md.n_pad, device=md.device) < md.n
         self.reach = md.cutoff + md.slack
+        # the drift latch's scratch on the card, held across segments
+        self._latch = (LatchScratch(md.n_pad, md.device)
+                       if md.device.type == "cuda" else None)
 
     def _width(self, x3s, Lx):
         return band_width_needed(torch.where(self.valid, x3s[0], 3.0e38),
@@ -1175,7 +1191,7 @@ class StripRunner:
             md.extend(x3s, box), v3, F3, box, self.seed, state.step, n_steps,
             approx_recip=not self.exact_forces)
         drift_bad = tile_skin_drift_bad(xe1[:, :n_pad].contiguous(), x3s, n,
-                                        md.slack_t, box)
+                                        md.slack_t, box, scratch=self._latch)
         return StripCarry(x=xe1, v=v1, F=F1, step=state.step + n_steps,
                           box_diag=box, overflowed=overflowed | drift_bad)
 

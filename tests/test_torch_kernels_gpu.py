@@ -122,7 +122,11 @@ def test_segment_is_bitwise_repeatable_and_counted(carry):
     b = runner.segment_fn(8)(c0)
     for name in ("x", "v", "F", "overflowed"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
-    assert dict(_build.launches) == {"baoab": 16, "culled_force": 16,
+    # each segment: one C call, which enqueues the BAOAB phase once, the
+    # force pass 8 times (the gather's epilogue takes the other updates)
+    # and the latch
+    assert dict(_build.launches) == {"culled_md": 2, "baoab": 2,
+                                     "culled_force": 16,
                                      "tile_skin_drift": 2}
 
 
@@ -178,6 +182,140 @@ def test_budgeted_drift_kernel_matches_plain(carry):
         p = lc.tile_skin_drift_bad_plain(x, c1.x_anchor, N, budget,
                                          c0.box_diag)
         assert bool(k) == bool(p) == expect, (scale, expect)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, where a NaN equals a NaN in the same place."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("tm", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["nvt", "npt"])
+def test_culled_segment_equals_the_stepwise_sequence(cuda, tm, mode):
+    """K3's segment in one C call against the step-by-step sequence of the
+    same kernels (baoab_phase_ and culled_force_pass S times, then
+    tile_skin_drift_bad) from the same inputs: x, v, F, the flag and the
+    energy bit for bit at S = 1, 2 and 40, with either reciprocal, and a
+    NaN coordinate latching both."""
+    runner, c0, _ = _culled_on_card(cuda, 4000, tm)
+    md = runner.md
+    if mode == "nvt":
+        kw = dict(drift_slack=md.slack_t)
+    else:
+        kw = dict(final_energy=True, drift_anchor=c0.x * 1.0001,
+                  drift_budget=torch.tensor(0.1, device=cuda))
+    ws = lc.SegmentWorkspace(md, runner.capacity)
+    nan = c0.x.clone()
+    nan[2, 11] = float("nan")
+    for x3, steps, approx in ((c0.x, 1, True), (c0.x, 2, False),
+                              (c0.x, 40, True), (c0.x, 40, False),
+                              (nan, 40, True)):
+        args = (x3, c0.v, c0.F, c0.box_diag, c0.pairs, 5, c0.step + 3, steps,
+                approx)
+        one = md.run_segment(*args, workspace=ws, **kw)
+        seq = md.run_segment_stepwise(*args, **kw)
+        assert len(one) == len(seq) == (5 if mode == "npt" else 4)
+        for a, b in zip(one, seq):
+            assert _same_bits(a, b), (steps, approx)
+        if x3 is nan:
+            assert bool(one[3])
+
+
+def test_culled_segment_at_an_n_pad_off_the_runners_grain(cuda):
+    """An engine that pads only to lcm(tm, tn) (tm = tn = 64 at N=4000:
+    n_pad 4032, not a multiple of 128, as the runners pad): its one-call
+    segment is still the step-by-step sequence bit for bit, in NVT and in
+    NpT with the final energy."""
+    runner, c0, pot = _culled_on_card(cuda, 4000, 64, tn=64)
+    md = runner.md
+    n_pad = 4032
+    eng = lc.CulledLJMD(
+        4000, pot.sigma, pot.epsilon, pot.cutoff,
+        masses_lane=(1.0 / md.minv[0, :4000]).cpu().numpy(), dt=md.dt,
+        gamma=-np.log(md.a) / md.dt, kT=md.kT, tm=64, tn=64,
+        slack=md.slack, device=cuda)
+    assert eng.n_pad == n_pad
+    x, v, F = (t[:, :n_pad].contiguous() for t in (c0.x, c0.v, c0.F))
+    pairs = eng.build_pairs(x, c0.box_diag, runner.capacity)
+    assert int(pairs.count) > 0
+    ws = lc.SegmentWorkspace(eng, runner.capacity)
+    budget = torch.tensor(0.1, device=cuda)
+    for steps, kw in ((1, dict(drift_slack=eng.slack_t)),
+                      (40, dict(drift_slack=eng.slack_t)),
+                      (40, dict(final_energy=True, drift_anchor=x,
+                                drift_budget=budget))):
+        args = (x, v, F, c0.box_diag, pairs, 5, c0.step, steps)
+        one = eng.run_segment(*args, workspace=ws, **kw)
+        seq = eng.run_segment_stepwise(*args, **kw)
+        assert len(one) == len(seq)
+        for a, b in zip(one, seq):
+            assert _same_bits(a, b), steps
+
+
+def test_culled_segment_never_waits_and_reuses_its_workspace(carry):
+    """The segment's one call queues device work only (under the sync
+    debug mode any host synchronisation raises), in NVT and NpT, and a
+    repeated call on one workspace is bitwise equal."""
+    runner, c0, _ = carry
+    md = runner.md
+    ws = lc.SegmentWorkspace(md, runner.capacity)
+    budget = torch.tensor(0.1, device=c0.x.device)
+    args = (c0.x, c0.v, c0.F, c0.box_diag, c0.pairs, 5, c0.step, 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = md.run_segment(*args, drift_slack=md.slack_t, workspace=ws)
+        b = md.run_segment(*args, final_energy=True, drift_anchor=c0.x,
+                           drift_budget=budget, workspace=ws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = md.run_segment(*args, drift_slack=md.slack_t, workspace=ws)
+    assert all(torch.equal(p, q) for p, q in zip(a, again))
+    assert torch.equal(a[0], b[0]) and torch.isfinite(b[4])
+
+
+def _drift_pair(n, n_pad, device, seed=5):
+    """Entry positions and positions a segment later at N = n: small moves,
+    two lanes tied at the largest drift, padding at 3e38."""
+    rng = np.random.default_rng(seed)
+    L = 17.0
+    anchor = rng.uniform(0, L, (3, n_pad)).astype(np.float32)
+    x = ((anchor + rng.normal(0, 0.02, (3, n_pad))) % L).astype(np.float32)
+    anchor[:, n - 1] = anchor[:, 3]
+    x[:, 3] = x[:, n - 1] = (anchor[:, 3] + 0.2) % L
+    x[:, n:] = anchor[:, n:] = 3.0e38
+    box = torch.full((1, 3), L, device=device)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(anchor).to(device), box)
+
+
+@pytest.mark.parametrize("n,n_pad", [(4000, 4096), (100_000, 100_096)])
+def test_latch_kernel_is_the_plain_latch_bit_for_bit(cuda, n, n_pad):
+    """The one-pass latch (several blocks and a ticket at N=100,000)
+    against the plain version: its top-2 sum is the plain one, so the flag
+    holds at that sum and latches one ulp under it; ties count twice; a NaN
+    in a live lane latches and one in a padding lane does not."""
+    x, anchor, box = _drift_pair(n, n_pad, cuda)
+    top2 = lc.skin_drift_top2_plain(x, anchor, n, box)
+    d = lc.skin_drift_plain(x, anchor, n, box)
+    assert float(top2) == 2 * float(d.max())  # the tie
+    scratch = lc.LatchScratch(n_pad, cuda)
+    below = torch.nextafter(top2, torch.zeros_like(top2))
+    for thr, expect in ((top2, False), (below, True), (0.05, True),
+                        (1.0, False)):
+        for _ in range(2):  # the ticket is ready again after each launch
+            k = lc.tile_skin_drift_bad(x, anchor, n, thr, box, scratch)
+            p = lc.tile_skin_drift_bad_plain(x, anchor, n, thr, box)
+            assert bool(k) == bool(p) == expect, thr
+    for lane, expect in ((n // 2, True), (n + 1, False)):
+        bad = x.clone()
+        bad[1, lane] = float("nan")
+        k = lc.tile_skin_drift_bad(bad, anchor, n, 1.0, box, scratch)
+        assert bool(k) == bool(lc.tile_skin_drift_bad_plain(
+            bad, anchor, n, 1.0, box)) == expect, lane
 
 
 def test_npt_runners_never_wait_for_the_device(carry):
@@ -606,7 +744,10 @@ def test_mega_segment_p0_is_the_classic_path_and_repeats(carry):
     m0 = lm.mega_segment(*args, 0, workspace=ws)
     m16 = lm.mega_segment(*args, 16, workspace=ws)
     again = lm.mega_segment(*args, 16, workspace=ws)
-    assert dict(_build.launches) == {"mega_md": 3}
+    assert ws.repair_pointers(16) == (None, None)  # P=16 fits shared memory
+    assert dict(_build.launches) == {
+        "mega_md": 3, "tile_build": 3, "baoab": 3, "culled_force": 24,
+        "tile_skin_drift": 3, "mega_repair": 3}
     assert torch.equal(m0[0], xc) and torch.equal(m0[2], Fc)
     assert torch.equal(m0[1] + half * m0[2] * md.minv, vc)
     assert bool(m0[3]) == bool(stale)
@@ -615,6 +756,61 @@ def test_mega_segment_p0_is_the_classic_path_and_repeats(carry):
         assert torch.equal(a[:, N:], b[:, N:])
         assert torch.equal(torch.sort(a[:, :N].flatten()).values,
                            torch.sort(b[:, :N].flatten()).values)
+
+
+def _nearly_sorted(n, n_pad, device, seed=9):
+    """x in cyclic order with local disorder, some lanes wrapped across x
+    and ties; padding at 3e38."""
+    rng = np.random.default_rng(seed)
+    L = 17.0
+    x0 = ((np.arange(n) + 0.5) * L / n + rng.normal(0, 4 * L / n, n)) % L
+    x0[rng.choice(n, 50, replace=False)] = x0[10]
+    x0[:8] = (x0[:8] + L - 0.01) % L
+    x = rng.uniform(0, L, (3, n_pad)).astype(np.float32)
+    x[0, :n] = x0
+    x[:, n:] = 3.0e38
+    w = rng.normal(0, 1, (3, n_pad)).astype(np.float32)
+    F = rng.normal(0, 100, (3, n_pad)).astype(np.float32)
+    return (*(torch.from_numpy(a).to(device) for a in (x, w, F)),
+            torch.full((3,), L, device=device))
+
+
+@pytest.mark.parametrize("n,n_pad", [(4000, 4096), (100_000, 100_096)])
+def test_windowed_repair_is_repair_plain_bitwise(cuda, n, n_pad):
+    """The repair in one launch of many blocks (128 at n_pad 4096, P=16),
+    each on its own window: bitwise repair_plain at P = 1, 16 and 256,
+    padding unmoved."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    x, w, F, box = _nearly_sorted(n, n_pad, cuda)
+    for passes in (1, 16, 256):
+        _build.reset_launch_counts()
+        got = lm.mega_repair(x, w, F, n, box, passes)
+        assert dict(_build.launches) == {"mega_repair": 1}
+        want = lm.repair_plain(x, w, F, n, box, passes)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), passes
+        assert torch.equal(got[0][:, n:], x[:, n:])
+        assert not torch.equal(got[0], x)
+
+
+def test_repair_beyond_shared_memory_is_repair_plain_bitwise(cuda):
+    """Where the window outgrows shared memory (n_pad 26,624, P = 12,560:
+    512 + 2 P lanes above 25,600), the repair runs in one block on global
+    scratch, which is allocated only then: bitwise repair_plain."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    n, n_pad, passes = 26_000, 26_624, 12_560
+    assert lm.repair_scratch(n_pad, 256, cuda) is None
+    keys, idx = lm.repair_scratch(n_pad, passes, cuda)
+    assert keys.numel() == idx.numel() == n_pad
+    x, w, F, box = _nearly_sorted(n, n_pad, cuda)
+    got = lm.mega_repair(x, w, F, n, box, passes)
+    want = lm.repair_plain(x, w, F, n, box, passes)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0][:, n:], x[:, n:])
+    assert not torch.equal(got[0], x)
 
 
 @pytest.mark.parametrize("path", ["fused_rebuild", "megakernel"])

@@ -64,9 +64,10 @@ runner from it on the CPU).
 
     python3 chip_profile.py --segment-dump OUT [REF]
 
-writes K3's segments (NVT, exact reciprocal, NpT) and a megakernel segment
-from one state to ``OUT`` and, given another tree's ``REF``, compares them
-bit for bit (``segment_dump``); it runs in the parent tree too.
+writes K3's segments (NVT, exact reciprocal, NpT), a megakernel segment and
+K10's and ``tile_build``'s outputs on its order from one state to ``OUT``
+and, given another tree's ``REF``, compares them bit for bit
+(``segment_dump``); it runs in the parent tree too.
 
 Without a CUDA device it exits nonzero before measuring anything.
 """
@@ -258,14 +259,16 @@ def segment_dump(common, box, pos0, out, ref=None):
     from the dense melt (K1 only) the culled runner's ``init`` (sort, list,
     K4) and, on its list, 40-step segments in NVT (with the latch), with
     the exact reciprocal, and in NpT (anchor, budget 0.1, final energy),
-    and a megakernel segment (pure x, P=16).  It makes only calls that
+    and a megakernel segment (pure x, P=16), then K10 (``sort_build``,
+    nslab 0) and K11's ``tile_build`` on that segment's output.  It makes
+    only calls that
     older trees of the port have too, so that it runs in a parent tree;
     with ``ref``, an npz of another tree, each array is compared bit for
     bit."""
     import numpy as np
     import torch
 
-    from chiron_tpu_torch.ops import lj_mega
+    from chiron_tpu_torch.ops import lj_mega, sortbuild
     from chiron_tpu_torch.runtime import (
         make_culled_lj_runner,
         make_fast_lj_runner,
@@ -286,6 +289,18 @@ def segment_dump(common, box, pos0, out, ref=None):
                                          40, 16)
             arrays.update({f"mega_{k}": t for k, t in
                            zip(("x", "w", "F", "flag"), out_m)})
+            # K10 and K11's build on the segment's repaired order
+            box0, cap = c.box_diag[0], runner.capacity
+            *moved, sorted_list = sortbuild.sort_build(
+                *out_m[:3], box0, N, md.tm, md.tn, 0, md.cutoff, md.slack,
+                cap)
+            built = lj_mega.tile_build(out_m[0], N, md.tm, md.tn, box0,
+                                       md.cutoff, md.slack, cap)
+            arrays.update({f"sort_build_{k}": t
+                           for k, t in zip(("x", "w", "F"), moved)})
+            for f in sorted_list._fields:
+                arrays[f"sort_build_{f}"] = getattr(sorted_list, f)
+                arrays[f"tile_build_{f}"] = getattr(built, f)
             continue
         modes = {"nvt": dict(drift_slack=md.slack_t),
                  "exact": dict(approx_recip=False, drift_slack=md.slack_t),

@@ -85,11 +85,20 @@ Phases (any failure raises, and the script exits nonzero):
    1e-5 nm), a repeated run bitwise equal, then, counted, 1000 steps in
    segments of 100 with ``step_offset``: K1's energy within 1e-5 of the f64
    oracle, T_kin within 5%; (b) K10, ``sort_build`` bitwise equal to its
-   plain version on every output at nslab 0 and 4, then, counted, the
+   plain version on every output at nslab 0 and 4, its x' the permutation
+   of a torch replica of its network (8 lanes a thread; each stage in a
+   thread, by a shuffle or through shared memory), and at n_pad 1024, 2048
+   and 4096 on tied keys (a -0 among them) and on a NaN live coordinate,
+   nslab 0 and 4, with the whole capacity, an overflow and the shift latch,
+   bitwise equal to its plain version, to a repeat and to the replicas of
+   its network and its build; timed beside ``torch.sort`` of the same keys
+   (the sort phase's yardstick only); then, counted, the
    culled runner with ``fused_rebuild`` (S=40, slack 0.15) for 3000 steps
    on the kernel path: ``check()`` clean, energy within 1e-5 of the oracle,
    T_kin within 5%; (c) K11, its ``tile_build`` and ``mega_repair`` (at
-   P = 1, 16 and 256) bitwise equal to their plain versions, the repair also
+   P = 1, 16 and 256) bitwise equal to their plain versions, the build also
+   at n_pad 8192 (64 x 32 tile pairs, two passes; sorted and shuffled, two
+   capacities) to its plain version and to the build's replica, the repair
    to a torch replica of its windows at the kernel's chunk, each timed
    against its bound, a P=0 ``mega_segment`` from a freshly
    sorted state bitwise equal to the classic kernel path, a P=16 one a pure
@@ -680,6 +689,286 @@ def _canon(x, v, F, n):
     return m[:, np.lexsort(m[::-1])]
 
 
+# The list build (csrc/tile_build.cuh): a row's column tiles lie in words of
+# 32 lanes; a pass takes whole rows, at most 32 and at most PASS_WORDS words
+PASS_WORDS = 512
+# K10's network (csrc/sortbuild.cu): the adjacent lanes a thread holds
+SORT_LANES = 8
+
+
+def _popc(m):
+    """The set bits of each 32-bit mask in the int64 tensor ``m``."""
+    return sum((m >> b) & 1 for b in range(32))
+
+
+def _build_grid(nr, nc):
+    """The build's (words a row, rows a pass), as ``tile_build::grid``."""
+    ncw = -(-nc // 32)
+    return ncw, min(max(PASS_WORDS // ncw, 1), 32)
+
+
+def _list_replica(x3, n, tm, tn, box_diag, cutoff, slack, capacity):
+    """A torch replica of the list build's pair stage in the kernel's lane
+    layout (csrc/tile_build.cuh): the plain version's rectangle geometry,
+    then, a pass of whole rows at a time, word w of the pass on a warp,
+    column (w mod ncw) 32 + lane on its lane; the two ballots (kept general,
+    kept fast) a word; each row's counts and words' prefixes by popcount;
+    the rows' exclusive scan over the running total of the earlier passes;
+    each kept pair's slot from the popcount of its row's mask below its
+    lane; the shift bound over every kept pair.  Returns a TilePairList."""
+    import torch
+
+    from chiron_tpu_torch.ops import lj_cull as lc
+
+    dev = x3.device
+    n_pad = x3.shape[1]
+    nr, nc = n_pad // tm, n_pad // tn
+    box = box_diag.reshape(3)
+    keep, hsum, rcen, ccen = lc._tile_geometry(x3, n, tm, tn, box,
+                                               cutoff + slack)
+    Lx = box[0]
+    bound_x = 0.5 * Lx - cutoff - slack
+    ncw, rows_a_pass = _build_grid(nr, nc)
+    lane = torch.arange(32, device=dev)
+    below = (1 << lane) - 1
+    rows = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    cols = torch.zeros_like(rows)
+    ccx = torch.zeros(capacity, dtype=torch.float32, device=dev)
+    ptr2 = torch.zeros(2 * nr + 1, dtype=torch.int64, device=dev)
+    run, bad, taken = 0, False, set()
+    for r0 in range(0, nr, rows_a_pass):
+        nrows = min(rows_a_pass, nr - r0)
+        w = torch.arange(nrows * ncw, device=dev)
+        r = (r0 + w // ncw)[:, None].expand(-1, 32)
+        c = (w % ncw)[:, None] * 32 + lane
+        on = c < nc
+        cc = torch.where(on, c, 0)
+        k = keep[r, cc] & on
+        general = ((cc * tn < r * tm + tm) | (cc >= (n - 1) // tn)
+                   | (r >= (n - 1) // tm))
+        bad = bad or bool((k & (hsum[0][r, cc] > bound_x)).any())
+        gm = ((k & general).long() << lane).sum(1)
+        fm = ((k & ~general).long() << lane).sum(1)
+        gp, fp = _popc(gm).reshape(nrows, ncw), _popc(fm).reshape(nrows, ncw)
+        gpre = (torch.cumsum(gp, 1) - gp).reshape(-1)
+        fpre = (torch.cumsum(fp, 1) - fp).reshape(-1)
+        gsum, fsum = gp.sum(1), fp.sum(1)
+        incl = torch.cumsum(gsum + fsum, 0) + run
+        base = incl - gsum - fsum
+        ri = torch.arange(r0, r0 + nrows, device=dev)
+        ptr2[2 * ri + 1] = torch.clamp_max(incl - fsum, capacity)
+        ptr2[2 * ri + 2] = torch.clamp_max(incl, capacity)
+        run = int(incl[-1])
+        i = w // ncw
+        gbit = ((gm[:, None] >> lane) & 1) == 1
+        fbit = ((fm[:, None] >> lane) & 1) == 1
+        slot = torch.where(
+            gbit, (base[i] + gpre)[:, None] + _popc(gm[:, None] & below),
+            (base[i] + gsum[i] + fpre)[:, None] + _popc(fm[:, None] & below))
+        put = (gbit | fbit) & (slot < capacity)
+        _require(taken.isdisjoint(slot[put].tolist())
+                 and slot[put].unique().numel() == int(put.sum()),
+                 "two pairs of the build replica share a slot")
+        taken.update(slot[put].tolist())
+        rr, cp = r[put], cc[put]
+        rows[slot[put]] = rr.to(torch.int32)
+        cols[slot[put]] = cp.to(torch.int32)
+        cx = ccen[0][cp]
+        ccx[slot[put]] = cx + torch.round((rcen[0][rr] - cx) / Lx) * Lx
+    return lc.TilePairList(
+        rows=rows.reshape(1, -1), cols=cols.reshape(1, -1),
+        ccx=ccx.reshape(1, -1), ptr2=ptr2.to(torch.int32).reshape(1, -1),
+        rowcx=rcen[0].reshape(1, -1).contiguous(),
+        count=torch.tensor([[min(run, capacity)]], dtype=torch.int32,
+                           device=dev),
+        overflowed=torch.tensor(run > capacity or bad, device=dev))
+
+
+def _rint_div(d, L):
+    """A torch replica of the build's round(d / L) (csrc/tile_build.cuh,
+    rint_div): where |d| <= L, copysign([d >= t] - [d <= -t], d) with t the
+    float after L/2; elsewhere the division."""
+    import torch
+
+    t = torch.nextafter(0.5 * L, torch.full_like(L, math.inf))
+    n = (d >= t).float() - (d <= -t).float()
+    return torch.where(d.abs() <= L, torch.copysign(n, d),
+                       torch.round(d / L))
+
+
+def _network_route(j, lanes=SORT_LANES):
+    """Where K10's network takes a stage of partner distance ``j``:
+    ``"thread"`` (both lanes held by one thread), ``"warp"`` (a shuffle
+    within the warp) or ``"shared"`` (shared memory and a barrier)."""
+    return ("thread" if j < lanes
+            else "warp" if j < 32 * lanes else "shared")
+
+
+def _network_replica(key, lanes=SORT_LANES):
+    """A torch replica of K10's bitonic network in the kernel's layout:
+    thread t holds lanes t lanes + u (u < lanes) of the n_pad keys; stage
+    (k, j) pairs held lane (t, u) with (t, u ^ j) inside the thread, else
+    with (t ^ j / lanes, u), in the same warp for a shuffle and in another
+    one through shared memory; the lane that keeps the smaller key (the
+    lower lane l of an ascending block, l & k == 0, or the upper lane of a
+    descending one) takes its partner's pair when its key is strictly
+    smaller, the other lane when it is strictly larger: the TPU kernel's
+    strict comparisons.  Returns the int64 permutation and the stages each
+    route took."""
+    import collections
+
+    import torch
+
+    n = key.shape[0]
+    held = max(n // lanes, 1)
+    t = torch.arange(held, device=key.device)[:, None]
+    u = torch.arange(min(lanes, n), device=key.device)[None, :]
+    lane = t * lanes + u
+    kh, ih = key[lane], lane.clone()
+    routes = collections.Counter()
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            route = _network_route(j, lanes)
+            routes[route] += 1
+            if route == "thread":
+                pt, pu = t.expand_as(lane), (u ^ j).expand_as(lane)
+            else:
+                pt, pu = (t ^ (j // lanes)).expand_as(lane), u.expand_as(lane)
+                in_warp = (pt // 32 == t // 32).all()
+                _require(bool(in_warp) == (route == "warp"),
+                         f"stage j={j}: partner outside the route {route}")
+            pk, pi = kh[pt, pu], ih[pt, pu]
+            keep_min = ((lane & j) == 0) == ((lane & ~j & k) == 0)
+            swap = torch.where(keep_min, pk < kh, kh < pk)
+            kh, ih = torch.where(swap, pk, kh), torch.where(swap, pi, ih)
+            j //= 2
+        k *= 2
+    return ih.reshape(-1), dict(routes)
+
+
+def _same(a, b):
+    """Equal bit for bit where both hold numbers, NaN where either does."""
+    import torch
+
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _listbuild_state(dev, n, n_pad, kind, seed=4):
+    """(x, v, F) on ``dev``, n live lanes of n_pad in a 5.8 nm box: x on a
+    0.05 nm grid ("ties": hundreds of live keys tie, a -0 with a +0) or
+    with a NaN live x and y ("nan"); the padding at 3e38, as the sorting
+    runners leave it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 5.8, (3, n_pad)).astype(np.float32)
+    if kind == "ties":
+        x[0] = np.round(x[0] / 0.05) * np.float32(0.05)
+        x[0, [3, 9]] = -0.0, 0.0  # zeros of both signs tie too
+        _require(n - np.unique(x[0, :n]).size >= 256, "too few tied keys")
+    else:
+        x[0, 5] = x[1, n // 2] = np.nan
+    x[:, n:] = 3.0e38
+    v, F = rng.normal(0, 1, (2, 3, n_pad)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, v, F))
+
+
+def _sort_build_edges(dev):
+    """K10 at n_pad 1024, 2048 and 4096 (tiles 128 x 256) on tied keys and
+    on a NaN live coordinate, nslab 0 and 4, with the whole capacity, a
+    capacity of 3 (overflow) and a cutoff over L/2 (the shift latch): equal
+    bit for bit to the plain version, to a repeat, and to the network's and
+    the build's replicas.  Returns the number of cases."""
+    import torch
+
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.ops import sortbuild as sb
+
+    box = torch.full((3,), 5.8, device=dev)
+    tm, tn, cases = 128, 256, 0
+    for n_pad in (1024, 2048, 4096):
+        n = n_pad - 96
+        full = (n_pad // tm) * (n_pad // tn)
+        for kind in ("ties", "nan"):
+            x, v, F = _listbuild_state(dev, n, n_pad, kind)
+            for nslab in (0, 4):
+                perm, _ = _network_replica(
+                    lc.slab_y_key(x, n, nslab, box[0], Ly=box[1]))
+                for cutoff, cap in ((1.02, full), (1.02, 3), (2.9, full)):
+                    a = (x, v, F, box, n, tm, tn, nslab, cutoff, SLACK, cap)
+                    ko, again = sb.sort_build(*a), sb.sort_build(*a)
+                    po = sb.sort_build_plain(*a)
+                    rep = _list_replica(x[:, perm], n, tm, tn, box, cutoff,
+                                        SLACK, cap)
+                    ok = all(_same(k, p) and _same(k, q) and _same(k, t[:, perm])
+                             for k, p, q, t in zip(ko[:3], po[:3], again[:3],
+                                                   (x, v, F)))
+                    ok = ok and all(
+                        _same(getattr(ko[3], f), getattr(o, f))
+                        for o in (po[3], again[3], rep)
+                        for f in lc.TilePairList._fields)
+                    _require(ok and (cap == full and cutoff < 2
+                                     or bool(ko[3].overflowed)),
+                             f"K10 at n_pad {n_pad} ({kind}, nslab {nslab}, "
+                             f"cutoff {cutoff}, capacity {cap}) differs")
+                    cases += 1
+    return cases
+
+
+def _tile_build_8192(dev, common):
+    """K11's build at n_pad 8192 (N=8000, tiles 128 x 256: 64 x 32 = 2048
+    pairs, two passes), on the runner's sorted layout and shuffled (every
+    kept rectangle over the shift bound), at its capacity and at 20: equal
+    bit for bit to build_tile_pairs, to a repeat and to the build's
+    replica.  Returns (n_pad, the sorted layout's count, capacity)."""
+    import numpy as np
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.ops import lj_mega as lm
+    from chiron_tpu_torch.runtime import make_culled_lj_runner
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+
+    n = 8000
+    fluid = LennardJonesFluid(nparticles=n, reduced_density=DENSITY)
+    box = fluid.box_vectors.value_in_unit_system(units.md_unit_system)
+    pos = fluid.positions.value_in_unit_system(units.md_unit_system)
+    rng = np.random.default_rng(SEED)
+    pos = ((pos + rng.normal(0, 0.01, pos.shape)) % box[0, 0]).astype(
+        np.float32)
+    kw = {**common, "potential": fluid.potential, "n_particles": n,
+          "topology": fluid.topology}
+    runner = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
+                                   sort_mode="x", megakernel=True, **kw)
+    c0 = runner.init(pos, box, seed=SEED)
+    md = runner.md
+    _require((md.n_pad, md.tm, md.tn) == (8192, 128, 256),
+             f"n_pad {md.n_pad}, tiles {md.tm} x {md.tn}")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    perm = torch.cat([torch.randperm(n, generator=g, device=dev),
+                      torch.arange(n, md.n_pad, device=dev)])
+    b = c0.box_diag[0]
+    for x in (c0.x, c0.x[:, perm].contiguous()):
+        for cap in (runner.capacity, 20):
+            a = (x, n, md.tm, md.tn, b, md.cutoff, md.slack, cap)
+            kt, again = lm.tile_build(*a), lm.tile_build(*a)
+            want = (lc.build_tile_pairs(*a), again, _list_replica(*a))
+            _require(all(_same(getattr(kt, f), getattr(o, f)) for o in want
+                         for f in lc.TilePairList._fields),
+                     f"tile_build at n_pad 8192 (capacity {cap}) differs")
+    return md.n_pad, int(lc.build_tile_pairs(
+        c0.x, n, md.tm, md.tn, b, md.cutoff, md.slack,
+        runner.capacity).count), runner.capacity
+
+
 def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
     """[10] K9, K10 and K11, each against its plain version and on its path,
     from phase 5's melted state ``st``; adds their rows to ``results`` and
@@ -810,6 +1099,17 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
         print(f"    (b) K10 sort_build nslab {nslab}: x', v', F' and the list "
               f"(count {int(ko[3].count)}, capacity {capacity}, overflowed "
               f"{bool(ko[3].overflowed)}) bitwise equal to plain")
+    key = lc.slab_y_key(x5, N, 0, box1[0], Ly=box1[1])
+    perm, routes = _network_replica(key)
+    _require(torch.equal(sb.sort_build(x5, v5, F5, box1, N, tm, tn, 0, cut,
+                                       SLACK, cap)[0], x5[:, perm]),
+             "K10's x' is not the network replica's permutation")
+    print(f"        its network ({SORT_LANES} lanes a thread, stages "
+          f"{routes}) is the replica's permutation; "
+          f"{_sort_build_edges(dev)} edge cases (n_pad 1024, 2048 and "
+          f"4096; tied keys or a NaN live coordinate; nslab 0 and 4; the "
+          f"whole capacity, an overflow, the shift latch) bitwise equal to "
+          f"plain, to a repeat and to the replicas")
     a = (x5, v5, F5, box1, N, tm, tn, 0, cut, SLACK, cap)
     ms = _cuda_ms(lambda: sb.sort_build(*a))
     plain_ms = _cuda_ms(lambda: sb.sort_build_plain(*a), reps=5)
@@ -817,7 +1117,10 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
     list_bytes = 4 * (3 * cap + 2 * nr + 1 + nr + 1) + 1
     bound_ms, bound_by = _bound(0, 2 * 3 * lane_bytes + 12 + list_bytes)
     _report("sort_build (bitwise)", 0.0, "equal", ms, plain_ms)
-    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    sort_ms = _cuda_ms(lambda: torch.sort(key, stable=True))
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi}); torch.sort "
+          f"(stable) of the same {n_pad} keys {sort_ms:.4f} ms, a yardstick "
+          f"of the sort phase only: no PyTorch call computes K10's function")
     results["sort_build"] = dict(
         source="chiron_tpu_torch/csrc/sortbuild.cu",
         replaces="chiron_tpu/ops/sortbuild.py:351", max_abs_err=0.0, ms=ms,
@@ -873,7 +1176,11 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
     list_bytes = 4 * (3 * cap + 2 * nr + 1 + nr + 1) + 1
     bound_ms, bound_by = _bound(0, lane_bytes + 12 + list_bytes)
     _report("tile_build (bitwise)", 0.0, "equal", ms, plain_ms)
-    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi})")
+    n8, count8, cap8 = _tile_build_8192(dev, common)
+    print(f"    bound {bound_ms * 1e3:.3f} us ({bound_by}; {smi}); at n_pad "
+          f"{n8} (count {count8}, capacity {cap8}; sorted and shuffled, two "
+          f"capacities) bitwise equal to plain, to a repeat and to the "
+          f"build's replica")
     results["tile_build"] = dict(
         source="chiron_tpu_torch/csrc/lj_mega.cu",
         replaces="chiron_tpu/ops/lj_mega.py:368", max_abs_err=0.0, ms=ms,

@@ -52,7 +52,8 @@ constexpr int kThreads = 1024;
 __global__ void __launch_bounds__(kThreads)
 tile_build_kernel(tile_build::Params p) {
   extern __shared__ float smem[];
-  tile_build::build(p, smem);
+  const float box[3] = {p.box[0], p.box[1], p.box[2]};
+  tile_build::build(p, smem, box);
 }
 
 constexpr int kMaxRepairSmem = 200 * 1024;
@@ -171,7 +172,8 @@ cudaError_t launch_repair(const float* x, const float* w, const float* F,
 }
 
 cudaError_t launch_tile_build(const tile_build::Params& p, cudaStream_t s) {
-  const size_t smem = tile_build::smem_bytes(p.n_pad, p.tm, p.tn);
+  if (p.tm % 128 != 0 || p.tn % 128 != 0) return cudaErrorInvalidValue;
+  const size_t smem = tile_build::smem_bytes(p.g);
   cudaError_t err = cudaFuncSetAttribute(
       tile_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -190,7 +192,8 @@ CHIRON_EXPORT int chiron_tile_build(const float* x, const float* box, int* rows,
                                     float cutoff, float slack, float reach2,
                                     int capacity, void* stream) {
   const tile_build::Params p{x, box, rows, cols, ccx, ptr2, rowcx, count, over,
-                             n, n_pad, tm, tn, capacity, cutoff, slack, reach2};
+                             n, n_pad, tm, tn, capacity, cutoff, slack, reach2,
+                             tile_build::grid(n_pad, tm, tn)};
   return static_cast<int>(
       launch_tile_build(p, static_cast<cudaStream_t>(stream)));
 }
@@ -249,7 +252,7 @@ CHIRON_EXPORT int chiron_mega_segment(
   if (err != cudaSuccess) return static_cast<int>(err);
   const tile_build::Params bp{x_in, box, rows, cols, ccx, ptr2, rowcx, count,
                               build_over, n, n_pad, tm, tn, capacity, cutoff,
-                              slack, reach2};
+                              slack, reach2, tile_build::grid(n_pad, tm, tn)};
   err = launch_tile_build(bp, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const CullMD m{x, w, F, minv, sigv, box, step_offset, seed, n_steps, rows,

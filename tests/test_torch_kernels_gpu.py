@@ -701,6 +701,80 @@ def test_sort_build_kernel_equals_plain_bitwise(carry, nslab):
         assert torch.equal(getattr(ko[3], f), getattr(again[3], f)), f
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module: its list-build states and replicas."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n_pad", [1024, 2048, 4096])
+@pytest.mark.parametrize("nslab", [0, 4])
+@pytest.mark.parametrize("kind", ["ties", "nan"])
+def test_sort_build_kernel_bitwise_on_ties_nan_overflow_and_latch(
+        cuda, n_pad, nslab, kind):
+    """K10 (8 lanes a thread in its network) against the plain version bit
+    for bit on every output, and repeatable: with the whole capacity, with a
+    capacity of 3 (overflow) and at a cutoff over L/2 (the shift latch)."""
+    from chiron_tpu_torch.ops import sortbuild as sb
+
+    n = n_pad - 96
+    x, v, F = _chip_smoke()._listbuild_state(cuda, n, n_pad, kind)
+    box = torch.full((3,), 5.8, device=cuda)
+    tm, tn = 128, 256
+    full = (n_pad // tm) * (n_pad // tn)
+    for cutoff, cap, over in ((1.02, full, None), (1.02, 3, True),
+                              (2.9, full, True)):
+        a = (x, v, F, box, n, tm, tn, nslab, cutoff, 0.15, cap)
+        _build.reset_launch_counts()
+        ko, again = sb.sort_build(*a), sb.sort_build(*a)
+        assert dict(_build.launches) == {"sort_build": 2}
+        po = sb.sort_build_plain(*a)
+        for k, q, p in zip(ko[:3], again[:3], po[:3]):
+            assert _same_bits(k, p) and _same_bits(k, q)
+        for f in lc.TilePairList._fields:
+            assert _same_bits(getattr(ko[3], f), getattr(po[3], f)), f
+            assert _same_bits(getattr(ko[3], f), getattr(again[3], f)), f
+        if over is not None:
+            assert bool(po[3].overflowed)
+
+
+@pytest.mark.parametrize("n,n_pad", [(8000, 8192), (20000, 20224)])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_tile_build_kernel_beyond_one_pass(cuda, n, n_pad, shuffle):
+    """K11's build over 64 x 32 = 2048 (row tile, column tile) pairs, two
+    passes of the pair stage, and over 158 x 79 pairs, 25 passes: bit for
+    bit equal to build_tile_pairs and repeatable; shuffled, every kept
+    rectangle trips the shift latch."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    runner, c0, _ = _culled_on_card(cuda, n, 128)
+    md = runner.md
+    assert (md.n_pad, md.tm, md.tn) == (n_pad, 128, 256)
+    x = c0.x
+    if shuffle:
+        g = torch.Generator(device=cuda).manual_seed(5)
+        perm = torch.cat([torch.randperm(n, generator=g, device=cuda),
+                          torch.arange(n, md.n_pad, device=cuda)])
+        x = x[:, perm].contiguous()
+    box = c0.box_diag[0]
+    for cap in (runner.capacity, 20):
+        args = (x, n, md.tm, md.tn, box, md.cutoff, md.slack, cap)
+        _build.reset_launch_counts()
+        kt, again = lm.tile_build(*args), lm.tile_build(*args)
+        assert dict(_build.launches) == {"tile_build": 2}
+        pt = lc.build_tile_pairs(*args)
+        for f in lc.TilePairList._fields:
+            assert torch.equal(getattr(kt, f), getattr(pt, f)), f
+            assert torch.equal(getattr(kt, f), getattr(again, f)), f
+        assert bool(pt.overflowed) == (shuffle or cap == 20)
+
+
 def test_tile_build_and_repair_kernels_equal_plain_bitwise(carry):
     from chiron_tpu_torch.ops import lj_mega as lm
 

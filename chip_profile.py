@@ -69,6 +69,15 @@ K10's and ``tile_build``'s outputs on its order from one state to ``OUT``
 and, given another tree's ``REF``, compares them bit for bit
 (``segment_dump``); it runs in the parent tree too.
 
+    python3 chip_profile.py --general
+
+profiles the general API alone (``general``): the README's quick start
+(``LennardJonesFluid(1000, 0.1)``, 300 K, ``NeighborListNsqrd`` with skin
+0.5 nm, ``LangevinIntegrator`` at 2 fs) after 2000 steps, and
+``LangevinIntegrator`` on ``DensePairs`` (K1) at N=4000 and 120 K after a
+1000-step melt from the lattice, then ``make_langevin_runner`` on the same
+scheme: three 1000-step windows of each, then profiler rows of 200 steps.
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -348,6 +357,89 @@ def _strip_start(common, box, pos0):
     return strip, strip.init(runner.positions(culled), box, seed=SEED)
 
 
+GENERAL_WINDOW_STEPS = 1000
+GENERAL_PROFILE_STEPS = 200
+
+
+def general(dev):
+    """Windows and profiler rows of the general API's two paths."""
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.integrators import LangevinIntegrator
+    from chiron_tpu_torch.neighbors import (
+        DensePairs,
+        NeighborListNsqrd,
+        OrthogonalPeriodicSpace,
+    )
+    from chiron_tpu_torch.runtime import make_langevin_runner
+    from chiron_tpu_torch.states import SamplerState, ThermodynamicState
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+    from chiron_tpu_torch.utils import PRNG
+
+    def setup(n, density, kelvin, pairs_of):
+        fluid = LennardJonesFluid(nparticles=n, reduced_density=density)
+        PRNG.set_seed(SEED)
+        st = SamplerState(positions=fluid.positions,
+                          current_PRNG_key=PRNG.get_random_key(),
+                          box_vectors=fluid.box_vectors, device=dev)
+        thermo = ThermodynamicState(potential=fluid.potential,
+                                    temperature=kelvin * units.kelvin)
+        return fluid, st, thermo, pairs_of(fluid)
+
+    space = OrthogonalPeriodicSpace()
+    paths = {
+        "general quick start (N=1000, NeighborListNsqrd)": setup(
+            1000, 0.1, 300.0, lambda f: NeighborListNsqrd(
+                space, cutoff=f.cutoff, skin=0.5 * units.nanometer,
+                n_max_neighbors=180)),
+        "general DensePairs (N=4000, K1)": setup(
+            N, 0.8, 120.0, lambda f: DensePairs(space, cutoff=f.cutoff)),
+    }
+    for label, (fluid, st, thermo, pairs) in paths.items():
+        integ = LangevinIntegrator(timestep=2.0 * units.femtoseconds)
+        held = {"pairs": pairs, "state": st}
+
+        def advance(steps, held=held, integ=integ, thermo=thermo):
+            held["state"], held["pairs"] = integ.run(
+                held["state"], thermo, number_of_steps=steps,
+                nbr_list=held["pairs"])
+
+        advance(2000 if "quick" in label else MELT_STEPS)
+        _windows(label, advance)
+        _profile(label, lambda: advance(GENERAL_PROFILE_STEPS),
+                 GENERAL_PROFILE_STEPS)
+        if "DensePairs" in label:
+            st = held["state"]
+            runner = make_langevin_runner(
+                fluid.potential, pairs=held["pairs"],
+                temperature=120.0 * units.kelvin, device=dev)
+            carry = {"c": runner.init(st.positions, st.box_vectors, seed=SEED,
+                                      velocities=st.velocities)}
+
+            def run(steps):
+                carry["c"] = runner.run(carry["c"], steps)
+
+            _windows("make_langevin_runner on DensePairs (N=4000)", run)
+            _profile("make_langevin_runner on DensePairs (N=4000)",
+                     lambda: run(GENERAL_PROFILE_STEPS), GENERAL_PROFILE_STEPS)
+
+
+def _windows(label, advance):
+    import torch
+
+    seconds = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(GENERAL_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    print(f"{label} {GENERAL_WINDOW_STEPS}-step windows: seconds "
+          f"{[round(x, 6) for x in seconds]}, steps/s "
+          f"{[round(GENERAL_WINDOW_STEPS / x, 1) for x in seconds]}")
+
+
 def main():
     import torch
 
@@ -387,6 +479,10 @@ def main():
                   timestep=2.0 * units.femtoseconds, device=dev)
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--segment-dump":
         segment_dump(common, box, pos0, *sys.argv[2:])
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--general":
+        general(dev)
+        print(f"card after: {_card()}")
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--strip-latch":
         strip, start = _strip_start(common, box, pos0)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LJ-fluid paths once on one NVIDIA GPU: NVT and
-NpT at N=4000, the band engine at N=100,000 and the halo-strip engine.
+NpT at N=4000, the band engine at N=100,000, the halo-strip engine, and the
+general API (the README's quick start, ``LangevinIntegrator`` on K1).
 
     python3 chip_smoke.py
 
@@ -110,8 +111,22 @@ Phases (any failure raises, and the script exits nonzero):
    and held from the first segment to the last; then 400 steps at P=256
    passes with more than 95% of them in order.
 
-The ``kernels`` line gives each kernel's launches on the eight counted
-paths (phases 5-10, under ``launches_by_path``; ``launches`` is their sum), its
+11. the general API, counted from (a) to (e): (a) the README's quick
+   start for the port, its code block as written (``LennardJonesFluid(1000,
+   0.1)``, 300 K, ``NeighborListNsqrd``, 10,000 ``LangevinIntegrator`` steps
+   on the card): finite, no overflow, T_kin within 10% of 300 K over its end
+   and 1,000 steps more; (b) ``LennardJonesFluid(4000, 0.8)`` at 120 K on
+   ``DensePairs``, 1000 steps from the lattice: K1 launched a step, the
+   energy within 1e-5 of the f64 oracle, T_kin within 5%; (c) the
+   ``NeighborListNsqrd``, ``PairListNsqrd`` and ``DensePairs`` energies of
+   that state within 1e-5 of the oracle, and on ``DensePairs``
+   ``-grad(energy)`` equal to K1's force bit for bit; (d) ``fire_descent``
+   and ``minimize_energy``, 200 iterations each on ``DensePairs``: the
+   energy falls and stays finite; (e) ``make_langevin_runner``: two 100-step
+   runs from one carry equal bit for bit.
+
+The ``kernels`` line gives each kernel's launches on the nine counted
+paths (phases 5-11, under ``launches_by_path``; ``launches`` is their sum), its
 error and times, and its bound.  The C entries of K3's and K11's segments
 (``culled_md``, ``mega_md``) count one launch a call and each kernel they
 enqueue under that kernel's name (``baoab`` once a segment,
@@ -132,6 +147,7 @@ package beside it, the script fails before printing any result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +182,11 @@ WIDE_STEPS = 400
 REPAIR_PASSES = 16
 # enough odd-even passes to undo a segment's displacement at S=40
 DEEP_REPAIR = 256
+QUICK_START_STEPS = 10_000
+QUICK_START_MARKER = "import chiron_tpu_torch.units as unit"
+GENERAL_STEPS = 1000
+MIN_ITERS = 200
+RUNNER_STEPS = 100
 DEEP_STEPS = 400
 # the kernels each counted path must launch.  No runner takes K6's or K7's
 # energy pass (the band and strip runners take their energy from K1, as the
@@ -185,6 +206,7 @@ PATH_KERNELS = {
                       "tile_skin_drift", "lj_dense"),
     "mega": ("mega_md", "tile_build", "baoab", "culled_force",
              "tile_skin_drift", "mega_repair", "lj_dense"),
+    "general": ("lj_dense",),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -1311,6 +1333,162 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
     return counts
 
 
+def _readme_quick_start():
+    """The port's quick-start block of README.md, as written."""
+    readme = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "README.md")
+    with open(readme) as f:
+        blocks = [b for b in re.findall(r"```python\n(.*?)```", f.read(), re.S)
+                  if QUICK_START_MARKER in b]
+    _require(len(blocks) == 1, "the port's quick start is not in README.md")
+    _require(f"number_of_steps={QUICK_START_STEPS:_}" in blocks[0],
+             "the quick start's step count changed")
+    return blocks[0]
+
+
+def _phase11(dev, smi):
+    """[11] the general API on the card, counted from the README's quick
+    start to the runner's repeat; returns the path's launch counts."""
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.integrators import LangevinIntegrator
+    from chiron_tpu_torch.minimize import fire_descent, minimize_energy
+    from chiron_tpu_torch.neighbors import (
+        DensePairs,
+        NeighborListNsqrd,
+        OrthogonalPeriodicSpace,
+        PairListNsqrd,
+    )
+    from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.oracles import lj_dense_oracle
+    from chiron_tpu_torch.runtime import make_langevin_runner
+    from chiron_tpu_torch.states import SamplerState, ThermodynamicState
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+    from chiron_tpu_torch.utils import PRNG
+
+    def t_kin(v, mass):
+        v = v.double()
+        return mass * float((v * v).sum()) / (3 * v.shape[0] * units.kB_MD)
+
+    print("[11] the general API (space, pair lists, potential, states, "
+          "LangevinIntegrator, minimizers, make_langevin_runner)")
+    _build.reset_launch_counts()
+
+    # (a) the README's quick start, as written: N=1000, rho*=0.1, 300 K
+    code = _readme_quick_start()
+    ns = {"__name__": "quick_start"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exec(compile(code, "README.md", "exec"), ns)
+    torch.cuda.synchronize()
+    qs_rate = QUICK_START_STEPS / (time.perf_counter() - t0)
+    state, nbr, integ, thermo = (ns["state"], ns["nbr"], ns["integrator"],
+                                 ns["thermo"])
+    mass = float(ns["fluid"].topology.masses()[0])
+    _require(state.positions.device.type == "cuda", "quick start off the card")
+    _require(bool(torch.isfinite(state.positions).all()),
+             "quick start: positions not finite")
+    _require(not bool(nbr.state.overflow), "quick start: list overflow")
+    temps = [t_kin(state.velocities, mass)]
+    for _ in range(10):  # 1,000 steps more, a sample every 100
+        state, nbr = integ.run(state, thermo, number_of_steps=100,
+                               nbr_list=nbr)
+        temps.append(t_kin(state.velocities, mass))
+    t_qs = sum(temps) / len(temps)
+    _require(abs(t_qs - 300.0) / 300.0 < 0.10, f"quick start T_kin {t_qs}")
+    print(f"  (a) README quick start (N=1000, rho*=0.1, NeighborListNsqrd, "
+          f"{QUICK_START_STEPS} steps of 2 fs): finite, no overflow, "
+          f"capacity {nbr.n_max_neighbors}; T_kin {temps[0]:.3f} K at its "
+          f"end, {t_qs:.3f} K over it and 1,000 steps more (11 samples, "
+          f"tolerance 10% of 300 K); {qs_rate:.1f} steps/s, set-up included "
+          f"({smi})")
+
+    # (b) the main path's width through the general API, on K1
+    fluid = LennardJonesFluid(nparticles=N, reduced_density=DENSITY)
+    pot = fluid.potential
+    sig, eps, cut = pot.sigma, pot.epsilon, pot.cutoff
+    PRNG.set_seed(SEED)
+    st = SamplerState(positions=fluid.positions,
+                      current_PRNG_key=PRNG.get_random_key(),
+                      box_vectors=fluid.box_vectors)
+    thermo = ThermodynamicState(potential=pot,
+                                temperature=T_KELVIN * units.kelvin)
+    space = OrthogonalPeriodicSpace()
+    dp = DensePairs(space, cutoff=fluid.cutoff)
+    dp.build_from_state(st)
+    integ = LangevinIntegrator(timestep=2.0 * units.femtoseconds)
+    k1_before = _build.launches.get("lj_dense", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, dp = integ.run(st, thermo, number_of_steps=GENERAL_STEPS, nbr_list=dp)
+    torch.cuda.synchronize()
+    dense_rate = GENERAL_STEPS / (time.perf_counter() - t0)
+    k1_run = _build.launches.get("lj_dense", 0) - k1_before
+    x, box = st.positions, st.box_vectors
+    energy = float(pot.compute_energy(x, dp))
+    _, e64 = lj_dense_oracle(x.double(), box.double(), sig, eps, cut)
+    e64 = float(e64)
+    e_rel = abs(energy - e64) / abs(e64)
+    tb = t_kin(st.velocities, float(fluid.topology.masses()[0]))
+    _require(math.isfinite(energy) and e_rel < 1e-5,
+             f"general DensePairs energy {energy}, rel err {e_rel}")
+    _require(abs(tb - T_KELVIN) / T_KELVIN < 0.05, f"general T_kin {tb}")
+    _require(k1_run == GENERAL_STEPS + 1, f"K1 launches in the run {k1_run}")
+    print(f"  (b) LangevinIntegrator on DensePairs (N={N}, rho*={DENSITY}, "
+          f"{T_KELVIN} K, 2 fs, {GENERAL_STEPS} steps from the lattice): "
+          f"energy {energy:.6f} kJ/mol (f64 oracle rel {e_rel:.2e}, "
+          f"tolerance 1e-5), T_kin {tb:.3f} K; K1 launched {k1_run} times "
+          f"(a step and the first force); {dense_rate:.1f} steps/s ({smi})")
+
+    # (c) the three schemes on (b)'s melted state, against the f64 oracle
+    schemes = {
+        "NeighborListNsqrd": NeighborListNsqrd(
+            space, cutoff=fluid.cutoff, skin=0.3 * units.nanometer,
+            n_max_neighbors=180),
+        "PairListNsqrd": PairListNsqrd(space, cutoff=fluid.cutoff),
+        "DensePairs": dp,
+    }
+    rels = {}
+    for name, pairs in schemes.items():
+        pairs.build_from_state(st)
+        e = float(pot.compute_energy(x, pairs))
+        rels[name] = abs(e - e64) / abs(e64)
+        _require(rels[name] < 1e-5, f"{name} energy rel err {rels[name]}")
+    del schemes["PairListNsqrd"]
+    F_k1, _ = pot._dense_op(dp, x.device).force_energy(x, box)
+    _require(torch.equal(pot.compute_force(x, dp), F_k1),
+             "DensePairs: -grad(energy) differs from K1's force")
+    print("  (c) energies against the f64 oracle (tolerance 1e-5): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+          + "; on DensePairs -grad(energy) equals K1's force bit for bit")
+
+    # (d) the minimizers from (b)'s state, on DensePairs
+    for minimizer in (fire_descent, minimize_energy):
+        res = minimizer(x, pot.compute_energy, dp, maxiter=MIN_ITERS)
+        e_min = float(res.energy)
+        _require(math.isfinite(e_min) and e_min < energy,
+                 f"{minimizer.__name__}: {e_min} from {energy}")
+        _require(bool(torch.isfinite(res.params).all()),
+                 f"{minimizer.__name__}: positions not finite")
+        print(f"  (d) {minimizer.__name__}: {int(res.n_iterations)} "
+              f"iterations, energy {energy:.3f} -> {e_min:.3f} kJ/mol")
+
+    # (e) make_langevin_runner twice from one carry: bit for bit
+    runner = make_langevin_runner(pot, pairs=dp,
+                                  temperature=T_KELVIN * units.kelvin)
+    s0 = runner.init(x, box, seed=SEED, velocities=st.velocities)
+    a, b = runner.run(s0, RUNNER_STEPS), runner.run(s0, RUNNER_STEPS)
+    for name in ("x", "v", "F"):
+        _require(torch.equal(getattr(a, name), getattr(b, name)),
+                 f"make_langevin_runner repeat differs in {name}")
+    _require(bool(torch.isfinite(runner.energy(a))), "runner energy")
+    general = dict(_build.launches)
+    print(f"  (e) make_langevin_runner: two {RUNNER_STEPS}-step runs from one "
+          f"carry equal bit for bit; general path launches {general}")
+    return {"general": general}
+
+
 def main():
     import torch
 
@@ -2369,6 +2547,7 @@ def main():
               "strip": strip_counts, "spatial": spatial_counts}
     counts.update(_phase10(dev, common, fluid, st, runner, results, smi,
                            t_kin))
+    counts.update(_phase11(dev, smi))
     for path, names in PATH_KERNELS.items():
         for name in names:
             _require(counts[path].get(name, 0) > 0,

@@ -2,9 +2,10 @@
 
 The JAX package ``chiron_tpu`` is the reference; this package mirrors its
 file layout (each module here has one counterpart there) and runs its main
-path -- the LJ-fluid NVT workload of ``bench.py`` -- and NpT on an NVIDIA
-Hopper card through hand-written CUDA kernels (``csrc/``, built on first use
-by ``ops/_build.py``).  Every kernel wrapper runs its plain PyTorch version for
+path -- the LJ-fluid NVT workload of ``bench.py`` -- NpT, and the general
+API (spaces, pair lists, potentials, states, ``LangevinIntegrator``, the
+minimizers) on an NVIDIA Hopper card through hand-written CUDA kernels
+(``csrc/``, built on first use by ``ops/_build.py``).  Every kernel wrapper runs its plain PyTorch version for
 a tensor on the CPU, which is how the CPU tests compare the two packages.
 
 This package imports ``torch`` and numpy only, never jax or ``chiron_tpu``.
@@ -21,8 +22,9 @@ def __getattr__(name):
     import importlib
 
     submodules = {
-        "integrators", "interop", "ops", "oracles", "parallel", "potential",
-        "runtime", "testsystems",
+        "integrators", "interop", "minimize", "neighbors", "ops", "oracles",
+        "parallel", "potential", "runtime", "space", "states", "testsystems",
+        "utils",
     }
     if name in submodules:
         return importlib.import_module(f".{name}", __name__)

@@ -3,7 +3,10 @@
 A caller that holds a state of the JAX package (or of anything else) turns
 its arrays into numpy and hands them here: this module imports no jax.  The
 layouts are the JAX package's: (3, n_pad) f32 lanes, a (1, 3) box
-diagonal, and the tile-pair list's (1, capacity) rows.
+diagonal, and the tile-pair list's (1, capacity) rows for the runners;
+(N, 3) positions, a (3, 3) box and the pair schemes' own arrays for the
+general API.  A JAX PRNG key has no counterpart (``utils``): the general
+API's converters take an integer key.
 """
 
 from __future__ import annotations
@@ -13,11 +16,13 @@ import torch
 
 from . import units
 from .integrators import LangevinCarry
+from .neighbors import DensePairsState, NeighborListState, PairListState
 from .ops.lj_cull import TilePairList
 from .ops.lj_dense import box_diagonal
 from .parallel.spatial import SpatialBandCarry, SpatialCarry
 from .potential import LJPotential
 from .runtime import BandCarry, CullCarry, CullNPTCarry, NPTCarry, StripCarry
+from .states import SamplerState
 from .topology import Topology
 
 
@@ -180,4 +185,65 @@ def strip_carry(x, v, F, step, box, overflowed, device) -> StripCarry:
         step=_t(step, np.int32, device).reshape(1, 1),
         box_diag=box_diagonal(box, device),
         overflowed=_t(overflowed, np.bool_, device).reshape(()),
+    )
+
+
+def _box(box, device):
+    return None if box is None else _t(box, np.float32, device)
+
+
+def neighbor_list_state(neighbor_list, neighbor_mask, n_neighbors,
+                        ref_positions, box_vectors, overflow,
+                        device) -> NeighborListState:
+    """A ``NeighborListState`` from the JAX state's arrays."""
+    return NeighborListState(
+        neighbor_list=_t(neighbor_list, np.int32, device),
+        neighbor_mask=_t(neighbor_mask, np.int32, device),
+        n_neighbors=_t(n_neighbors, np.int32, device),
+        ref_positions=_t(ref_positions, np.float32, device),
+        box_vectors=_box(box_vectors, device),
+        overflow=_t(overflow, np.bool_, device).reshape(()),
+    )
+
+
+def pair_list_state(all_pairs, reduction_mask, box_vectors,
+                    device) -> PairListState:
+    """A ``PairListState`` from the JAX state's arrays."""
+    return PairListState(
+        all_pairs=_t(all_pairs, np.int32, device),
+        reduction_mask=_t(reduction_mask, np.bool_, device),
+        box_vectors=_box(box_vectors, device),
+    )
+
+
+def dense_pairs_state(box_vectors, device) -> DensePairsState:
+    return DensePairsState(box_vectors=_box(box_vectors, device))
+
+
+def sampler_state(positions, key: int, velocities, box_vectors,
+                  device) -> SamplerState:
+    """A ``SamplerState`` from MD-unit arrays (nm, nm/ps) and an integer
+    key, on ``device``."""
+    nm = units.nanometer
+    return SamplerState(
+        positions=units.Quantity(np.array(positions, np.float32), nm),
+        current_PRNG_key=key,
+        velocities=(None if velocities is None else units.Quantity(
+            np.array(velocities, np.float32), nm / units.picosecond)),
+        box_vectors=(None if box_vectors is None else units.Quantity(
+            np.array(box_vectors, np.float32), nm)),
+        device=device,
+    )
+
+
+def general_langevin_carry(x, v, F, box_vectors, overflowed, key: int,
+                           nbr_state, device) -> LangevinCarry:
+    """A general-API ``LangevinCarry`` from (N, 3) arrays, a (3, 3) box (or
+    None), an integer key and a pair state made by the converters above
+    (or None)."""
+    return LangevinCarry(
+        x=_t(x, np.float32, device), v=_t(v, np.float32, device),
+        F=_t(F, np.float32, device), box_vectors=_box(box_vectors, device),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
+        key=key, nbr_state=nbr_state,
     )

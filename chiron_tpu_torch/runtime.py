@@ -20,6 +20,10 @@ re-sorts when a particle has drifted past the margin, chosen on the device;
 ``make_strip_lj_runner`` re-sorts at every segment and steps on the
 halo-strip kernels (K7).
 
+``make_langevin_runner`` is the general API's runner: BAOAB on any
+potential and pair scheme (``integrators.make_baoab_step_fn``), on K1 with
+``DensePairs``.
+
 The culled runner's two opt-in rebuild paths are ported: ``fused_rebuild``
 (the sort and the list build in one launch, ``ops/sortbuild.py``) and
 ``megakernel`` (the build from the current order, the steps, the latch and
@@ -37,8 +41,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from . import units
-from .integrators import LangevinCarry
+from . import units, utils
+from .integrators import LangevinCarry, force_of, make_baoab_step_fn, run_chunk
+from .neighbors import DensePairs, NeighborListNsqrd, PairListNsqrd
 from .ops.lj_cull import (
     CulledLJMD,
     LatchScratch,
@@ -1300,3 +1305,82 @@ def make_lj_runner(
         potential=potential, n_particles=n_particles, topology=topology,
         temperature=temperature, timestep=timestep,
         collision_rate=collision_rate, device=device, **kwargs)
+
+
+@dataclass
+class LangevinRunner:
+    """BAOAB propagator of the general API: ``state = runner.run(state,
+    n)``, on ``device``."""
+
+    step_fn: object
+    energy_fn: object
+    masses: torch.Tensor
+    temperature_md: float
+    pairs: object
+    device: torch.device
+
+    def init(self, positions, box_vectors=None, seed: int = 0,
+             velocities=None) -> LangevinCarry:
+        """The initial carry: velocities (drawn from ``seed`` unless given),
+        the pair scheme's state, forces."""
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+        x = f32(positions)
+        box = None if box_vectors is None else f32(box_vectors)
+        key = utils.prng_key(seed)
+        if velocities is None:
+            key, vkey = utils.split(key)
+            v = utils.initialize_velocities_md(self.temperature_md,
+                                               self.masses, vkey)
+        else:
+            v = f32(velocities)
+        if isinstance(self.pairs, (NeighborListNsqrd, PairListNsqrd,
+                                   DensePairs)):
+            self.pairs.build(x, box)
+            nbr_state = self.pairs.state
+        else:
+            nbr_state = None
+        return LangevinCarry(
+            x=x, v=v, F=force_of(self.energy_fn, x, nbr_state),
+            box_vectors=box,
+            overflowed=torch.zeros((), dtype=torch.bool, device=self.device),
+            key=key, nbr_state=nbr_state,
+        )
+
+    def run(self, state: LangevinCarry, n_steps: int) -> LangevinCarry:
+        """Advance ``n_steps``; ``state`` itself is left as it was."""
+        return run_chunk(self.step_fn, state, n_steps)
+
+    def energy(self, state: LangevinCarry):
+        return self.energy_fn(state.x, state.nbr_state)
+
+
+def make_langevin_runner(
+    potential,
+    pairs=None,
+    topology=None,
+    temperature=300.0 * units.kelvin,
+    timestep=2.0 * units.femtoseconds,
+    collision_rate=1.0 / units.picoseconds,
+    *,
+    device="cuda",
+) -> LangevinRunner:
+    """A BAOAB runner for ``potential`` (and a pair scheme) on ``device``,
+    the card unless the caller passes ``device="cpu"``."""
+    if topology is None:
+        topology = potential.topology
+    device = torch.device(device)
+    masses = utils.masses_md(topology, device)
+    T = units.strip_md(temperature, units.kelvin)
+    kT, dt, gamma = _md_constants(temperature, timestep, collision_rate)
+    if isinstance(pairs, DensePairs) and not pairs.is_built:
+        raise ValueError(
+            "build the DensePairs scheme (build/build_from_state) before "
+            "creating a runner -- the fused kernel is specialized on the "
+            "particle count"
+        )
+    energy_fn = potential.make_energy_fn(pairs)
+    step_fn = make_baoab_step_fn(energy_fn, masses, dt, gamma, kT, pairs=pairs)
+    return LangevinRunner(step_fn=step_fn, energy_fn=energy_fn, masses=masses,
+                          temperature_md=T, pairs=pairs, device=device)

@@ -1325,3 +1325,98 @@ def test_strip_kernel_nan_reaches_the_entries_of_plain(cuda):
         assert torch.equal(torch.isnan(Fk), torch.isnan(Fp))
         assert 0 < int(torch.isnan(Fk[0]).sum()) < n
         assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+
+
+def _general_fluid(n=1000, density=0.8, seed=5):
+    fluid = LennardJonesFluid(nparticles=n, reduced_density=density)
+    md = units.md_unit_system
+    box = fluid.box_vectors.value_in_unit_system(md)
+    rng = np.random.default_rng(seed)
+    pos = fluid.positions.value_in_unit_system(md)
+    pos = ((pos + rng.normal(0, 0.02, pos.shape)) % box[0, 0]).astype(np.float32)
+    return fluid, pos, box
+
+
+def test_dense_pairs_potential_on_the_card_matches_its_plain_version(cuda):
+    """The general API's DensePairs energy and force (K1 through autograd)
+    against the same calls on the CPU, K1's plain version: 1e-5 relative;
+    the force is -grad of the energy bit for bit on the card."""
+    from chiron_tpu_torch.neighbors import DensePairs, OrthogonalPeriodicSpace
+
+    fluid, pos, box = _general_fluid()
+    pot = fluid.potential
+    out = {}
+    for dev in ("cpu", cuda):
+        dp = DensePairs(OrthogonalPeriodicSpace(), cutoff=fluid.cutoff)
+        x = torch.as_tensor(pos, device=dev)
+        dp.build(x, torch.as_tensor(box, device=dev))
+        before = _build.launches.get("lj_dense", 0)
+        out[str(dev)] = (pot.compute_energy(x, dp), pot.compute_force(x, dp))
+        if dev != "cpu":
+            assert _build.launches.get("lj_dense", 0) == before + 2
+            F_k1, _ = pot._dense_op(dp, x.device).force_energy(x, dp.state.box_vectors)
+            assert torch.equal(out[str(dev)][1], F_k1)
+    (e_c, f_c), (e_g, f_g) = out["cpu"], out[str(cuda)]
+    assert abs(float(e_g) - float(e_c)) / abs(float(e_c)) < 1e-5
+    assert float((f_g.cpu() - f_c).abs().max()) / float(f_c.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("scheme", ["dense", "neighbor"])
+def test_one_integrator_step_on_the_card_matches_the_cpu(cuda, scheme):
+    """One BAOAB step of the general API (the step ``LangevinIntegrator``
+    runs) on the card and on the CPU, with the same injected noise: x to
+    1e-5 nm, v to 1e-4 nm/ps, the neighbor list equal."""
+    from chiron_tpu_torch.integrators import LangevinCarry, force_of, make_baoab_step_fn
+    from chiron_tpu_torch.neighbors import (DensePairs, NeighborListNsqrd,
+                                            OrthogonalPeriodicSpace)
+
+    fluid, pos, box = _general_fluid()
+    rng = np.random.default_rng(8)
+    kT = units.kB_MD * 120.0
+    vel = (np.sqrt(kT / 39.948) * rng.normal(size=pos.shape)).astype(np.float32)
+    noise = rng.normal(size=pos.shape).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        if scheme == "dense":
+            pairs = DensePairs(OrthogonalPeriodicSpace(), cutoff=fluid.cutoff)
+        else:
+            pairs = NeighborListNsqrd(OrthogonalPeriodicSpace(),
+                                      cutoff=fluid.cutoff,
+                                      skin=0.3 * units.nanometer,
+                                      n_max_neighbors=120)
+        x = torch.as_tensor(pos, device=dev)
+        b = torch.as_tensor(box, device=dev)
+        pairs.build(x, b)
+        energy_fn = fluid.potential.make_energy_fn(pairs)
+        masses = torch.full((pos.shape[0], 1), 39.948, device=dev)
+        step = make_baoab_step_fn(energy_fn, masses, 0.002, 1.0, kT, pairs)
+        carry = LangevinCarry(
+            x=x, v=torch.as_tensor(vel, device=dev),
+            F=force_of(energy_fn, x, pairs.state), box_vectors=b,
+            overflowed=torch.zeros((), dtype=torch.bool, device=dev), key=1,
+            nbr_state=pairs.state)
+        out[str(dev)] = step(carry, torch.as_tensor(noise, device=dev))
+    c, g = out["cpu"], out[str(cuda)]
+    assert float((g.x.cpu() - c.x).abs().max()) < 1e-5
+    assert float((g.v.cpu() - c.v).abs().max()) < 1e-4
+    if scheme == "neighbor":
+        assert torch.equal(g.nbr_state.neighbor_list.cpu(),
+                           c.nbr_state.neighbor_list)
+
+
+def test_langevin_runner_on_a_neighbor_list_repeats_bit_for_bit(cuda):
+    """The neighbor-list force's backward gathers and scatters on the card;
+    two runs from one carry must still be equal bit for bit."""
+    from chiron_tpu_torch.neighbors import NeighborListNsqrd, OrthogonalPeriodicSpace
+    from chiron_tpu_torch.runtime import make_langevin_runner
+
+    fluid, pos, box = _general_fluid()
+    pairs = NeighborListNsqrd(OrthogonalPeriodicSpace(), cutoff=fluid.cutoff,
+                              skin=0.1 * units.nanometer, n_max_neighbors=120)
+    runner = make_langevin_runner(fluid.potential, pairs=pairs,
+                                  temperature=120.0 * units.kelvin, device=cuda)
+    s0 = runner.init(pos, box, seed=4)
+    a, b = runner.run(s0, 50), runner.run(s0, 50)
+    for name in ("x", "v", "F"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert not bool(a.overflowed)

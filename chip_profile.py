@@ -78,6 +78,19 @@ profiles the general API alone (``general``): the README's quick start
 1000-step melt from the lattice, then ``make_langevin_runner`` on the same
 scheme: three 1000-step windows of each, then profiler rows of 200 steps.
 
+    python3 chip_profile.py --mc
+
+profiles the paths of ``chip_smoke.py`` [12] (``mc``): the LJ_MCMC state
+point (1100 methanes on ``DensePairs``, 140 K, 13.00765 atm) after one
+iteration of its schedule -- windows of 500 displacement proposals, 200
+volume proposals and 1000 ``LangevinDynamicsMove`` steps, with profiler
+rows of a fifth of each, with the host's top operators by self CPU time
+--, the lj_mcmove chain on ``NeighborListNsqrd`` (1000-proposal windows,
+200 profiled), and ``ReplicaExchangeSampler.run(5)`` as [12](c) calls it,
+each window and the profiled call on a new sampler (4 replicas, 5
+iterations of 5 x 50 steps each, the energy matrices, the swaps and the
+offline MBAR).
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -139,7 +152,7 @@ def _busy_us(intervals):
     return total
 
 
-def _profile(label, fn, steps):
+def _profile(label, fn, steps, host_rows=0):
     """Profile one call of ``fn`` after a warm-up call.  The warm-up runs
     inside the profiler's own warm-up phase, and the recorded call starts
     10 ms after it: a trace opened right before a launch dropped the first
@@ -176,6 +189,16 @@ def _profile(label, fn, steps):
     for name, (total, count) in ranked[:TOP_ROWS]:
         print(f"   {total / 1e3:9.3f} ms {count:6d}x {total / count:9.2f} "
               f"us/launch  {name[:90]}")
+    if host_rows:
+        # the host's side: the operators by their own CPU time a step
+        ops = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CPU]
+        ops.sort(key=lambda a: -a.self_cpu_time_total)
+        print(f"   host: the top {host_rows} operators by self CPU time "
+              f"(profiler on)")
+        for a in ops[:host_rows]:
+            print(f"   {a.self_cpu_time_total / steps:9.2f} us/step "
+                  f"{a.count:6d}x  {a.key[:80]}")
 
 
 def _host_checked(band):
@@ -359,6 +382,10 @@ def _strip_start(common, box, pos0):
 
 GENERAL_WINDOW_STEPS = 1000
 GENERAL_PROFILE_STEPS = 200
+# --mc: a window's proposals or steps (the profiler records a fifth)
+MC_WINDOW_STEPS = {"MC displacement chain": 500, "MC barostat chain": 200,
+                   "LangevinDynamicsMove (1 fs)": 1000}
+MC_HOST_ROWS = 12
 
 
 def general(dev):
@@ -425,19 +452,147 @@ def general(dev):
                      lambda: run(GENERAL_PROFILE_STEPS), GENERAL_PROFILE_STEPS)
 
 
-def _windows(label, advance):
+def _windows(label, advance, steps=None):
     import torch
 
+    steps = GENERAL_WINDOW_STEPS if steps is None else steps
     seconds = []
     for _ in range(WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        advance(GENERAL_WINDOW_STEPS)
+        advance(steps)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    print(f"{label} {GENERAL_WINDOW_STEPS}-step windows: seconds "
+    print(f"{label} {steps}-step windows: seconds "
           f"{[round(x, 6) for x in seconds]}, steps/s "
-          f"{[round(GENERAL_WINDOW_STEPS / x, 1) for x in seconds]}")
+          f"{[round(steps / x, 1) for x in seconds]}")
+
+
+def mc(dev):
+    """Windows and profiler rows of ``chip_smoke.py`` [12]'s paths: the
+    LJ_MCMC state point's displacement chain, barostat chain and
+    ``LangevinDynamicsMove`` (N=1100 methane on ``DensePairs``, K1), the
+    lj_mcmove chain on ``NeighborListNsqrd``, and [12](c)'s whole
+    ``ReplicaExchangeSampler.run(5)`` (4 replicas, 5 iterations of 5 x 50
+    Langevin steps each, the energy matrices, the swaps and the offline
+    MBAR)."""
+    from chip_smoke import (
+        METHANE_N,
+        REX_ITERATIONS,
+        REX_STEPS,
+        REX_TEMPS,
+        _MemoryReporter,
+        _methane,
+    )
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.mcmc import (
+        LangevinDynamicsMove,
+        MCMCSampler,
+        MonteCarloBarostatMove,
+        MonteCarloDisplacementMove,
+        MoveSchedule,
+    )
+    from chiron_tpu_torch.multistate import ReplicaExchangeSampler
+    from chiron_tpu_torch.neighbors import (
+        DensePairs,
+        NeighborListNsqrd,
+        OrthogonalPeriodicSpace,
+    )
+    from chiron_tpu_torch.states import SamplerState, ThermodynamicState
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+    from chiron_tpu_torch.utils import PRNG
+
+    space = OrthogonalPeriodicSpace()
+    lj, methane = _methane(dev)
+    PRNG.set_seed(SEED)
+    npt = ThermodynamicState(potential=lj, temperature=140.0 * units.kelvin,
+                             pressure=13.00765 * units.atmosphere)
+    held = {"state": methane(PRNG.get_random_key()),
+            "pairs": DensePairs(space, cutoff=1.4 * units.nanometer)}
+    held["pairs"].build_from_state(held["state"])
+    moves = {
+        "MC displacement chain": MonteCarloDisplacementMove(
+            displacement_sigma=0.01 * units.nanometer, number_of_moves=100,
+            autotune=True, autotune_interval=100),
+        "MC barostat chain": MonteCarloBarostatMove(
+            volume_max_scale=0.1, number_of_moves=20, autotune=True,
+            autotune_interval=50),
+        "LangevinDynamicsMove (1 fs)": LangevinDynamicsMove(
+            timestep=1.0 * units.femtoseconds, number_of_steps=200),
+    }
+    # the schedule once, as chip_smoke.py [12](a) runs it, to warm up
+    held["state"], _, held["pairs"] = MCMCSampler(MoveSchedule(
+        list(moves.items()))).run(held["state"], npt, 1, held["pairs"])
+
+    for name, move in moves.items():
+        label = f"{name} (N={METHANE_N} methane, DensePairs, K1)"
+
+        def advance(steps, move=move):
+            move.number_of_moves = steps
+            held["state"], _, held["pairs"] = move.update(
+                held["state"], npt, held["pairs"])
+
+        steps = MC_WINDOW_STEPS[name]
+        _windows(label, advance, steps)
+        _profile(label, lambda: advance(steps // 5), steps // 5,
+                 host_rows=MC_HOST_ROWS)
+
+    fluid = LennardJonesFluid(nparticles=METHANE_N, reduced_density=0.1)
+    sb = {"state": SamplerState(positions=fluid.positions,
+                                current_PRNG_key=PRNG.get_random_key(),
+                                box_vectors=fluid.box_vectors, device=dev),
+          "pairs": NeighborListNsqrd(space, cutoff=fluid.cutoff,
+                                     skin=0.5 * units.nanometer,
+                                     n_max_neighbors=180)}
+    sb["pairs"].build_from_state(sb["state"])
+    nvt300 = ThermodynamicState(potential=fluid.potential,
+                                temperature=300.0 * units.kelvin)
+    mcmove = MonteCarloDisplacementMove(
+        displacement_sigma=0.01 * units.nanometer, number_of_moves=1000,
+        autotune=True, autotune_interval=100)
+
+    def advance_b(steps):
+        mcmove.number_of_moves = steps
+        sb["state"], _, sb["pairs"] = mcmove.update(sb["state"], nvt300,
+                                                    sb["pairs"])
+
+    advance_b(1000)
+    label = f"lj_mcmove chain (N={METHANE_N}, NeighborListNsqrd)"
+    _windows(label, advance_b, 1000)
+    _profile(label, lambda: advance_b(200), 200)
+
+    ladder = [ThermodynamicState(potential=lj, temperature=T * units.kelvin)
+              for T in REX_TEMPS]
+    st = held["state"]
+    x_np, box_np = st.positions.cpu().numpy(), st.box_vectors.cpu().numpy()
+
+    def sampler():
+        rex = ReplicaExchangeSampler(
+            mcmc_sampler=MCMCSampler(MoveSchedule([(
+                "LangevinDynamicsMove", LangevinDynamicsMove(
+                    timestep=1.0 * units.femtoseconds,
+                    number_of_steps=REX_STEPS))])),
+            reporter=_MemoryReporter())
+        rex.create(ladder, [methane(PRNG.get_random_key(), x_np, box_np)
+                            for _ in ladder],
+                   [DensePairs(space, cutoff=1.4 * units.nanometer)
+                    for _ in ladder])
+        return rex
+
+    # ``run`` itself, on samplers made ahead (one a window and two for the
+    # profiler), each run once from its start as chip_smoke.py [12](c) runs
+    samplers = [sampler() for _ in range(WINDOWS + 3)]
+    samplers.pop().run(REX_ITERATIONS)  # warm-up
+
+    def run(n):
+        samplers.pop().run(n)
+
+    label = (f"replica exchange run({REX_ITERATIONS}) ({len(ladder)} "
+             f"replicas x {REX_ITERATIONS} iterations x {REX_ITERATIONS} x "
+             f"{REX_STEPS} Langevin steps, DensePairs; 'steps' are "
+             "iterations)")
+    _windows(label, run, REX_ITERATIONS)
+    _profile(label, lambda: run(REX_ITERATIONS), REX_ITERATIONS)
 
 
 def main():
@@ -482,6 +637,10 @@ def main():
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--general":
         general(dev)
+        print(f"card after: {_card()}")
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--mc":
+        mc(dev)
         print(f"card after: {_card()}")
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--strip-latch":

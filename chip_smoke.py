@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LJ-fluid paths once on one NVIDIA GPU: NVT and
-NpT at N=4000, the band engine at N=100,000, the halo-strip engine, and the
-general API (the README's quick start, ``LangevinIntegrator`` on K1).
+NpT at N=4000, the band engine at N=100,000, the halo-strip engine, the
+general API (the README's quick start, ``LangevinIntegrator`` on K1), and
+Metropolis moves, replica exchange and MBAR on K1.
 
     python3 chip_smoke.py
 
@@ -125,8 +126,34 @@ Phases (any failure raises, and the script exits nonzero):
    energy falls and stays finite; (e) ``make_langevin_runner``: two 100-step
    runs from one carry equal bit for bit.
 
-The ``kernels`` line gives each kernel's launches on the nine counted
-paths (phases 5-11, under ``launches_by_path``; ``launches`` is their sum), its
+12. Metropolis moves, replica exchange and MBAR, counted from (a) to (c),
+   with every K1 launch predicted from the schedule: (a) the reference's
+   Examples/LJ_MCMC.py state point (``examples/lj_mcmc.py``): 1100 TraPPE-UA
+   methanes in the 4.275021399 nm box, 140 K and 13.00765 atm on
+   ``DensePairs``, ``MCMCSampler`` over displacement (0.01 nm, 100 moves),
+   barostat (0.1, 20 moves) and ``LangevinDynamicsMove`` (1 fs, 200 steps)
+   for 5 iterations: the final energy within 1e-5 of the f64 oracle, the
+   sampled density in 0.25-0.50 g/cm^3, the barostat's acceptance strictly
+   between 0 and 1 (the displacement move accepts none there, in both
+   packages); then one ``run_mc_chain`` of 100 proposals at sigma 0.001 nm
+   under ``set_sync_debug_mode("error")``, accepting some, and the same
+   chain again from the same carry, bit for bit; (b) ``examples/
+   lj_mcmove.py``: N=1100 at rho*=0.1 and 300 K on ``NeighborListNsqrd``,
+   1000 autotuned displacement moves: acceptance strictly between 0 and 1,
+   sigma tuned, energy finite, no overflow; (c) a
+   ``ReplicaExchangeSampler`` over 4 NVT states (140-170 K) of (a)'s final
+   state on ``DensePairs``, ``LangevinDynamicsMove`` 1 fs x 50, ``run(5)``
+   (5 x 5 propagations a replica): the energy matrix within 1e-5 of the
+   f64 oracle, every sweep's swaps equal to JAX's rule written again here,
+   MBAR's ``f_k`` finite with f_k[0] = 0, ``mbar_solve_implicit`` in f64 on
+   the card within 1e-8 of the host solver and its gradient within 1e-6 of
+   a central difference, and ``save_session``, ``load_session`` into a
+   fresh sampler and one iteration more equal bit for bit to the
+   uninterrupted run.  Without h5py the reporters are an in-memory object
+   of this script's (a line says so).
+
+The ``kernels`` line gives each kernel's launches on the ten counted
+paths (phases 5-12, under ``launches_by_path``; ``launches`` is their sum), its
 error and times, and its bound.  The C entries of K3's and K11's segments
 (``culled_md``, ``mega_md``) count one launch a call and each kernel they
 enqueue under that kernel's name (``baoab`` once a segment,
@@ -188,6 +215,21 @@ GENERAL_STEPS = 1000
 MIN_ITERS = 200
 RUNNER_STEPS = 100
 DEEP_STEPS = 400
+# [12]: the reference's Examples/LJ_MCMC.py (examples/lj_mcmc.py) and
+# examples/lj_mcmove.py, then replica exchange at the same width
+METHANE_N = 1100
+METHANE_MASS = 16.04
+METHANE_BOX = 4.275021399280942
+MC_ITERATIONS = 5
+MC_DISP_MOVES = 100
+MC_BARO_MOVES = 20
+MC_LANGEVIN_STEPS = 200
+CHAIN_MOVES = 100
+CHAIN_SIGMA = 0.001
+MCMOVE_MOVES = 1000
+REX_TEMPS = (140.0, 150.0, 160.0, 170.0)
+REX_STEPS = 50
+REX_ITERATIONS = 5
 # the kernels each counted path must launch.  No runner takes K6's or K7's
 # energy pass (the band and strip runners take their energy from K1, as the
 # JAX runners do): those two are held to their plain versions and listed
@@ -207,6 +249,7 @@ PATH_KERNELS = {
     "mega": ("mega_md", "tile_build", "baoab", "culled_force",
              "tile_skin_drift", "mega_repair", "lj_dense"),
     "general": ("lj_dense",),
+    "mc": ("lj_dense",),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -1489,6 +1532,483 @@ def _phase11(dev, smi):
     return {"general": general}
 
 
+class _MemoryReporter:
+    """The reporters' surface kept in memory (``report``, ``flush_buffer``,
+    ``get_property``, ``properties_to_report``), for a machine without h5py:
+    the HDF5 reporters are then held to the JAX package's files on the CPU
+    only (``tests/test_torch_reporters.py``)."""
+
+    properties_to_report = ["positions", "box_vectors", "u_kn", "state_index",
+                            "step"]
+
+    def __init__(self):
+        self.rows = {}
+
+    def report(self, data):
+        import numpy as np
+
+        for k, v in data.items():
+            self.rows.setdefault(k, []).append(
+                v.detach().cpu().numpy() if hasattr(v, "detach")
+                else np.asarray(v))
+
+    def flush_buffer(self):
+        pass
+
+    def get_property(self, name):
+        import numpy as np
+
+        return np.array(self.rows[name]) if name in self.rows else None
+
+
+def _swap_replica(perm, u, iteration):
+    """JAX's even/odd swap sweep (``chiron_tpu/multistate.py``, written
+    again here): the new permutation and the accept and propose matrices
+    of one iteration, from the permutation and energy matrix before it."""
+    import numpy as np
+
+    n = u.shape[1]
+    perm = np.array(perm)
+    inv = np.empty(n, dtype=int)
+    inv[perm] = np.arange(n)
+    acc, prop = np.zeros((n, n), np.int64), np.zeros((n, n), np.int64)
+    rng = np.random.default_rng(0x5EED ^ (iteration * 2654435761 % 2 ** 31))
+    for s in range(iteration % 2, n - 1, 2):
+        i, j = inv[s], inv[s + 1]
+        log_p = (u[i, s] + u[j, s + 1]) - (u[i, s + 1] + u[j, s])
+        prop[s, s + 1] += 1
+        prop[s + 1, s] += 1
+        if log_p >= 0 or rng.uniform() < np.exp(log_p):
+            perm[i], perm[j] = perm[j], perm[i]
+            inv[s], inv[s + 1] = j, i
+            acc[s, s + 1] += 1
+            acc[s + 1, s] += 1
+    return perm, acc, prop
+
+
+def _methane(dev):
+    """The reference's Examples/LJ_MCMC.py system (``examples/lj_mcmc.py``):
+    1100 TraPPE-UA methanes in the 4.275021399 nm box, sigma 0.373 nm,
+    epsilon 148 K kB, cutoff 1.4 nm; returns (potential, SamplerState
+    maker, box length)."""
+    import numpy as np
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.potential import LJPotential
+    from chiron_tpu_torch.states import SamplerState
+    from chiron_tpu_torch.topology import Topology
+    from chiron_tpu_torch.utils import get_data_file_path
+
+    pos = np.load(get_data_file_path("methane_1100_box4p275.npy"))
+    lj = LJPotential(Topology.from_masses(np.full(METHANE_N, METHANE_MASS)),
+                     sigma=0.373 * units.nanometer,
+                     epsilon=units.Quantity(148.0 * units.kB_MD,
+                                            units.kilojoule_per_mole),
+                     cutoff=1.4 * units.nanometer)
+
+    def state(key, positions=None, box=None):
+        return SamplerState(
+            positions=units.Quantity(pos if positions is None else positions,
+                                     units.nanometer),
+            current_PRNG_key=key,
+            box_vectors=units.Quantity(
+                np.eye(3) * METHANE_BOX if box is None else box,
+                units.nanometer),
+            device=dev)
+
+    return lj, state
+
+
+def _phase12(dev, smi):
+    """[12] Metropolis moves, replica exchange and MBAR on the card, counted
+    from (a) to (c); returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.analysis import mbar_solve, mbar_solve_implicit
+    from chiron_tpu_torch.mcmc import (
+        LangevinDynamicsMove,
+        MCCarry,
+        MCMCSampler,
+        MonteCarloBarostatMove,
+        MonteCarloDisplacementMove,
+        MoveSchedule,
+        run_mc_chain,
+    )
+    from chiron_tpu_torch.multistate import ReplicaExchangeSampler
+    from chiron_tpu_torch.neighbors import (
+        DensePairs,
+        NeighborListNsqrd,
+        OrthogonalPeriodicSpace,
+    )
+    from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.oracles import lj_dense_oracle
+    from chiron_tpu_torch.reporters import BaseReporter, MCReporter
+    from chiron_tpu_torch.states import ThermodynamicState
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+    from chiron_tpu_torch.utils import PRNG
+
+    try:
+        import h5py  # noqa: F401
+
+        BaseReporter.set_directory("output/chip_smoke")
+
+        def mc_reporter(name):
+            rep = MCReporter(name, 10)
+            rep.reset_reporter_file()
+            return rep
+
+        rex_reporter = None  # create() makes a MultistateReporter
+        note = "the HDF5 reporters (h5py on this machine)"
+    except ImportError:
+        def mc_reporter(name):
+            return _MemoryReporter()
+
+        rex_reporter = _MemoryReporter
+        note = ("an in-memory reporter of this script's: no h5py on this "
+                "machine, so the HDF5 reporters are held on the CPU only")
+
+    def k1():
+        return _build.launches.get("lj_dense", 0)
+
+    def timed(update, spent, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = update(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def oracle_energy(x, box, pot):
+        return float(lj_dense_oracle(x.double(), box.double(), pot.sigma,
+                                     pot.epsilon, pot.cutoff)[1])
+
+    print("[12] Metropolis moves, replica exchange and MBAR (mcmc, "
+          f"multistate, analysis); reports to {note}")
+    _build.reset_launch_counts()
+    space = OrthogonalPeriodicSpace()
+
+    # (a) the reference's Examples/LJ_MCMC.py state point, on K1
+    lj, methane = _methane(dev)
+    PRNG.set_seed(SEED)
+    ss = methane(PRNG.get_random_key())
+    npt = ThermodynamicState(potential=lj, temperature=140.0 * units.kelvin,
+                             pressure=13.00765 * units.atmosphere)
+    pairs = DensePairs(space, cutoff=1.4 * units.nanometer)
+    pairs.build_from_state(ss)
+    reporter = mc_reporter("lj_mcmc")
+    disp = MonteCarloDisplacementMove(
+        displacement_sigma=0.01 * units.nanometer,
+        number_of_moves=MC_DISP_MOVES, autotune=True, autotune_interval=100)
+    baro = MonteCarloBarostatMove(
+        volume_max_scale=0.1, number_of_moves=MC_BARO_MOVES,
+        reporter=reporter, report_interval=1, autotune=True,
+        autotune_interval=50)
+    lang = LangevinDynamicsMove(timestep=1.0 * units.femtoseconds,
+                                number_of_steps=MC_LANGEVIN_STEPS)
+    spent = {"disp": 0.0, "baro": 0.0, "lang": 0.0}
+    for name, move in (("disp", disp), ("baro", baro), ("lang", lang)):
+        move.update = timed(move.update, spent, name)
+    sampler = MCMCSampler(MoveSchedule([
+        ("MonteCarloDisplacementMove", disp), ("MonteCarloBarostatMove", baro),
+        ("LangevinDynamicsMove", lang)]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, _, final_pairs = sampler.run(ss, npt, n_iterations=MC_ITERATIONS,
+                                        nbr_list=pairs)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+    k1_a = k1()
+    want_a = MC_ITERATIONS * ((MC_DISP_MOVES + 1) + (MC_BARO_MOVES + 1)
+                              + (MC_LANGEVIN_STEPS + 1))
+    _require(k1_a == want_a, f"K1 launches in (a) {k1_a}, predicted {want_a}")
+    x, box = final.positions, final.box_vectors
+    energy = float(lj.compute_energy(x, final_pairs))
+    e64 = oracle_energy(x, box, lj)
+    e_rel = abs(energy - e64) / abs(e64)
+    _require(math.isfinite(energy) and e_rel < 1e-5,
+             f"(a) final energy {energy}, rel err {e_rel}")
+    volumes = reporter.get_property("volume")
+    rho = (METHANE_N * METHANE_MASS / 6.02214076e23
+           / (float(np.mean(volumes[-10:])) * 1e-21))
+    _require(0.25 < rho < 0.50, f"(a) sampled density {rho}")
+    acc = {m: mv.n_accepted / mv.n_proposed
+           for m, mv in (("displacement", disp), ("barostat", baro))}
+    # whole-system moves of all 1100 methanes at sigma 0.01 nm cost about
+    # 75 kT on average at this state point: the reference's schedule
+    # accepts none, and the JAX package accepts none of the first update's
+    # 100 from the packed start either (held on the CPU by
+    # tests/test_torch_mcmc.py::test_lj_mcmc_first_displacement_update_
+    # accepts_none_in_both_packages); the chain check below takes the
+    # accept branch at sigma 0.001 nm
+    _require(0.0 < acc["barostat"] < 1.0 and acc["displacement"] < 1.0,
+             f"(a) acceptances {acc}")
+    n_props = MC_ITERATIONS * (MC_DISP_MOVES + MC_BARO_MOVES)
+    mc_rate = n_props / (spent["disp"] + spent["baro"])
+    lang_rate = MC_ITERATIONS * MC_LANGEVIN_STEPS / spent["lang"]
+    print(f"  (a) LJ_MCMC (N={METHANE_N} methane, 140 K, 13.00765 atm, "
+          f"DensePairs, {MC_ITERATIONS} MCMCSampler iterations): energy "
+          f"{energy:.6f} kJ/mol (f64 oracle rel {e_rel:.2e}, tolerance "
+          f"1e-5), density {rho:.4f} g/cm^3 over the last 10 volumes "
+          f"(0.25-0.50), acceptance displacement {acc['displacement']:.3f} "
+          f"(sigma {disp._param_value():.6f} nm), barostat "
+          f"{acc['barostat']:.3f} (vmax {baro._param_value():.6f}); K1 "
+          f"launched {k1_a} times (predicted {want_a}: a proposal, a "
+          f"Langevin step and an update's first energy each)")
+    print(f"      {mc_rate:.1f} proposals/s, {lang_rate:.1f} Langevin "
+          f"steps/s, {t_a:.3f} s in all ({smi})")
+
+    # the chain alone: no host sync, and bit for bit from one carry
+    red = npt.make_reduced_potential_fn(final_pairs)
+    step = disp._make_step_fn(npt, final_pairs)
+    u0 = red(x, box, final_pairs.state)
+
+    def carry():
+        return MCCarry(
+            positions=x, box_vectors=box, key=SEED, reduced_potential=u0,
+            list_state=final_pairs.state,
+            n_accepted=torch.zeros((), dtype=torch.int32, device=dev),
+            n_proposed=torch.zeros((), dtype=torch.int32, device=dev),
+            param=torch.full((), CHAIN_SIGMA, device=dev),
+            overflowed=torch.zeros((), dtype=torch.bool, device=dev))
+
+    c0 = carry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        ca, ra = run_mc_chain(step, c0, CHAIN_MOVES)
+        t_enq = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    cb, rb = run_mc_chain(step, carry(), CHAIN_MOVES)
+    for name in ("positions", "reduced_potential", "n_accepted", "param"):
+        _require(torch.equal(getattr(ca, name), getattr(cb, name)),
+                 f"the repeated chain differs in {name}")
+    for name in ra:
+        _require(torch.equal(ra[name], rb[name]),
+                 f"the repeated chain's {name} records differ")
+    k1_chain = k1() - k1_a
+    _require(k1_chain == 2 + 2 * CHAIN_MOVES,
+             f"K1 launches of the chain checks {k1_chain}")
+    n_acc = int(ca.n_accepted)
+    _require(0 < n_acc < CHAIN_MOVES, f"the chain accepted {n_acc}")
+    print(f"      one run_mc_chain of {CHAIN_MOVES} displacement proposals "
+          f"(sigma {CHAIN_SIGMA} nm, {n_acc} accepted, autotune every 100) "
+          f"under set_sync_debug_mode('error'): no host sync, enqueued in "
+          f"{t_enq * 1e3:.3f} ms, {CHAIN_MOVES / t_chain:.1f} proposals/s to "
+          f"the sync; run again from the same carry: bit for bit")
+
+    # (b) examples/lj_mcmove.py: plain torch on a neighbor list
+    fluid = LennardJonesFluid(nparticles=METHANE_N, reduced_density=0.1)
+    PRNG.set_seed(SEED)
+    from chiron_tpu_torch.states import SamplerState
+
+    sb = SamplerState(positions=fluid.positions,
+                      current_PRNG_key=PRNG.get_random_key(),
+                      box_vectors=fluid.box_vectors, device=dev)
+    nvt300 = ThermodynamicState(potential=fluid.potential,
+                                temperature=300.0 * units.kelvin)
+    nbr = NeighborListNsqrd(space, cutoff=fluid.cutoff,
+                            skin=0.5 * units.nanometer, n_max_neighbors=180)
+    nbr.build_from_state(sb)
+    move = MonteCarloDisplacementMove(
+        displacement_sigma=0.01 * units.nanometer, number_of_moves=MCMOVE_MOVES,
+        reporter=mc_reporter("lj_mcmove"), report_interval=50, autotune=True,
+        autotune_interval=100)
+    k1_before = k1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sb, _, nbr = move.update(sb, nvt300, nbr)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    acc_b = move.n_accepted / move.n_proposed
+    sigma_b = move._param_value()
+    e_b = float(fluid.potential.compute_energy(sb.positions, nbr))
+    _require(0.0 < acc_b < 1.0, f"(b) acceptance {acc_b}")
+    _require(sigma_b != 0.01, "(b) sigma not tuned")
+    _require(math.isfinite(e_b), f"(b) energy {e_b}")
+    _require(not bool(nbr.state.overflow), "(b) neighbor list overflow")
+    _require(k1() == k1_before, "(b) launched K1")
+    print(f"  (b) lj_mcmove (N={METHANE_N}, rho*=0.1, 300 K, "
+          f"NeighborListNsqrd skin 0.5 nm, {MCMOVE_MOVES} moves, autotune): "
+          f"acceptance {acc_b:.3f}, sigma 0.01 -> {sigma_b:.6f} nm, energy "
+          f"{e_b:.6f} kJ/mol, no overflow (capacity {nbr.n_max_neighbors}); "
+          f"{MCMOVE_MOVES / t_b:.1f} proposals/s (a rebuild predicate read "
+          f"a step)")
+
+    # (c) replica exchange over 4 NVT states of (a)'s final state, then MBAR
+    ladder = [ThermodynamicState(potential=lj, temperature=T * units.kelvin)
+              for T in REX_TEMPS]
+    box_np = box.cpu().numpy()
+    x_np = x.cpu().numpy()
+
+    def rex_sampler():
+        PRNG.set_seed(SEED + 1)
+        s = ReplicaExchangeSampler(
+            mcmc_sampler=MCMCSampler(MoveSchedule([("LangevinDynamicsMove",
+                LangevinDynamicsMove(timestep=1.0 * units.femtoseconds,
+                                     number_of_steps=REX_STEPS))])),
+            reporter=None if rex_reporter is None else rex_reporter())
+        s.create(ladder, [methane(PRNG.get_random_key(), x_np, box_np)
+                          for _ in REX_TEMPS],
+                 [DensePairs(space, cutoff=1.4 * units.nanometer)
+                  for _ in REX_TEMPS])
+        return s
+
+    rex = rex_sampler()
+    sweeps = []
+    inner = rex._perform_swap_proposals
+
+    def recorded():
+        before = (rex._iteration, np.array(rex._replica_thermodynamic_states),
+                  rex._energy_thermodynamic_states.copy())
+        out = inner()
+        sweeps.append((before, np.array(out), rex._n_accepted_matrix.copy(),
+                       rex._n_proposed_matrix.copy()))
+        return out
+
+    rex._perform_swap_proposals = recorded
+    k1_before = k1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rex.run(REX_ITERATIONS)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    k1_c = k1() - k1_before
+    R = len(REX_TEMPS)
+    want_c = R + REX_ITERATIONS * (R * REX_ITERATIONS * (REX_STEPS + 1) + R)
+    _require(k1_c == want_c, f"K1 launches in (c) {k1_c}, predicted {want_c}")
+    u = rex._energy_thermodynamic_states
+    worst = 0.0
+    for r, st in enumerate(rex._sampler_states):
+        e_r = oracle_energy(st.positions, st.box_vectors, lj)
+        for k, th in enumerate(ladder):
+            worst = max(worst, abs(u[r, k] - th.beta_md * e_r)
+                        / abs(th.beta_md * e_r))
+    _require(worst < 1e-5, f"(c) energy matrix rel err {worst}")
+    total_prop = total_acc = 0
+    for (it, perm, u_before), perm_after, acc_m, prop_m in sweeps:
+        want_perm, want_acc, want_prop = _swap_replica(perm, u_before, it)
+        _require(np.array_equal(perm_after, want_perm)
+                 and np.array_equal(acc_m, want_acc)
+                 and np.array_equal(prop_m, want_prop),
+                 f"(c) the swaps of iteration {it} differ from JAX's rule")
+        total_prop += int(prop_m.sum()) // 2
+        total_acc += int(acc_m.sum()) // 2
+    _require(len(sweeps) == REX_ITERATIONS and total_prop > 0,
+             f"(c) {len(sweeps)} sweeps, {total_prop} swaps proposed")
+    f_k = rex.f_k
+    _require(np.isfinite(f_k).all() and f_k[0] == 0.0, f"(c) f_k {f_k}")
+    print(f"  (c) ReplicaExchangeSampler ({R} NVT states at {REX_TEMPS} K of "
+          f"(a)'s final state, DensePairs, LangevinDynamicsMove 1 fs x "
+          f"{REX_STEPS}, run({REX_ITERATIONS}): {REX_ITERATIONS} x "
+          f"{REX_ITERATIONS} propagations a replica): energy matrix within "
+          f"{worst:.2e} of the f64 oracle (tolerance 1e-5); {total_prop} swaps "
+          f"proposed, {total_acc} accepted, each sweep equal to JAX's rule; "
+          f"f_k {np.array2string(f_k, precision=4)}; K1 launched {k1_c} times "
+          f"(predicted {want_c}); {t_c:.3f} s, "
+          f"{R * REX_ITERATIONS ** 2 * REX_STEPS / t_c:.1f} Langevin steps/s "
+          f"over the replicas ({smi})")
+
+    # MBAR on the card: the implicit solve in f64 against the host solver
+    u_3d = np.asarray(rex._reporter.get_property("u_kn"))[1:]
+    t_, s_, r_ = u_3d.shape
+    u_kn = np.transpose(u_3d, (1, 2, 0)).reshape(s_, r_ * t_)
+    N_k = np.full(s_, t_)
+    f_host = mbar_solve(u_kn, N_k, tol=1e-14)
+    u_dev = torch.tensor(u_kn, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+    f_dev = mbar_solve_implicit(u_dev, torch.tensor(N_k, device=dev))
+    err_f = float(np.abs(f_dev.detach().cpu().numpy() - f_host).max())
+    _require(err_f < 1e-8, f"(c) implicit MBAR vs host: {err_f}")
+    f_dev[-1].backward()
+    g = float((u_dev.grad[-1] * u_dev.detach()[-1]).sum())
+
+    def f_scaled(theta):
+        v = u_kn.copy()
+        v[-1] = theta * v[-1]
+        return mbar_solve(v, N_k, tol=1e-14)[-1]
+
+    h = 1e-6
+    fd = (f_scaled(1 + h) - f_scaled(1 - h)) / (2 * h)
+    g_rel = abs(g - fd) / abs(fd)
+    _require(g_rel < 1e-6, f"(c) implicit gradient {g} vs central "
+             f"difference {fd}: rel {g_rel}")
+    print(f"      mbar_solve_implicit in f64 on the card: within {err_f:.2e} "
+          f"of the host mbar_solve (tolerance 1e-8); d f_last / d theta "
+          f"{g:.6f} against a central difference {fd:.6f} (rel {g_rel:.2e}, "
+          f"tolerance 1e-6)")
+
+    # the session: save, a fresh sampler restores it, one iteration more
+    path = os.path.join("output", "chip_smoke_session.npz")
+    os.makedirs("output", exist_ok=True)
+    rex.save_session(path)
+    k1_before = k1()
+    rex.run(REX_ITERATIONS + 1)
+    fresh = rex_sampler()
+    fresh.load_session(path)
+    fresh.run(REX_ITERATIONS + 1)
+    for a_, b_ in zip(rex._sampler_states, fresh._sampler_states):
+        _require(torch.equal(a_.positions, b_.positions)
+                 and torch.equal(a_.velocities, b_.velocities)
+                 and a_.current_PRNG_key == b_.current_PRNG_key,
+                 "(c) the restored session's replicas differ")
+    _require(np.array_equal(rex._replica_thermodynamic_states,
+                            fresh._replica_thermodynamic_states)
+             and np.array_equal(rex._energy_thermodynamic_states,
+                                fresh._energy_thermodynamic_states),
+             "(c) the restored session's permutation or energies differ")
+    k1_r = k1() - k1_before
+    want_r = 2 * (R * (REX_ITERATIONS + 1) * (REX_STEPS + 1) + R)
+    _require(k1_r == want_r, f"K1 launches of the restart {k1_r}")
+    counts = dict(_build.launches)
+    want = want_a + 2 + 2 * CHAIN_MOVES + want_c + want_r
+    _require(counts.get("lj_dense", 0) == want,
+             f"[12] K1 launches {counts.get('lj_dense', 0)}, predicted {want}")
+    print(f"      save_session, load_session into a fresh sampler, one "
+          f"iteration more: equal bit for bit to the uninterrupted run")
+
+    # K1 as [12] calls it (exact reciprocal, with the energy), on (a)'s
+    # final state: against its plain version, timed, and its bound
+    from chiron_tpu_torch.ops.lj_dense import box_diagonal, lj_dense_plain
+
+    op = lj._dense_op(final_pairs, x.device)
+    x3, bd = op.pad_positions(x), box_diagonal(box, x.device)
+    F_k, E_k = op.force_energy_t(x3, bd)
+    F_p, E_p = lj_dense_plain(x3, bd, METHANE_N, lj.sigma, lj.epsilon,
+                              lj.cutoff)
+    scale = float(F_p.abs().max())
+    err_k = float((F_k - F_p).abs().max())
+    e_rel_k = abs(float(E_k) - float(E_p)) / abs(float(E_p))
+    _require(err_k / scale < 1e-5 and e_rel_k < 1e-5,
+             f"K1 at N={METHANE_N}: force rel {err_k / scale}, energy "
+             f"rel {e_rel_k}")
+    ms_k = _cuda_ms(lambda: op.force_energy_t(x3, bd))
+    plain_k = _cuda_ms(lambda: lj_dense_plain(
+        x3, bd, METHANE_N, lj.sigma, lj.epsilon, lj.cutoff), reps=5)
+    tested = METHANE_N * (METHANE_N - 1) // 2
+    in_cut = _pairs_in_cutoff(x3, bd, METHANE_N, lj.cutoff)
+    bound_ms, bound_by = _bound(
+        tested * TEST_FLOPS["lj_dense"] + in_cut * (LJ_FLOPS + ENERGY_FLOPS),
+        2 * 3 * op.n_pad * 4 + 12 + 4)
+    print(f"  K1 as [12] calls it (N={METHANE_N}, n_pad {op.n_pad}, exact, "
+          f"with the energy) on (a)'s final state: force rel err "
+          f"{err_k / scale:.3e}, energy rel err {e_rel_k:.3e} (tolerance "
+          f"1e-5); kernel {ms_k:.4f} ms, plain {plain_k:.4f} ms a call; "
+          f"{tested} distance tests, {in_cut} within the cutoff; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by})")
+    print(f"  [12] K1 launches {counts.get('lj_dense', 0)} (predicted {want}: "
+          f"(a) {want_a}, the chain checks {2 + 2 * CHAIN_MOVES}, (c) {want_c}, "
+          f"the restart {want_r}); mc path launches {counts}")
+    return {"mc": counts}
+
+
 def main():
     import torch
 
@@ -2548,6 +3068,7 @@ def main():
     counts.update(_phase10(dev, common, fluid, st, runner, results, smi,
                            t_kin))
     counts.update(_phase11(dev, smi))
+    counts.update(_phase12(dev, smi))
     for path, names in PATH_KERNELS.items():
         for name in names:
             _require(counts[path].get(name, 0) > 0,

@@ -2,10 +2,12 @@
 
 The JAX package ``chiron_tpu`` is the reference; this package mirrors its
 file layout (each module here has one counterpart there) and runs its main
-path -- the LJ-fluid NVT workload of ``bench.py`` -- NpT, and the general
-API (spaces, pair lists, potentials, states, ``LangevinIntegrator``, the
-minimizers) on an NVIDIA Hopper card through hand-written CUDA kernels
-(``csrc/``, built on first use by ``ops/_build.py``).  Every kernel wrapper runs its plain PyTorch version for
+path -- the LJ-fluid NVT workload of ``bench.py`` -- NpT, the general API
+(spaces, pair lists, potentials, states, ``LangevinIntegrator``, the
+minimizers), the Metropolis moves (``mcmc``), replica exchange
+(``multistate``) and MBAR (``analysis``) on an NVIDIA Hopper card through
+hand-written CUDA kernels (``csrc/``, built on first use by
+``ops/_build.py``).  Every kernel wrapper runs its plain PyTorch version for
 a tensor on the CPU, which is how the CPU tests compare the two packages.
 
 This package imports ``torch`` and numpy only, never jax or ``chiron_tpu``.
@@ -22,9 +24,11 @@ def __getattr__(name):
     import importlib
 
     submodules = {
-        "integrators", "interop", "minimize", "neighbors", "ops", "oracles",
-        "parallel", "potential", "runtime", "space", "states", "testsystems",
-        "utils",
+        "analysis", "checkpoint", "config", "integrators", "interop", "io",
+        "mcmc", "minimize", "multistate", "native", "neighbors",
+        "observables", "ops", "oracles", "parallel", "potential",
+        "profiling", "reporters", "runtime", "space", "states",
+        "testsystems", "utils",
     }
     if name in submodules:
         return importlib.import_module(f".{name}", __name__)

@@ -6,7 +6,8 @@ layouts are the JAX package's: (3, n_pad) f32 lanes, a (1, 3) box
 diagonal, and the tile-pair list's (1, capacity) rows for the runners;
 (N, 3) positions, a (3, 3) box and the pair schemes' own arrays for the
 general API.  A JAX PRNG key has no counterpart (``utils``): the general
-API's converters take an integer key.
+API's converters take an integer key, and so does the loader of a sampler
+checkpoint that the JAX package wrote (``sampler_state_from_checkpoint``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 from . import units
+from .checkpoint import load_checkpoint, load_sampler_checkpoint
 from .integrators import LangevinCarry
+from .mcmc import MCCarry
 from .neighbors import DensePairsState, NeighborListState, PairListState
 from .ops.lj_cull import TilePairList
 from .ops.lj_dense import box_diagonal
@@ -247,3 +250,39 @@ def general_langevin_carry(x, v, F, box_vectors, overflowed, key: int,
         overflowed=_t(overflowed, np.bool_, device).reshape(()),
         key=key, nbr_state=nbr_state,
     )
+
+
+def mc_carry(positions, box_vectors, key: int, reduced_potential, list_state,
+             n_accepted, n_proposed, param, overflowed,
+             device) -> MCCarry:
+    """An ``MCCarry`` from the JAX carry's arrays (numpy reads them), an
+    integer key and a pair state made by the converters above (or None)."""
+    return MCCarry(
+        positions=_t(positions, np.float32, device),
+        box_vectors=_box(box_vectors, device),
+        key=key,
+        reduced_potential=_f32(reduced_potential, device),
+        list_state=list_state,
+        n_accepted=_i32(n_accepted, device),
+        n_proposed=_i32(n_proposed, device),
+        param=_f32(param, device),
+        overflowed=_t(overflowed, np.bool_, device).reshape(()),
+    )
+
+
+def sampler_state_from_checkpoint(path, key: int, device, moves=None):
+    """``(SamplerState, metadata)`` from a sampler checkpoint written by
+    ``save_sampler_checkpoint`` of either package, on ``device``.
+
+    The positions, velocities, box, iteration and move statistics (into
+    ``moves``, a ``{name: move}`` mapping) carry over; the PRNG key is
+    ``key``, since a JAX checkpoint's threefry key has no counterpart here.
+    """
+    leaves, meta = load_checkpoint(path)
+    if "fields" not in meta:
+        raise ValueError(
+            f"{path}: no field header; load it into a SamplerState made to "
+            "match with checkpoint.load_sampler_checkpoint")
+    state = sampler_state(leaves[0], key, None, None, device)
+    meta = load_sampler_checkpoint(path, state, moves=moves, key=key)
+    return state, meta

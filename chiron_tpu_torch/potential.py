@@ -38,6 +38,15 @@ from .neighbors import (
 from .topology import Topology
 
 
+class _SharedOps(dict):
+    """A potential's K1 ops, by (cache_token, N, device): the deep copies
+    that ``MCMCSampler.run`` and the multistate samplers make of a
+    potential hold this same table, so they share its ops."""
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 def lj_energy_from_dist(dist, mask, sigma, epsilon):
     """Masked LJ energy sum, 4 eps [(sig/r)^12 - (sig/r)^6] over valid pairs;
     padded slots contribute exactly zero to the value and the gradient."""
@@ -166,13 +175,16 @@ class LJPotential(NeuralNetworkPotential):
         self.epsilon = float(epsilon.value_in_unit_system(units.md_unit_system))
         self.cutoff = float(cutoff.value_in_unit_system(units.md_unit_system))
         self.topology = topology
+        self._dense_ops = _SharedOps()
 
     def cache_token(self):
         return ("LJPotential", self.sigma, self.epsilon, self.cutoff)
 
     def _dense_op(self, pairs: DensePairs, device):
-        """K1 for the DensePairs scheme on ``device``, built once a (N,
-        device), with JAX's tile rule (only the padding follows from it)."""
+        """K1 for the DensePairs scheme on ``device``, built once a
+        (``cache_token()``, N, device), with JAX's tile rule (only the
+        padding follows from it).  Deep copies of the potential share the
+        table (``_SharedOps``), so they never copy or rebuild the op."""
         from .ops.lj_dense import LJDense
 
         if not math.isclose(pairs.cutoff_md, self.cutoff, rel_tol=1e-9):
@@ -181,13 +193,13 @@ class LJPotential(NeuralNetworkPotential):
                 f"potential cutoff ({self.cutoff})"
             )
         n = pairs.n_particles
-        device = torch.device(device)
-        cache = self.__dict__.setdefault("_dense_ops", {})
-        if (n, device) not in cache:
+        key = (self.cache_token(), n, torch.device(device))
+        if key not in self._dense_ops:
             tm = 512 if n >= 2048 else 128
-            cache[n, device] = LJDense(n, self.sigma, self.epsilon, self.cutoff,
-                                       tm=tm, tn=tm, device=device)
-        return cache[n, device]
+            self._dense_ops[key] = LJDense(n, self.sigma, self.epsilon,
+                                           self.cutoff, tm=tm, tn=tm,
+                                           device=key[2])
+        return self._dense_ops[key]
 
     # -- host-facing API ----------------------------------------------------
     def compute_energy(self, positions: torch.Tensor, nbr_list=None):

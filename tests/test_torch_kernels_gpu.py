@@ -1420,3 +1420,141 @@ def test_langevin_runner_on_a_neighbor_list_repeats_bit_for_bit(cuda):
     for name in ("x", "v", "F"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert not bool(a.overflowed)
+
+
+def _mc_chain_setup(dev, pressure=None):
+    from chiron_tpu_torch.neighbors import DensePairs, OrthogonalPeriodicSpace
+    from chiron_tpu_torch.states import ThermodynamicState
+    from chiron_tpu_torch import interop
+
+    fluid, pos, box = _general_fluid()
+    ss = interop.sampler_state(pos, 17, None, box, dev)
+    thermo = ThermodynamicState(
+        potential=fluid.potential, temperature=120.0 * units.kelvin,
+        pressure=None if pressure is None else pressure * units.atmosphere)
+    pairs = DensePairs(OrthogonalPeriodicSpace(), cutoff=fluid.cutoff)
+    pairs.build_from_state(ss)
+    return fluid, ss, thermo, pairs
+
+
+@pytest.mark.parametrize("kind", ["disp", "baro"])
+def test_mc_chain_on_dense_pairs_makes_no_host_sync_and_repeats(cuda, kind):
+    """A Metropolis chain on DensePairs (K1 every proposal) runs under
+    ``set_sync_debug_mode("error")``: no host sync in 40 proposals that
+    draw from generators on the card; two such chains from one carry are
+    equal bit for bit.  On one set of given draws the card's chain makes
+    the CPU chain's decisions, its energies within 1e-5 relative."""
+    from chiron_tpu_torch import mcmc
+
+    rng = np.random.default_rng(21)
+    n = _general_fluid()[1].shape[0]
+    given = ((rng.normal(size=(40, n, 3)) if kind == "disp"
+              else rng.uniform(-1, 1, 40)).astype(np.float32),
+             rng.uniform(size=40).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        _, ss, thermo, pairs = _mc_chain_setup(dev, pressure=100.0)
+        red = thermo.make_reduced_potential_fn(pairs)
+        if kind == "disp":
+            step = mcmc.make_displacement_step_fn(red, pairs, None, True, 10)
+        else:
+            step = mcmc.make_barostat_step_fn(red, pairs, n, True, 10)
+        u0 = red(ss.positions, ss.box_vectors, pairs.state)
+
+        def carry():
+            return mcmc.MCCarry(
+                positions=ss.positions, box_vectors=ss.box_vectors, key=5,
+                reduced_potential=u0, list_state=pairs.state,
+                n_accepted=torch.zeros((), dtype=torch.int32, device=dev),
+                n_proposed=torch.zeros((), dtype=torch.int32, device=dev),
+                param=torch.full((), 0.01 if kind == "disp" else 0.02,
+                                 device=dev),
+                overflowed=torch.zeros((), dtype=torch.bool, device=dev))
+
+        draws = tuple(torch.as_tensor(d, device=dev) for d in given)
+        out[str(dev)] = mcmc.run_mc_chain(step, carry(), 40, draws)[1]
+        if dev == cuda:
+            before = _build.launches.get("lj_dense", 0)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a, rec_a = mcmc.run_mc_chain(step, carry(), 40)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert _build.launches.get("lj_dense", 0) - before == 40
+            b, rec_b = mcmc.run_mc_chain(step, carry(), 40)
+            assert torch.equal(a.positions, b.positions)
+            for k in rec_a:
+                assert torch.equal(rec_a[k], rec_b[k]), k
+            assert int(a.n_proposed) == 40
+    c, g = out["cpu"], out[str(cuda)]
+    assert torch.equal(g["n_accepted"].cpu(), c["n_accepted"])
+    u_c, u_g = c["reduced_potential"], g["reduced_potential"].cpu()
+    assert float(((u_g - u_c) / u_c).abs().max()) < 1e-5
+
+
+def test_deep_copied_potential_launches_k1_without_rebuilding_it(cuda):
+    """``MCMCSampler.run`` deep-copies its thermodynamic state and pair
+    list: the copies share K1's op (one object, no new build) and launch
+    the kernel."""
+    import copy
+
+    from chiron_tpu_torch.mcmc import (MCMCSampler, MonteCarloDisplacementMove,
+                                       MoveSchedule)
+
+    fluid, ss, thermo, pairs = _mc_chain_setup(cuda)
+    op = fluid.potential._dense_op(pairs, cuda)
+    clone = copy.deepcopy(thermo)
+    assert clone.potential is not fluid.potential
+    assert clone.potential._dense_op(copy.deepcopy(pairs), cuda) is op
+    sampler = MCMCSampler(MoveSchedule([("disp", MonteCarloDisplacementMove(
+        displacement_sigma=0.01 * units.nanometer, number_of_moves=25))]))
+    before = _build.launches.get("lj_dense", 0)
+    out, _, _ = sampler.run(ss, thermo, n_iterations=2, nbr_list=pairs)
+    assert _build.launches.get("lj_dense", 0) - before == 2 * (25 + 1)
+    assert fluid.potential._dense_op(pairs, cuda) is op
+    assert out.positions.device.type == "cuda"
+    assert bool(torch.isfinite(out.positions).all())
+
+
+
+def test_observables_take_host_data_to_the_card(cuda, monkeypatch):
+    """A numpy trajectory's RDF, virial pressure, MSD and VACF run on the
+    card by default (every frame's histogram sees CUDA positions) and agree
+    with the same calls on the CPU: g(r) within two pairs a bin (a pair at
+    a bin edge may round the other way), the rest within 1e-5 relative."""
+    from chiron_tpu_torch import observables as to
+
+    rng = np.random.default_rng(0)
+    L, n, frames = 4.0, 500, 20
+    pos = rng.uniform(0, L, size=(frames, n, 3)).astype(np.float32)
+    box = np.eye(3) * L
+    hist = to._rdf_histogram
+    seen = []
+
+    def recording(positions, *args):
+        seen.append(positions.device.type)
+        return hist(positions, *args)
+
+    monkeypatch.setattr(to, "_rdf_histogram", recording)
+    r_g, g_g = to.radial_distribution_function(pos, box, n_bins=40)
+    assert seen == ["cuda"] * frames
+    r_c, g_c = to.radial_distribution_function(pos, box, n_bins=40,
+                                               device="cpu")
+    assert np.array_equal(r_g, r_c)
+    edges = np.linspace(0.0, 0.5 * L, 41)
+    ideal = (4.0 / 3.0 * np.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
+             * n / L ** 3 * (n - 1) / 2.0)
+    assert np.all(np.abs(g_g - g_c) * ideal * frames < 2.5)
+
+    assert to.unwrap_trajectory(pos, box).device.type == "cuda"
+    for fn in (to.mean_squared_displacement, to.velocity_autocorrelation):
+        got = fn(pos)
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   fn(pos, device="cpu").numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    p_g = to.lj_virial_pressure(pos[:3], box, 140.0, 0.34, 0.99579, 1.02)
+    p_c = to.lj_virial_pressure(pos[:3], box, 140.0, 0.34, 0.99579, 1.02,
+                                device="cpu")
+    assert p_g == pytest.approx(p_c, rel=1e-5)

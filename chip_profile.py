@@ -91,6 +91,15 @@ each window and the profiled call on a new sampler (4 replicas, 5
 iterations of 5 x 50 steps each, the energy matrices, the swaps and the
 offline MBAR).
 
+    python3 chip_profile.py --pt
+
+profiles the dense tempering path of ``chip_smoke.py`` [13] (``pt``):
+``benchmarks/replica_scaling.py``'s ladder (``LennardJonesFluid(1000,
+0.8)``, ``linspace(120, 200, R)`` K, seed 7, the dense chain on K1 over
+replicas) at R=8 and R=64: after a warm-up ``propagate`` of the window's
+length, three 500-step windows of ``propagate`` itself, then profiler rows
+of one ``propagate(500)`` (its U gather and read included).
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -595,6 +604,39 @@ def mc(dev):
     _profile(label, lambda: run(REX_ITERATIONS), REX_ITERATIONS)
 
 
+# --pt: the ladders and the length of a window (and of the profiled call)
+PT_PROFILE_RS = (8, 64)
+PT_WINDOW_STEPS = 500
+
+
+def pt(dev):
+    """Windows and profiler rows of ``ParallelTemperingSampler.propagate``
+    on ``chip_smoke.py`` [13](b)'s dense ladder at R=8 and R=64."""
+    import numpy as np
+
+    from chip_smoke import PT_N, PT_SEED
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.parallel import (ParallelTemperingSampler,
+                                           make_replica_mesh)
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+
+    md = units.md_unit_system
+    fluid = LennardJonesFluid(nparticles=PT_N, reduced_density=0.8)
+    mesh = make_replica_mesh(1, device=dev)
+    for R in PT_PROFILE_RS:
+        sampler = ParallelTemperingSampler(
+            fluid.potential, list(np.linspace(120.0, 200.0, R)), mesh=mesh)
+        sampler.initialize(fluid.positions.value_in_unit_system(md),
+                           fluid.box_vectors.value_in_unit_system(md),
+                           seed=PT_SEED)
+        sampler.propagate(PT_WINDOW_STEPS)  # warm-up
+        label = (f"dense tempering propagate (N={PT_N}, R={R}, K1 over "
+                 f"replicas)")
+        _windows(label, sampler.propagate, PT_WINDOW_STEPS)
+        _profile(label, lambda: sampler.propagate(PT_WINDOW_STEPS),
+                 PT_WINDOW_STEPS, host_rows=8)
+
+
 def main():
     import torch
 
@@ -641,6 +683,10 @@ def main():
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--mc":
         mc(dev)
+        print(f"card after: {_card()}")
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--pt":
+        pt(dev)
         print(f"card after: {_card()}")
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--strip-latch":

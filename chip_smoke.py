@@ -152,8 +152,36 @@ Phases (any failure raises, and the script exits nonzero):
    uninterrupted run.  Without h5py the reporters are an in-memory object
    of this script's (a line says so).
 
-The ``kernels`` line gives each kernel's launches on the ten counted
-paths (phases 5-12, under ``launches_by_path``; ``launches`` is their sum), its
+13. the replica axis (``parallel/tempering.py``, ``parallel/multistate.py``):
+   (b) ``benchmarks/replica_scaling.py``'s workload, counted:
+   ``LennardJonesFluid(1000, 0.8)``, temperatures ``linspace(120, 200, R)``
+   (120 K alone at R=1), seed 7, the dense chain that ``dense=None`` picks,
+   a 1-process mesh; for R in 1, 8, 16, 64: ``propagate(500)`` to warm, then
+   one timed ``propagate(2000)`` (the script's best of three cut to one):
+   steps/s, replica-steps/s, the efficiency against R=1, U finite and each
+   replica's kinetic temperature within 10% of its own; K1 over replicas
+   launched 4 x (502 + 2002) = 10,016 times, single-system K1 never; (a) K1
+   over replicas at R=8 and R=64 on (b)'s warmed states: every replica's
+   force (both reciprocals) and energy bitwise equal to a single-system K1
+   call, within 1e-5 (exact) and 1e-4 (approximate) of the plain version,
+   the energy within 1e-5, timed beside R single launches and the plain
+   version, and its bound; (c) ``tests/test_parallel.py``'s 8-replica
+   harmonic ladder, ``run(300, 200)``: swap acceptance above 0.2 and MBAR's
+   f_k within 0.15 kT of the analytic values; (d) (b)'s ladder at R=8,
+   ``run(3, 100)`` with a reporter, ``save_session``, a fresh sampler's
+   ``load_session`` and ``run(3, 100)`` bit for bit equal to ``run(6,
+   100)``, ``compute_free_energies`` finite, and the run in a 1-rank NCCL
+   group bit for bit equal to the one without; (e)
+   ``examples/parallel_tempering.py``: N=256, rho*=0.4, ``NeighborListNsqrd``
+   (skin 0.3 nm, 160 neighbours), 8 replicas at 120 x 1.08^i K, ``run(2,
+   200)`` to warm and ``run(5, 200)`` timed, f_k finite; (f)
+   ``MeshMultiStateSampler`` on ``examples/lj_hamiltonian_ladder.py``'s
+   ladder (27 particles, 11 lambdas, 300 K) through the batched registered
+   path, ``run(3)``: u_kn's columns proportional, u_k = (lambda_k /
+   lambda_0) u_0, to 1e-5 relative.
+
+The ``kernels`` line gives each kernel's launches on the eleven counted
+paths (phases 5-13, under ``launches_by_path``; ``launches`` is their sum), its
 error and times, and its bound.  The C entries of K3's and K11's segments
 (``culled_md``, ``mega_md``) count one launch a call and each kernel they
 enqueue under that kernel's name (``baoab`` once a segment,
@@ -230,6 +258,23 @@ MCMOVE_MOVES = 1000
 REX_TEMPS = (140.0, 150.0, 160.0, 170.0)
 REX_STEPS = 50
 REX_ITERATIONS = 5
+# [13]: benchmarks/replica_scaling.py's workload (its one cut: one timed
+# window a ladder, not the best of three), tests/test_parallel.py's harmonic
+# ladder, examples/parallel_tempering.py (5 timed iterations, not 20) and
+# examples/lj_hamiltonian_ladder.py's ladder (3 iterations, not 20)
+PT_N = 1000
+PT_RS = (1, 8, 16, 64)
+PT_K1_RS = (8, 64)  # (a): K1 over replicas on these ladders' warmed states
+PT_WARM = 500
+PT_STEPS = 2000
+PT_SEED = 7
+HO_ITERATIONS = 300
+HO_STEPS = 200
+PT_SESSION_STEPS = 100
+EXAMPLE_WARM = 2
+EXAMPLE_ITERATIONS = 5
+EXAMPLE_STEPS = 200
+LADDER_ITERATIONS = 3
 # the kernels each counted path must launch.  No runner takes K6's or K7's
 # energy pass (the band and strip runners take their energy from K1, as the
 # JAX runners do): those two are held to their plain versions and listed
@@ -250,6 +295,7 @@ PATH_KERNELS = {
              "tile_skin_drift", "mega_repair", "lj_dense"),
     "general": ("lj_dense",),
     "mc": ("lj_dense",),
+    "pt": ("lj_dense_replicas",),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -2009,6 +2055,289 @@ def _phase12(dev, smi):
     return {"mc": counts}
 
 
+def _phase13(dev, smi, results):
+    """[13] the replica axis on the card: (b) counted, then (a), (c)-(f);
+    adds K1 over replicas to ``results`` and returns the path's counts."""
+    import numpy as np
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.mcmc import (LangevinDynamicsMove, MCMCSampler,
+                                       MoveSchedule)
+    from chiron_tpu_torch.neighbors import (NeighborListNsqrd,
+                                            OrthogonalPeriodicSpace)
+    from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.ops.lj_dense import (lj_dense_force_energy,
+                                               lj_dense_replicas_plain)
+    from chiron_tpu_torch.parallel import (MeshMultiStateSampler,
+                                           ParallelTemperingSampler)
+    from chiron_tpu_torch.parallel import distributed as pdist
+    from chiron_tpu_torch.parallel import make_replica_mesh
+    from chiron_tpu_torch.potential import LJPotential
+    from chiron_tpu_torch.states import SamplerState, ThermodynamicState
+    from chiron_tpu_torch.testsystems import (HarmonicOscillator,
+                                              LennardJonesFluid)
+    from chiron_tpu_torch.utils import PRNG
+
+    md = units.md_unit_system
+    fluid = LennardJonesFluid(nparticles=PT_N, reduced_density=0.8)
+    pos = fluid.positions.value_in_unit_system(md)
+    box = fluid.box_vectors.value_in_unit_system(md)
+    mesh = make_replica_mesh(1, device=dev)
+    pot = fluid.potential
+
+    def ladder(R, on=mesh):
+        temps = list(np.linspace(120.0, 200.0, R)) if R > 1 else [120.0]
+        pt = ParallelTemperingSampler(pot, temps, mesh=on)
+        pt.initialize(pos, box, seed=PT_SEED)
+        return pt
+
+    def elapsed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    print("[13] the replica axis (parallel/tempering, parallel/multistate, "
+          "K1 over replicas)")
+    t_phase = time.perf_counter()
+
+    # (b) benchmarks/replica_scaling.py's workload, counted
+    _build.reset_launch_counts()
+    rates, warm, op = {}, {}, None
+    for R in PT_RS:
+        pt = ladder(R)
+        op = pt._dense_op
+        _require(op is not None and op.n_pad == ((PT_N + 511) // 512) * 512,
+                 "(b) dense=None did not pick the dense chain")
+        pt.propagate(PT_WARM)
+        if R in PT_K1_RS:
+            warm[R] = (pt.positions.clone(), pt.box_vectors.clone())
+        U, dt = elapsed(lambda: pt.propagate(PT_STEPS))
+        v = pt.velocities[:, :, :PT_N].double()
+        m = pt.masses[0, :PT_N].double()
+        t_kin = ((m * v * v).sum(dim=(1, 2)) / (3 * PT_N * units.kB_MD)
+                 ).cpu().numpy()
+        temps = np.asarray(pt.kTs, dtype=np.float64) / units.kB_MD
+        worst = float(np.max(np.abs(t_kin - temps) / temps))
+        _require(np.isfinite(U).all(), f"(b) R={R}: U {U}")
+        _require(worst < 0.10, f"(b) R={R}: kinetic temperature off its own "
+                 f"by {worst:.3f}")
+        rates[R] = PT_STEPS / dt
+        print(f"  (b) R={R:3d}: {rates[R]:9.1f} steps/s a ladder, "
+              f"{R * rates[R]:11.1f} replica-steps/s, T_kin within "
+              f"{worst * 100:.2f}% of each replica's T, U mean "
+              f"{float(np.mean(U)):.3f} kJ/mol ({dt:.3f} s for {PT_STEPS} "
+              f"steps)")
+    counts = dict(_build.launches)
+    want = len(PT_RS) * ((PT_WARM + 2) + (PT_STEPS + 2))
+    _require(counts.get("lj_dense_replicas", 0) == want
+             and counts.get("lj_dense", 0) == 0,
+             f"(b) launches {counts}, predicted {want} of lj_dense_replicas "
+             "and none of lj_dense")
+    eff = ", ".join(f"R={R} {rates[R] / rates[PT_RS[0]]:.2%}" for R in PT_RS)
+    print(f"      efficiency against R=1 (replica-steps/s over R x R=1's): "
+          f"{eff}; one timed window a ladder (replica_scaling.py takes the "
+          f"best of three: the one cut); pt path launches {counts} "
+          f"(predicted {want}) ({smi})")
+
+    # (a) K1 over replicas on (b)'s warmed states, against single launches
+    args = (PT_N, pot.sigma, pot.epsilon, pot.cutoff)
+    for R, (x3r, bd) in sorted(warm.items()):
+        Fa = op.force_only_r(x3r, bd)
+        Fx = op.force_only_r(x3r, bd, approx_recip=False)
+        Fe, Ee = op.force_energy_r(x3r, bd)
+        for r in range(R):
+            b1 = bd[r].reshape(1, 3)
+            fa, _ = lj_dense_force_energy(x3r[r], b1, *args, approx_recip=True,
+                                          with_energy=False)
+            fx, _ = lj_dense_force_energy(x3r[r], b1, *args,
+                                          approx_recip=False,
+                                          with_energy=False)
+            fe, ee = lj_dense_force_energy(x3r[r], b1, *args)
+            _require(torch.equal(Fa[r], fa) and torch.equal(Fx[r], fx)
+                     and torch.equal(Fe[r], fe) and torch.equal(Ee[r], ee),
+                     f"(a) R={R}: replica {r} differs from single-system K1")
+        Fp, Ep = lj_dense_replicas_plain(x3r, bd, *args)
+        scale = float(Fp.abs().max())
+        err = float((Fe - Fp).abs().max())
+        err_a = float((Fa - Fp).abs().max())
+        e_rel = float(((Ee - Ep).abs() / Ep.abs()).max())
+        _require(err / scale < 1e-5 and err_a / scale < 1e-4
+                 and e_rel < 1e-5,
+                 f"(a) R={R}: exact {err / scale}, approximate "
+                 f"{err_a / scale}, energy {e_rel}")
+        ms = _cuda_ms(lambda: op.force_only_r(x3r, bd))
+        singles_ms = _cuda_ms(lambda: [lj_dense_force_energy(
+            x3r[r], bd[r].reshape(1, 3), *args, approx_recip=True,
+            with_energy=False) for r in range(R)], reps=5)
+        plain_ms = _cuda_ms(lambda: lj_dense_replicas_plain(
+            x3r, bd, *args, with_energy=False), reps=2)
+        tested = R * PT_N * (PT_N - 1) // 2
+        in_cut = sum(_pairs_in_cutoff(x3r[r], bd[r], PT_N, pot.cutoff)
+                     for r in range(R))
+        n_pad = x3r.shape[2]
+        bound_ms, bound_by = _bound(
+            tested * TEST_FLOPS["lj_dense"] + in_cut * LJ_FLOPS,
+            2 * R * 3 * n_pad * 4 + 12 * R)
+        print(f"  (a) K1 over replicas, R={R} (n_pad {n_pad}): every "
+              f"replica's force (approximate and exact) and energy bitwise "
+              f"equal to a single-system call; against plain: exact "
+              f"{err / scale:.3e}, approximate {err_a / scale:.3e} (rel, "
+              f"tolerances 1e-5, 1e-4), energy {e_rel:.3e} (1e-5)")
+        print(f"      approximate force: one launch {ms:.4f} ms, {R} single "
+              f"launches {singles_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"{tested} distance tests, {in_cut} within the cutoff; bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by})")
+        if R == max(warm):
+            results["lj_dense_replicas"] = dict(
+                source="chiron_tpu_torch/csrc/lj_dense.cu",
+                replaces="chiron_tpu/ops/lj_dense.py:340", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+    del warm
+
+    # (c) tests/test_parallel.py's harmonic ladder against the analytic f_k
+    ho = HarmonicOscillator(k=100.0 * units.kilojoule_per_mole
+                            / units.nanometer ** 2)
+    temps = [300.0 * 1.2 ** i for i in range(8)]
+    hpt = ParallelTemperingSampler(
+        ho.potential, [t * units.kelvin for t in temps],
+        timestep=4.0 * units.femtoseconds,
+        collision_rate=5.0 / units.picoseconds, mesh=mesh)
+    hpt.initialize(ho.positions, seed=1234)
+    _, dt = elapsed(lambda: hpt.run(HO_ITERATIONS, HO_STEPS))
+    f_k = hpt.compute_free_energies(discard_fraction=0.2)
+    kB = 0.008314462618
+    f_an = np.array([-1.5 * math.log(2 * math.pi * kB * t / 100.0)
+                     for t in sorted(temps)])
+    f_an -= f_an[0]
+    f_err = float(np.max(np.abs(f_k - f_an)))
+    acc = hpt.swap_acceptance_fraction
+    _require(acc > 0.2 and f_err < 0.15,
+             f"(c) swap acceptance {acc}, f_k error {f_err}")
+    print(f"  (c) harmonic ladder (8 replicas, 300 x 1.2^i K, 4 fs, 5/ps, "
+          f"run({HO_ITERATIONS}, {HO_STEPS})): swap acceptance {acc:.3f} "
+          f"(> 0.2), max |f_k - analytic| {f_err:.4f} kT (< 0.15); "
+          f"{8 * HO_ITERATIONS * HO_STEPS / dt:.1f} replica-steps/s "
+          f"({dt:.3f} s)")
+
+    # (d) a session on the card, and the same run in a 1-rank NCCL group
+    def session_run(n_iterations, on=mesh):
+        pt = ladder(8, on)
+        pt._reporter = _MemoryReporter()
+        return pt.run(n_iterations, PT_SESSION_STEPS, seed=5)
+
+    ref = session_run(6)
+    path = os.path.join("output", "chip_smoke_pt_session.npz")
+    os.makedirs("output", exist_ok=True)
+    session_run(3).save_session(path)
+    resumed = ladder(8)
+    resumed._reporter = _MemoryReporter()
+    resumed.load_session(path)
+    resumed.run(3, PT_SESSION_STEPS)
+
+    def same(a, b):
+        return (torch.equal(a.positions, b.positions)
+                and torch.equal(a.velocities, b.velocities)
+                and np.array_equal(np.stack(a._u_history),
+                                   np.stack(b._u_history))
+                and np.array_equal(a.kTs, b.kTs) and a.keys == b.keys
+                and a.n_accepted_swaps == b.n_accepted_swaps)
+
+    _require(same(resumed, ref), "(d) the restored session differs")
+    u_kn = ref._reporter.get_property("u_kn")
+    _require(u_kn.shape == (6, 8, 8) and np.isfinite(u_kn).all(),
+             f"(d) reported u_kn {u_kn.shape}")
+    f_d = ref.compute_free_energies()
+    _require(np.isfinite(f_d).all(), f"(d) f_k {f_d}")
+    store_path = _build.BUILD_ROOT / f"nccl_store_pt.{os.getpid()}"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    _require(pdist.initialize_cluster(
+        num_processes=1, process_id=0, device=dev,
+        store=torch.distributed.FileStore(str(store_path), 1)),
+        "NCCL group not initialised")
+    try:
+        gmesh = make_replica_mesh(device=dev)
+        _require(gmesh.group is not None, "the mesh has no process group")
+        grouped = session_run(6, gmesh)
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    _require(same(grouped, ref), "(d) the NCCL-group run differs")
+    print(f"  (d) R=8 session: run(3, {PT_SESSION_STEPS}), save_session, a "
+          f"fresh sampler's load_session and run(3, {PT_SESSION_STEPS}) equal "
+          f"bit for bit to run(6, {PT_SESSION_STEPS}) ({ref.n_accepted_swaps}"
+          f" of {ref.n_proposed_swaps} swaps accepted), reported u_kn "
+          f"(6, 8, 8) finite, f_k {np.array2string(f_d, precision=3)}; the "
+          f"run in a 1-rank NCCL group (U and positions gathered there) equal "
+          f"bit for bit")
+
+    # (e) examples/parallel_tempering.py on the port: the Verlet-list chain
+    ex = LennardJonesFluid(nparticles=256, reduced_density=0.4)
+    nbr = NeighborListNsqrd(OrthogonalPeriodicSpace(), cutoff=ex.cutoff,
+                            skin=0.3 * units.nanometer, n_max_neighbors=160)
+    temps = [120.0 * 1.08 ** i for i in range(8)]
+    ept = ParallelTemperingSampler(
+        ex.potential, [t * units.kelvin for t in temps],
+        timestep=2.0 * units.femtoseconds, pairs=nbr, mesh=mesh)
+    ept.initialize(ex.positions.value_in_unit_system(md),
+                   box_vectors=ex.box_vectors.value_in_unit_system(md),
+                   seed=1234)
+    ept.run(EXAMPLE_WARM, EXAMPLE_STEPS)
+    _, dt = elapsed(lambda: ept.run(EXAMPLE_ITERATIONS, EXAMPLE_STEPS))
+    f_e = ept.compute_free_energies()
+    _require(np.isfinite(f_e).all(), f"(e) f_k {f_e}")
+    print(f"  (e) examples/parallel_tempering.py (N=256, rho*=0.4, "
+          f"NeighborListNsqrd, 8 replicas, run({EXAMPLE_WARM}, "
+          f"{EXAMPLE_STEPS}) to warm, run({EXAMPLE_ITERATIONS}, "
+          f"{EXAMPLE_STEPS}) timed: 5 iterations, not the example's 20): "
+          f"{8 * EXAMPLE_ITERATIONS * EXAMPLE_STEPS / dt:.1f} replica-steps/s,"
+          f" swap acceptance {ept.swap_acceptance_fraction:.3f}, f_k "
+          f"{np.array2string(f_e, precision=3)}")
+
+    # (f) MeshMultiStateSampler on examples/lj_hamiltonian_ladder.py's ladder
+    lambdas = [float(x) for x in np.round(np.linspace(0.25, 1.0, 11), 4)]
+    lf = LennardJonesFluid(nparticles=27, reduced_density=0.4)
+    states = [ThermodynamicState(
+        LJPotential(lf.topology, sigma=lf.sigma, epsilon=lam * lf.epsilon,
+                    cutoff=lf.cutoff), temperature=300.0 * units.kelvin)
+        for lam in lambdas]
+    PRNG.set_seed(2024)
+    sstates = [SamplerState(lf.positions,
+                            current_PRNG_key=PRNG.get_random_key(),
+                            box_vectors=lf.box_vectors, device=dev)
+               for _ in lambdas]
+    nbrs = [NeighborListNsqrd(OrthogonalPeriodicSpace(), cutoff=lf.cutoff,
+                              skin=0.3 * units.nanometer, n_max_neighbors=80)
+            for _ in lambdas]
+    ms = MeshMultiStateSampler(
+        mcmc_sampler=MCMCSampler(MoveSchedule([(
+            "LangevinDynamicsMove", LangevinDynamicsMove(
+                timestep=2.0 * units.femtoseconds, number_of_steps=100))])),
+        reporter=_MemoryReporter(), mesh=mesh)
+    ms.create(states, sstates, nbrs)
+    _require(ms._propagator is not None and ms._ukn_fn is not None,
+             "(f) the batched registered path is not active")
+    _, dt = elapsed(lambda: ms.run(LADDER_ITERATIONS))
+    u = ms._energy_thermodynamic_states
+    worst = max(float(np.max(np.abs(u[:, k] - (lam / lambdas[0]) * u[:, 0])
+                             / np.abs((lam / lambdas[0]) * u[:, 0])))
+                for k, lam in enumerate(lambdas))
+    _require(np.isfinite(u).all() and worst < 1e-5,
+             f"(f) u_kn columns not proportional: {worst}")
+    print(f"  (f) MeshMultiStateSampler, lj_hamiltonian_ladder's ladder (27 "
+          f"particles, {len(lambdas)} lambdas, 300 K, 2 fs x 100, "
+          f"run({LADDER_ITERATIONS}), batched registered path): u_k = "
+          f"(lambda_k / lambda_0) u_0 within {worst:.2e} (tolerance 1e-5); "
+          f"{len(lambdas) * LADDER_ITERATIONS * 100 / dt:.1f} replica-steps/s"
+          f" ({dt:.3f} s); f_k {np.array2string(ms.f_k, precision=3)}")
+    print(f"  [13] took {time.perf_counter() - t_phase:.1f} s")
+    return {"pt": counts}
+
+
 def main():
     import torch
 
@@ -3069,6 +3398,7 @@ def main():
                            t_kin))
     counts.update(_phase11(dev, smi))
     counts.update(_phase12(dev, smi))
+    counts.update(_phase13(dev, smi, results))
     for path, names in PATH_KERNELS.items():
         for name in names:
             _require(counts[path].get(name, 0) > 0,

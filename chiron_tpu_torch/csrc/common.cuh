@@ -274,8 +274,9 @@ __device__ __forceinline__ float block_sum(float v, float* scratch, int tid) {
 
 // The sum of n_parts partials in one fixed order, times scale, into *out:
 // each thread a strided compensated sum, then the threads in order
-// (cull::block_sum).  One block of kSumThreads threads (lj_dense.cu's and
-// lj_strip.cu's energies).
+// (cull::block_sum).  A block of kSumThreads threads a sum (lj_dense.cu's and
+// lj_strip.cu's energies): block b sums parts[b n_parts ..] into out[b], so
+// one launch of R blocks sums R replicas' partials, each as one block alone.
 constexpr int kSumThreads = 256;
 
 template <int kThreads>
@@ -283,6 +284,8 @@ __global__ void __launch_bounds__(kThreads)
 partial_sum(const float* __restrict__ parts, int n_parts, float scale,
             float* __restrict__ out) {
   __shared__ float scratch[kThreads / 32];
+  parts += static_cast<size_t>(blockIdx.x) * n_parts;
+  out += blockIdx.x;
   float acc = 0.0f, comp = 0.0f;
   for (int k = threadIdx.x; k < n_parts; k += kThreads)
     kahan_add(acc, comp, parts[k]);

@@ -47,6 +47,17 @@
 // A culled pair or a skipped LJ term adds nothing where the full pass would
 // add zero, so the function is unchanged.
 //
+// Replicas (chiron_lj_dense's n_rep): blockIdx.y is the replica, and a block
+// first moves pos, box, rows, force and e_part to its replica's arrays, so
+// block (x, r) does what block x of a single-system launch on replica r's
+// arrays does, and a replica's force and energy are that launch's bit for
+// bit.  A single system is n_rep = 1 (gridDim.y = 1, no offset), as are the
+// other entries.
+// This is JAX's vmap of the pallas_call (chiron_tpu/parallel/tempering.py:
+// 387-390 over lj_dense.py:340), a grid axis written out: one launch for R
+// replicas fills the card where one system leaves most SMs idle (N=1000 is
+// 32 blocks on 132 SMs).
+//
 // Energy: every thread keeps a compensated sum over its columns; a block
 // folds its threads' sums in a fixed order into one slot of e_part, and a
 // second pass sums the slots in a fixed order (the 1e-6 design bar of
@@ -132,7 +143,7 @@ __device__ __forceinline__ void chunk_pairs(
 
 // The rows of a launch are rows [off, off + gridDim.x * kRows) of the
 // layout, read from `rows` (and their force written to `force`), arrays of
-// row stride rs.
+// row stride rs; blockIdx.y is the replica, whose arrays follow each other.
 template <bool kDivide, bool kApprox, bool kEnergy>
 __global__ void __launch_bounds__(kRows * kWarps, 1)
 lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
@@ -141,6 +152,12 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
               Lj lj) {
   __shared__ float4 stage[kWarps][kChunk];
   __shared__ float red[kWarps][4][kRows];
+  const size_t rep = blockIdx.y;
+  pos += rep * 3 * n_pad;
+  box += rep * 3;
+  rows += rep * 3 * rs;
+  force += rep * 3 * rs;
+  if constexpr (kEnergy) e_part += rep * gridDim.x;
   const int lane = threadIdx.x;
   const int g = threadIdx.y;
   const int r = blockIdx.x * kRows + lane;  // the row in the launch's arrays
@@ -228,30 +245,30 @@ struct Rows {
 
 template <bool kDivide, bool kApprox, bool kEnergy>
 cudaError_t launch_rows(const float* pos, const float* box, const Rows& rows,
-                        int n_rows, float* e_part, int n, int n_pad,
+                        int n_rows, int n_rep, float* e_part, int n, int n_pad,
                         const Lj& lj, cudaStream_t s) {
   lj_dense_rows<kDivide, kApprox, kEnergy>
-      <<<n_rows / kRows, dim3(kRows, kWarps), 0, s>>>(
+      <<<dim3(n_rows / kRows, n_rep), dim3(kRows, kWarps), 0, s>>>(
           pos, box, rows.pos, rows.force, rows.rs, rows.off, e_part, n, n_pad,
           lj);
   return cudaGetLastError();
 }
 
-// A launch's rows, with the energy (scaled by e_scale) into *energy when
-// with_energy, else the force only.
+// A launch's rows for n_rep replicas, with each replica's energy (scaled by
+// e_scale) into energy[r] when with_energy, else the force only.
 template <bool kApprox>
 cudaError_t launch_pass(const float* pos, const float* box, const Rows& rows,
-                        int n_rows, float* e_part, float* energy, int n,
-                        int n_pad, const Lj& lj, int with_energy,
+                        int n_rows, int n_rep, float* e_part, float* energy,
+                        int n, int n_pad, const Lj& lj, int with_energy,
                         float e_scale, cudaStream_t s) {
   if (!with_energy)
-    return launch_rows<false, kApprox, false>(pos, box, rows, n_rows, e_part,
-                                              n, n_pad, lj, s);
-  cudaError_t err = launch_rows<false, kApprox, true>(pos, box, rows, n_rows,
-                                                      e_part, n, n_pad, lj, s);
+    return launch_rows<false, kApprox, false>(pos, box, rows, n_rows, n_rep,
+                                              e_part, n, n_pad, lj, s);
+  cudaError_t err = launch_rows<false, kApprox, true>(
+      pos, box, rows, n_rows, n_rep, e_part, n, n_pad, lj, s);
   if (err != cudaSuccess) return err;
-  partial_sum<kSumThreads><<<1, kSumThreads, 0, s>>>(e_part, n_rows / kRows,
-                                                     e_scale, energy);
+  partial_sum<kSumThreads><<<n_rep, kSumThreads, 0, s>>>(
+      e_part, n_rows / kRows, e_scale, energy);
   return cudaGetLastError();
 }
 
@@ -264,15 +281,19 @@ cudaError_t lj_dense_force_divide(const float* pos, const float* box,
   const Lj lj{sigma2, coef_scale, 0.0f, cutoff2, r2_floor,
               cutoff2 * cull::kRaise};
   return launch_rows<true, true, false>(pos, box, Rows{pos, force, n_pad, 0},
-                                        n_pad, nullptr, n, n_pad, lj, s);
+                                        n_pad, 1, nullptr, n, n_pad, lj, s);
 }
 
-// K1 and K2.  pos, force: (3, n_pad) f32; box: (3,) f32; e_part: (n_pad /
-// 32,) f32 scratch; energy: (1,) f32, written only when with_energy.  n_pad
-// must be a multiple of 32.
+// K1 and K2 over n_rep replicas in one launch (n_rep = 1 for a single
+// system; JAX's vmap of K1 in the dense tempering chain for more): pos, force
+// (n_rep, 3, n_pad) f32; box (n_rep, 3) f32, a box a replica; e_part (n_rep,
+// n_pad / 32) f32 scratch; energy (n_rep,) f32, written only when
+// with_energy.  Replica r's force and energy equal a one-replica launch's on
+// its own arrays, bit for bit.  n_pad must be a multiple of 32 and 0 < n_rep
+// <= 65535.
 CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
                                   float* force, float* e_part, float* energy,
-                                  int n, int n_pad, float sigma2,
+                                  int n, int n_pad, int n_rep, float sigma2,
                                   float coef_scale, float eps4, float cutoff2,
                                   float r2_floor, int approx, int with_energy,
                                   void* stream) {
@@ -281,10 +302,10 @@ CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
               cutoff2 * cull::kRaise};
   const Rows rows{pos, force, n_pad, 0};
   return static_cast<int>(
-      approx ? launch_pass<true>(pos, box, rows, n_pad, e_part, energy, n,
-                                 n_pad, lj, with_energy, 0.5f, s)
-             : launch_pass<false>(pos, box, rows, n_pad, e_part, energy, n,
-                                  n_pad, lj, with_energy, 0.5f, s));
+      approx ? launch_pass<true>(pos, box, rows, n_pad, n_rep, e_part, energy,
+                                 n, n_pad, lj, with_energy, 0.5f, s)
+             : launch_pass<false>(pos, box, rows, n_pad, n_rep, e_part, energy,
+                                  n, n_pad, lj, with_energy, 0.5f, s));
 }
 
 // K8a: the slab rows (3, rows_per_dev) f32 at global rows [off, off +
@@ -304,7 +325,7 @@ CHIRON_EXPORT int chiron_row_slab_force(const float* rows, const float* pos,
   const Lj lj{sigma2, coef_scale, eps4, cutoff2, r2_floor,
               cutoff2 * cull::kRaise};
   return static_cast<int>(launch_pass<false>(
-      pos, box, Rows{rows, force, rows_per_dev, off}, rows_per_dev, e_part,
+      pos, box, Rows{rows, force, rows_per_dev, off}, rows_per_dev, 1, e_part,
       energy, n, n_pad, lj, with_energy, 1.0f,
       static_cast<cudaStream_t>(stream)));
 }

@@ -8,6 +8,8 @@ diagonal, and the tile-pair list's (1, capacity) rows for the runners;
 general API.  A JAX PRNG key has no counterpart (``utils``): the general
 API's converters take an integer key, and so does the loader of a sampler
 checkpoint that the JAX package wrote (``sampler_state_from_checkpoint``).
+``pt_state`` sets a ``ParallelTemperingSampler`` from the replica arrays of
+JAX's sampler and R integer keys.
 """
 
 from __future__ import annotations
@@ -286,3 +288,48 @@ def sampler_state_from_checkpoint(path, key: int, device, moves=None):
     state = sampler_state(leaves[0], key, None, None, device)
     meta = load_sampler_checkpoint(path, state, moves=moves, key=key)
     return state, meta
+
+
+def pt_state(sampler, positions, velocities, kTs, box, keys):
+    """Set an initialized ``ParallelTemperingSampler`` from the JAX
+    sampler's replica arrays (numpy) and R integer keys.
+
+    ``positions`` and ``velocities`` are (R, 3, n_pad) in the dense chain's
+    lane layout or (R, N, 3) (turned into lanes for the dense chain);
+    ``kTs`` the (R,) ladder; ``box`` JAX's ``box_vectors``: (R, 1, 3)
+    diagonals for the dense chain, (R, 3, 3), or None.  Each process takes
+    its own block of the replicas.  The Verlet lists are rebuilt from the
+    positions.
+    """
+    R = sampler.n_replicas
+    loc = sampler._local
+    dev = sampler.device
+    op = sampler._dense_op
+
+    def lanes(a):
+        a = np.asarray(a, dtype=np.float32)
+        if op is not None and a.shape[1:] != (3, op.n_pad):
+            out = np.zeros((a.shape[0], 3, op.n_pad), np.float32)
+            out[:, :, :op.n] = np.transpose(a, (0, 2, 1))
+            a = out
+        if a.shape[0] != R:
+            raise ValueError(f"{a.shape[0]} replicas given, the sampler "
+                             f"has {R}")
+        return _t(a[loc], np.float32, dev).contiguous()
+
+    sampler.positions = lanes(positions)
+    sampler.velocities = lanes(velocities)
+    sampler.kTs = np.asarray(kTs, dtype=np.float32).copy()
+    if len(keys) != R:
+        raise ValueError(f"{len(keys)} keys for {R} replicas")
+    sampler.keys = [int(k) for k in keys]
+    if box is not None and sampler.box_vectors is not None:
+        b = np.asarray(box, dtype=np.float32)
+        if op is not None and b.shape[1:] == (3, 3):
+            b = np.diagonal(b, axis1=1, axis2=2)[:, None, :]
+        sampler.box_vectors = _t(b.reshape(
+            (R,) + tuple(sampler.box_vectors.shape[1:]))[loc], np.float32,
+            dev).contiguous()
+    if isinstance(sampler.list_state, list):
+        sampler._rebuild_lists()
+    return sampler

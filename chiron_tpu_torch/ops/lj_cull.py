@@ -441,13 +441,18 @@ def _mix32(z):
     return z ^ (z >> 16)
 
 
-def lane_counters(seed: int, step: int, shape, device="cpu"):
+def lane_counters(seed, step, shape, device="cpu"):
     """The two splitmix32 counters, 2 lane and 2 lane + 1, of every lane of
     ``shape`` (numbered in row-major order) at ``step``, as int64 tensors
-    holding uint32 values (the JAX MD kernels' noise stream)."""
+    holding uint32 values (the JAX MD kernels' noise stream).  ``seed`` and
+    ``step`` are ints, or int64 tensors on ``device`` whose broadcast shape B
+    leads the counters' shape: (*B, *shape), one stream for each entry."""
     lane = torch.arange(shape[0] * shape[1], dtype=torch.int64,
                         device=device).reshape(shape)
-    base = ((seed & _MASK32) * 0x9E3779B9 + (step & _MASK32) * 0x85EBCA6B) & _MASK32
+    base = (_mul32(seed & _MASK32, 0x9E3779B9)
+            + _mul32(step & _MASK32, 0x85EBCA6B)) & _MASK32
+    if torch.is_tensor(base):
+        base = base.reshape(base.shape + (1,) * len(shape))
     c1 = ((lane * 2) * 0x9E3779B9 + base) & _MASK32
     c2 = ((lane * 2 + 1) * 0x9E3779B9 + base) & _MASK32
     return c1, c2
@@ -467,13 +472,16 @@ def splitmix_counters(seed: int, step: int, n_pad: int, device="cpu"):
     return lane_counters(seed, step, (3, n_pad // 2), device)
 
 
-def splitmix_noise_plain(seed: int, step: int, n_pad: int, device="cpu"):
-    """The (3, n_pad) standard-normal O-step noise of one step: two-output
-    Box-Muller on half the lanes (cos half | sin half)."""
-    u1, u2 = counter_uniforms(*splitmix_counters(seed, step, n_pad, device))
+def splitmix_noise_plain(seed, step, n_pad: int, device="cpu", rows: int = 3):
+    """The (rows, n_pad) standard-normal O-step noise of one step: two-output
+    Box-Muller on half the lanes (cos half | sin half of each row).  Tensor
+    ``seed`` and ``step`` lead the result with their broadcast shape, as in
+    ``lane_counters``."""
+    u1, u2 = counter_uniforms(*lane_counters(seed, step, (rows, n_pad // 2),
+                                             device))
     r = torch.sqrt(-2.0 * torch.log(u1))
     theta = _TWO_PI * u2
-    return torch.cat([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
+    return torch.cat([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
 
 
 def baoab_phase_plain(x, w, F, minv, sigv, box_diag, seed: int, step: int,

@@ -4,12 +4,16 @@
 replacing ``_make_triangle_kernel``): all-pairs minimum-image LJ in the
 (3, n_pad) f32 lane layout, with the approximate or the Newton-refined
 reciprocal and an optional energy.  On a CPU tensor it runs
-``lj_dense_plain``, the same function in plain PyTorch.  ``LJDense`` has the
-surface of ``LJDensePallas``; with ``triangle=False`` it stands for K2, the
-JAX square kernel (``_make_kernel``), which computes the same function and
-runs on the same CUDA kernel.  ``lj_rows_plain`` is the pair math of any
-rows against every column, shared by the plain versions here and in
-``parallel/spatial.py``.
+``lj_dense_plain``, the same function in plain PyTorch.
+``lj_dense_force_energy_replicas`` is K1 over a leading replica axis in one
+launch of the same C entry (JAX's ``vmap`` of the same ``pallas_call`` in
+the dense tempering chain), each replica's result K1's on that replica bit
+for bit; its plain version ``lj_dense_replicas_plain`` loops
+``lj_dense_plain``.  ``LJDense`` has the surface of ``LJDensePallas``;
+with ``triangle=False`` it stands for K2, the JAX square kernel
+(``_make_kernel``), which computes the same function and runs on the same
+CUDA kernel.  ``lj_rows_plain`` is the pair math of any rows against every
+column, shared by the plain versions here and in ``parallel/spatial.py``.
 """
 
 from __future__ import annotations
@@ -121,35 +125,81 @@ def lj_dense_force_energy(pos3, box_diag, n: int, sigma: float,
 
 def _dense_launch(counter, pos3, box_diag, n, sigma, epsilon, cutoff,
                   approx_recip, with_energy):
-    """``lj_dense_force_energy``, its launch counted under ``counter``."""
+    """K1 on one system ((3, n_pad) ``pos3``, 3 box lengths) or on R
+    replicas in one launch ((R, 3, n_pad), R x 3 box lengths), its launch
+    counted under ``counter``; returns the force in the shape of ``pos3``
+    and the () or (R,) energy (or None)."""
+    single = pos3.dim() == 2
     if pos3.device.type == "cpu":
-        return lj_dense_plain(pos3, box_diag, n, sigma, epsilon, cutoff,
-                              with_energy)
+        if single:
+            return lj_dense_plain(pos3, box_diag, n, sigma, epsilon, cutoff,
+                                  with_energy)
+        return lj_dense_replicas_plain(pos3, box_diag, n, sigma, epsilon,
+                                       cutoff, with_energy)
     _build.check_cuda(pos3, "pos3")
-    n_pad = pos3.shape[1]
-    _build.require(pos3, "pos3", (3, n_pad), torch.float32)
+    if pos3.dim() not in (2, 3) or pos3.shape[-2] != 3:
+        raise ValueError(f"pos3: shape {tuple(pos3.shape)}, expected "
+                         "(3, n_pad) or (R, 3, n_pad)")
+    R = 1 if single else pos3.shape[0]
+    n_pad = pos3.shape[-1]
+    _build.require(pos3, "pos3", tuple(pos3.shape[:-2]) + (3, n_pad),
+                   torch.float32)
     _build.require(box_diag, "box_diag", None, torch.float32, pos3.device)
-    if (box_diag.numel() != 3 or n_pad % DENSE_ROWS != 0
-            or not 0 < n <= n_pad):
+    if (box_diag.numel() != 3 * R or n_pad % DENSE_ROWS != 0
+            or not 0 < n <= n_pad or not 0 < R <= 65535):
         raise ValueError(
-            f"lj_dense: needs 3 box lengths and n_pad % {DENSE_ROWS} == 0 "
-            f"with 0 < n <= n_pad (got {box_diag.numel()}, n_pad={n_pad}, "
-            f"n={n})"
+            f"{counter}: needs 3 box lengths a replica, n_pad % {DENSE_ROWS} "
+            f"== 0, 0 < n <= n_pad and 0 < R <= 65535 (got "
+            f"{box_diag.numel()} lengths, R={R}, n_pad={n_pad}, n={n})"
         )
     force = torch.empty_like(pos3)
-    e_part = torch.empty(n_pad // DENSE_ROWS, dtype=torch.float32,
+    e_part = torch.empty((R, n_pad // DENSE_ROWS), dtype=torch.float32,
                          device=pos3.device)
-    energy = torch.empty(1, dtype=torch.float32, device=pos3.device)
+    energy = torch.empty(R, dtype=torch.float32, device=pos3.device)
     sigma2 = sigma * sigma
     eps4 = 4.0 * epsilon
     _build.launch(
         counter, "chiron_lj_dense",
         pos3.data_ptr(), box_diag.data_ptr(), force.data_ptr(),
-        e_part.data_ptr(), energy.data_ptr(), n, n_pad, sigma2, 6.0 * eps4,
+        e_part.data_ptr(), energy.data_ptr(), n, n_pad, R, sigma2, 6.0 * eps4,
         eps4, cutoff * cutoff, 1e-4 * sigma2, int(approx_recip),
         int(with_energy), _build.stream_of(pos3),
     )
-    return force, (energy[0] if with_energy else None)
+    if not with_energy:
+        return force, None
+    return force, (energy[0] if single else energy)
+
+
+def lj_dense_replicas_plain(pos3r, box_r, n: int, sigma: float,
+                            epsilon: float, cutoff: float,
+                            with_energy: bool = True):
+    """Plain version of K1 over replicas: ``lj_dense_plain`` on each
+    (3, n_pad) replica of ``pos3r`` with its own 3 box lengths; returns
+    ((R, 3, n_pad) force, (R,) energy or None)."""
+    box_r = box_r.reshape(-1, 3)
+    out = [lj_dense_plain(pos3r[r], box_r[r].reshape(1, 3), n, sigma,
+                          epsilon, cutoff, with_energy)
+           for r in range(pos3r.shape[0])]
+    force = torch.stack([f for f, _ in out])
+    if not with_energy:
+        return force, None
+    return force, torch.stack([e for _, e in out])
+
+
+def lj_dense_force_energy_replicas(pos3r, box_r, n: int, sigma: float,
+                                   epsilon: float, cutoff: float,
+                                   approx_recip: bool = False,
+                                   with_energy: bool = True):
+    """K1 over replicas, one launch: ``pos3r`` (R, 3, n_pad) positions in
+    the lane layout, ``box_r`` the R replicas' box lengths (R x 3 floats,
+    (R, 1, 3) as the tempering sampler keeps them).  Returns ((R, 3, n_pad)
+    force, (R,) energy or None); replica r's are ``lj_dense_force_energy``'s
+    on ``pos3r[r]`` bit for bit.  Counted as ``lj_dense_replicas``."""
+    if pos3r.dim() != 3:
+        raise ValueError(f"pos3r: shape {tuple(pos3r.shape)}, expected "
+                         "(R, 3, n_pad)")
+    return _dense_launch("lj_dense_replicas", pos3r, box_r, n, sigma,
+                         epsilon, cutoff, approx_recip, with_energy)
 
 
 class LJDense:
@@ -191,6 +241,20 @@ class LJDense:
     def force_energy_t(self, pos3, box_diag):
         """(3, n_pad) force and () energy, exact reciprocal."""
         return self._fe(pos3, box_diag, False, True)
+
+    def force_only_r(self, pos3r, box_r, approx_recip: bool = True):
+        """(R, 3, n_pad) force of R replicas in one launch (K1 over
+        replicas); ``box_r`` holds each replica's box lengths."""
+        return lj_dense_force_energy_replicas(
+            pos3r, box_r, self.n, self.sigma, self.epsilon, self.cutoff,
+            approx_recip, False)[0]
+
+    def force_energy_r(self, pos3r, box_r):
+        """(R, 3, n_pad) force and (R,) energy of R replicas, exact
+        reciprocal, in one launch."""
+        return lj_dense_force_energy_replicas(
+            pos3r, box_r, self.n, self.sigma, self.epsilon, self.cutoff,
+            False, True)
 
     def pad_positions(self, positions):
         """(N, 3) -> (3, n_pad) f32 on this op's device, zero padding."""

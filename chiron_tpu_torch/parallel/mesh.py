@@ -4,6 +4,11 @@ Where the JAX package holds a ``jax.sharding.Mesh`` of devices, a process of
 the port drives one device, and the mesh is the ``torch.distributed`` group
 of the processes: its axis name, the group (None when this process runs
 alone), this process's rank, the group's size and this process's device.
+
+A sharding says which part of an array's leading axis this process holds:
+``replica_sharding`` its contiguous block (``NamedSharding(mesh,
+P("replica"))``: block ``rank`` of ``size`` equal blocks), and
+``replicated_sharding`` the whole axis (``NamedSharding(mesh, P())``).
 """
 
 from __future__ import annotations
@@ -50,3 +55,40 @@ def make_replica_mesh(n_devices: Optional[int] = None,
             "processes (one device each)"
         )
     return Mesh(axis_name, dist.group.WORLD, dist.get_rank(), size, device)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """How a leading axis lies on ``mesh``: split into ``mesh.size`` equal
+    contiguous blocks, block ``rank`` on this process (``replicated``
+    False), or whole on every process."""
+
+    mesh: Mesh
+    replicated: bool = False
+
+    def local_slice(self, length: int) -> slice:
+        """This process's part of an axis of ``length``; a split axis must
+        divide by the mesh size."""
+        if self.replicated:
+            return slice(0, length)
+        size, rank = self.mesh.size, self.mesh.rank
+        if length % size != 0:
+            raise ValueError(
+                f"an axis of {length} does not split over a mesh of {size}"
+            )
+        per = length // size
+        return slice(rank * per, (rank + 1) * per)
+
+
+def replica_sharding(mesh: Mesh, axis_name: Optional[str] = None) -> Sharding:
+    """The sharding that splits the leading (replica) axis over the mesh.
+    ``axis_name``, if given, must be the mesh's."""
+    if axis_name is not None and axis_name != mesh.axis_name:
+        raise ValueError(f"the mesh's axis is {mesh.axis_name!r}, not "
+                         f"{axis_name!r}")
+    return Sharding(mesh)
+
+
+def replicated_sharding(mesh: Mesh) -> Sharding:
+    """The sharding that keeps the whole array on every process."""
+    return Sharding(mesh, replicated=True)

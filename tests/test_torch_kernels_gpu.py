@@ -1558,3 +1558,95 @@ def test_observables_take_host_data_to_the_card(cuda, monkeypatch):
     p_c = to.lj_virial_pressure(pos[:3], box, 140.0, 0.34, 0.99579, 1.02,
                                 device="cpu")
     assert p_g == pytest.approx(p_c, rel=1e-5)
+
+
+def _replica_states(dev, R, n=1000):
+    """R jittered copies of the N=1000 fluid at rho* = 0.8 in K1's lane
+    layout (n_pad 1024) and a box a replica, slightly different."""
+    from chiron_tpu_torch.ops.lj_dense import LJDense
+
+    fluid = LennardJonesFluid(nparticles=n, reduced_density=0.8)
+    md = units.md_unit_system
+    pos = fluid.positions.value_in_unit_system(md)
+    L = fluid.box_vectors.value_in_unit_system(md)[0, 0]
+    pot = fluid.potential
+    op = LJDense(n, pot.sigma, pot.epsilon, pot.cutoff, tm=512, tn=512,
+                 device=dev)
+    rng = np.random.default_rng(R)
+    x3r = torch.stack([op.pad_positions(
+        ((pos + rng.normal(0, 0.02, pos.shape)) % L).astype(np.float32))
+        for _ in range(R)])
+    box_r = torch.tensor([[[L * (1 + 1e-3 * r)] * 3] for r in range(R)],
+                         dtype=torch.float32, device=dev)
+    return op, x3r, box_r
+
+
+@pytest.mark.parametrize("R", [1, 8, 64])
+def test_replica_k1_is_single_system_k1_bitwise(cuda, R):
+    """K1 over replicas: each replica's force (both reciprocals) and energy
+    equal a single-system launch on it bit for bit, in one launch; a NaN in
+    one replica reaches that replica's force as it does a single launch's,
+    and no other replica."""
+    from chiron_tpu_torch.ops.lj_dense import lj_dense_replicas_plain
+
+    op, x3r, box_r = _replica_states(cuda, R)
+    args = (op.n, op.sigma, op.epsilon, op.cutoff)
+    before = _build.launches.get("lj_dense_replicas", 0)
+    Fa = op.force_only_r(x3r, box_r)
+    Fe, Ee = op.force_energy_r(x3r, box_r)
+    assert _build.launches.get("lj_dense_replicas", 0) - before == 2
+    for r in range(R):
+        b1 = box_r[r].reshape(1, 3)
+        fa, _ = lj_dense_force_energy(x3r[r], b1, *args, approx_recip=True,
+                                      with_energy=False)
+        fe, ee = lj_dense_force_energy(x3r[r], b1, *args)
+        assert torch.equal(Fa[r], fa) and torch.equal(Fe[r], fe)
+        assert torch.equal(Ee[r], ee)
+    Fp, Ep = lj_dense_replicas_plain(x3r, box_r, *args)
+    scale = float(Fp.abs().max())
+    assert float((Fe - Fp).abs().max()) / scale < 1e-5
+    assert float((Fa - Fp).abs().max()) / scale < 1e-4
+    assert float(((Ee - Ep) / Ep).abs().max()) < 1e-5
+    if R > 1:
+        bad = x3r.clone()
+        bad[1, 0, 5] = float("nan")
+        Fn, En = op.force_energy_r(bad, box_r)
+        f1, e1 = lj_dense_force_energy(bad[1], box_r[1].reshape(1, 3), *args)
+        assert bool(torch.isnan(Fn[1, 0, :op.n]).all())
+        assert torch.equal(torch.isnan(Fn[1]), torch.isnan(f1))
+        assert torch.equal(torch.nan_to_num(Fn[1]), torch.nan_to_num(f1))
+        assert torch.equal(torch.nan_to_num(En[1]), torch.nan_to_num(e1))
+        keep = [r for r in range(R) if r != 1]
+        assert torch.equal(Fn[keep], Fe[keep]) and torch.equal(En[keep],
+                                                               Ee[keep])
+
+
+def test_dense_tempering_step_loop_makes_no_host_sync(cuda):
+    """A dense ``propagate(50)`` at R=8: the step loop (``_advance``: the
+    noise, K1 over replicas, the batched BAOAB) runs under
+    ``set_sync_debug_mode("error")`` with 52 launches of K1 over replicas
+    and none of single-system K1; the one read of U and the overflow flag
+    comes after it."""
+    from chiron_tpu_torch.parallel import (ParallelTemperingSampler,
+                                           make_replica_mesh)
+
+    fluid = LennardJonesFluid(nparticles=1000, reduced_density=0.8)
+    md = units.md_unit_system
+    pt = ParallelTemperingSampler(
+        fluid.potential, list(np.linspace(120.0, 200.0, 8)),
+        mesh=make_replica_mesh(device=cuda))
+    pt.initialize(fluid.positions.value_in_unit_system(md),
+                  fluid.box_vectors.value_in_unit_system(md), seed=7)
+    pt.propagate(5)
+    before = dict(_build.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        U, over = pt._advance(50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (_build.launches.get("lj_dense_replicas", 0)
+            - before.get("lj_dense_replicas", 0)) == 52
+    assert _build.launches.get("lj_dense", 0) == before.get("lj_dense", 0)
+    assert U.shape == (8,) and torch.isfinite(U).all() and not over.any()
+    assert np.isfinite(pt.propagate(10)).all()

@@ -100,6 +100,17 @@ replicas) at R=8 and R=64: after a warm-up ``propagate`` of the window's
 length, three 500-step windows of ``propagate`` itself, then profiler rows
 of one ``propagate(500)`` (its U gather and read included).
 
+    python3 chip_profile.py --cadence
+
+profiles the culled runner's list cadence, ``chip_smoke.py`` [14]
+(``cadence``): from the state the dense runner melts in 1000 steps, for
+(``sort_every``, ``rebuild_every``) = (1, 1), (4, 1), (1, 2), (2, 2) at
+S=40, slack 0.15 and at S=50, slack 0.3: 5 rounds of 3000-step windows,
+the pairs in turn (the order reversed every other round), with each pair's
+median; the host's enqueue time a segment, split into the sort, the list
+build and K3's call, over 75 segments; then profiler rows of 400 steps of
+each pair with the host's top operators.
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -109,6 +120,8 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+
+from chip_smoke import _busy_us
 
 N = 4000
 SEED = 1234
@@ -146,19 +159,6 @@ def _card():
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-
-
-def _busy_us(intervals):
-    """Length of the union of (start, end) intervals, in us."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
 
 
 def _profile(label, fn, steps, host_rows=0):
@@ -343,8 +343,9 @@ def segment_dump(common, box, pos0, out, ref=None):
                 arrays[f"sort_build_{f}"] = getattr(sorted_list, f)
                 arrays[f"tile_build_{f}"] = getattr(built, f)
             continue
-        modes = {"nvt": dict(drift_slack=md.slack_t),
-                 "exact": dict(approx_recip=False, drift_slack=md.slack_t),
+        modes = {"nvt": dict(drift_anchor=c.x, drift_budget=md.slack_t),
+                 "exact": dict(approx_recip=False, drift_anchor=c.x,
+                               drift_budget=md.slack_t),
                  "npt": dict(final_energy=True, drift_anchor=c.x * 1.0001,
                              drift_budget=torch.tensor(0.1, device=c.x.device))}
         for mode, kw in modes.items():
@@ -637,6 +638,89 @@ def pt(dev):
                  PT_WINDOW_STEPS, host_rows=8)
 
 
+# --cadence: rounds of windows, segments timed on the host, profiled steps
+CADENCE_ROUNDS = 5
+CADENCE_HOST_SEGMENTS = 75
+
+
+def cadence(common, box, pos0):
+    """Windows, host split and profiler rows of the culled runner at each
+    list cadence of ``chip_smoke.py`` [14]."""
+    import statistics
+
+    import torch
+
+    from chip_smoke import CADENCE_CONFIGS, CADENCE_PAIRS
+    from chiron_tpu_torch.runtime import make_culled_lj_runner, make_fast_lj_runner
+
+    fast = make_fast_lj_runner(**common)
+    fs = fast.run(fast.init(pos0, box, seed=SEED), MELT_STEPS)
+    melt = fast.positions(fs)
+    steps = WINDOW_STEPS["culled"]
+    for seg, slack in CADENCE_CONFIGS:
+        runners, carries = {}, {}
+        for pair in CADENCE_PAIRS:
+            r = make_culled_lj_runner(
+                slack=slack, segment_steps=seg, sort_every=pair[0],
+                rebuild_every=pair[1], **common)
+            runners[pair] = r
+            carries[pair] = r.run(r.init(melt, box, seed=SEED), seg)
+        rates = {pair: [] for pair in CADENCE_PAIRS}
+        for k in range(CADENCE_ROUNDS):
+            order = CADENCE_PAIRS if k % 2 == 0 else CADENCE_PAIRS[::-1]
+            for pair in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                carries[pair] = runners[pair].run(carries[pair], steps)
+                torch.cuda.synchronize()
+                rates[pair].append(steps / (time.perf_counter() - t0))
+        for pair in CADENCE_PAIRS:
+            r, c = runners[pair], carries[pair]
+            latched = bool(c.overflowed)
+            print(f"cadence {pair} S={seg} slack {slack}: {steps}-step "
+                  f"windows steps/s {[round(x, 1) for x in rates[pair]]}, "
+                  f"median {statistics.median(rates[pair]):.1f}; list count "
+                  f"{int(c.pairs.count)} of {r.capacity}; latched {latched}")
+        for pair in CADENCE_PAIRS:
+            r = runners[pair]
+            md = r.md
+            host = {"sort": 0.0, "build": 0.0, "K3": 0.0}
+
+            def timed(fn, key):
+                def wrapper(*args, **kw):
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kw)
+                    host[key] += time.perf_counter() - t0
+                    return out
+                return wrapper
+
+            r._sort = timed(r._sort, "sort")
+            md.build_pairs = timed(md.build_pairs, "build")
+            md.run_segment = timed(md.run_segment, "K3")
+            c = carries[pair]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CADENCE_HOST_SEGMENTS):
+                c = r.segment_fn(seg)(c)
+            enqueue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del r._sort, md.build_pairs, md.run_segment
+            per = {k: v / CADENCE_HOST_SEGMENTS * 1e6 for k, v in host.items()}
+            print(f"cadence {pair} S={seg}: host enqueue a segment "
+                  f"{enqueue / CADENCE_HOST_SEGMENTS * 1e6:.1f} us (sort "
+                  f"{per['sort']:.1f}, build {per['build']:.1f}, K3's call "
+                  f"{per['K3']:.1f}, averaged over "
+                  f"{CADENCE_HOST_SEGMENTS} segments), wall to the sync "
+                  f"{wall / CADENCE_HOST_SEGMENTS * 1e6:.1f} us a segment")
+            carries[pair] = c
+        for pair in CADENCE_PAIRS:
+            r, c = runners[pair], carries[pair]
+            _profile(f"cadence {pair} S={seg} slack {slack}",
+                     lambda: r.run(c, PROFILE_STEPS["culled"]),
+                     PROFILE_STEPS["culled"], host_rows=10)
+
+
 def main():
     import torch
 
@@ -687,6 +771,10 @@ def main():
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--pt":
         pt(dev)
+        print(f"card after: {_card()}")
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--cadence":
+        cadence(common, box, pos0)
         print(f"card after: {_card()}")
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--strip-latch":
@@ -752,7 +840,8 @@ def main():
     _profile("culled_md segments (S=40, one C call each)",
              lambda: [md.run_segment(c.x, c.v, c.F, c.box_diag, c.pairs, SEED,
                                      c.step, SEGMENT_STEPS,
-                                     drift_slack=md.slack_t, workspace=work)
+                                     drift_anchor=c.x,
+                                     drift_budget=md.slack_t, workspace=work)
                       for _ in range(SEGMENT_CALLS)],
              SEGMENT_CALLS * SEGMENT_STEPS)
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LJ-fluid paths once on one NVIDIA GPU: NVT and
 NpT at N=4000, the band engine at N=100,000, the halo-strip engine, the
-general API (the README's quick start, ``LangevinIntegrator`` on K1), and
-Metropolis moves, replica exchange and MBAR on K1.
+general API (the README's quick start, ``LangevinIntegrator`` on K1),
+Metropolis moves, replica exchange and MBAR on K1, the replica axis, and
+the culled runner's list cadence.
 
     python3 chip_smoke.py
 
@@ -180,8 +181,21 @@ Phases (any failure raises, and the script exits nonzero):
    path, ``run(3)``: u_kn's columns proportional, u_k = (lambda_k /
    lambda_0) u_0, to 1e-5 relative.
 
-The ``kernels`` line gives each kernel's launches on the eleven counted
-paths (phases 5-13, under ``launches_by_path``; ``launches`` is their sum), its
+14. the culled runner's list cadence, from phase 5's melted state, for
+   (``sort_every``, ``rebuild_every``) = (1, 1), (4, 1), (1, 2), (2, 2) at
+   S=40, slack 0.15 and at the factory's S=50, slack 0.3: (a) 8 segments
+   under ``set_sync_debug_mode("error")``, the sorts and rebuilds counted
+   against the reference's formula, each segment's list and anchor equal to
+   the CPU runner's from the same carry, K3's call bitwise equal to the
+   step-by-step sequence of its kernels on that list and anchor, its latch
+   equal to the plain latch, and K3 against an anchor segments old within
+   1e-5 nm of its plain loop over 5 steps; then, counted, (b) a 3000-step
+   window a pair: steps/s, the idle share of 400 profiled steps,
+   ``check()``'s outcome, the list count, T_kin, the energy within 1e-5 of
+   the f64 oracle.  A latch is printed; the default pair must stay clean.
+
+The ``kernels`` line gives each kernel's launches on the twelve counted
+paths (phases 5-14, under ``launches_by_path``; ``launches`` is their sum), its
 error and times, and its bound.  The C entries of K3's and K11's segments
 (``culled_md``, ``mega_md``) count one launch a call and each kernel they
 enqueue under that kernel's name (``baoab`` once a segment,
@@ -275,6 +289,13 @@ EXAMPLE_WARM = 2
 EXAMPLE_ITERATIONS = 5
 EXAMPLE_STEPS = 200
 LADDER_ITERATIONS = 3
+# [14]: the culled runner's list cadence, (sort_every, rebuild_every) pairs
+# at the bench's S=40 and slack 0.15 and at the factory's S=50 and slack 0.3
+CADENCE_PAIRS = ((1, 1), (4, 1), (1, 2), (2, 2))
+CADENCE_CONFIGS = ((SEGMENT, SLACK), (50, 0.3))
+CADENCE_SEGMENTS = 8
+CADENCE_PLAIN_STEPS = 5
+CADENCE_PROFILE_STEPS = 400
 # the kernels each counted path must launch.  No runner takes K6's or K7's
 # energy pass (the band and strip runners take their energy from K1, as the
 # JAX runners do): those two are held to their plain versions and listed
@@ -296,6 +317,8 @@ PATH_KERNELS = {
     "general": ("lj_dense",),
     "mc": ("lj_dense",),
     "pt": ("lj_dense_replicas",),
+    "cadence": ("lj_dense", "culled_md", "culled_force", "baoab",
+                "tile_skin_drift"),
 }
 OFF_PATH = ("band_force_energy", "strip_force_energy")
 
@@ -1319,7 +1342,7 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
     pairs = md.build_pairs(xs, box_diag[0], cap)
     xc, vc, Fc, stale = md.run_segment(
         xs, vs, Fs, box_diag, pairs, seed=SEED, step_offset=s0.step,
-        n_steps=SEGMENT, drift_slack=md.slack_t)
+        n_steps=SEGMENT, drift_anchor=xs, drift_budget=md.slack_t)
     work = lm.MegaWorkspace(md, cap)
 
     def mega(passes, steps=SEGMENT, approx=True):
@@ -2338,6 +2361,218 @@ def _phase13(dev, smi, results):
     return {"pt": counts}
 
 
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals, in us."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _idle_share(fn):
+    """(wall us, device busy us, idle share) of one call of ``fn`` under
+    ``torch.profiler`` after a warm-up call (``chip_profile.py``'s method:
+    busy is the union of the device intervals, wall has the profiler on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.01)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
+    _require(device, "the profiler recorded no device time")
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in device)
+    return wall_us, busy, 1.0 - busy / wall_us
+
+
+def _phase14(dev, common, melt, box, smi):
+    """[14] the culled runner's list cadence on the card, from phase 5's
+    melted state: for each (sort_every, rebuild_every) pair and each of the
+    two configurations, (a) 8 segments under ``set_sync_debug_mode("error")``,
+    their sorts and rebuilds counted against the reference's formula, each
+    segment's list and anchor equal to those of the runner on the CPU from
+    the same carry, K3's one C call bitwise equal to the step-by-step
+    sequence of its kernels on that list and anchor, the latch equal to the
+    plain latch, and K3 in the anchor mode within 1e-5 nm of its plain loop
+    over 5 steps; then, counted, (b) a 3000-step window a pair: steps/s,
+    the idle share of 400 profiled steps, ``check()``'s outcome, the list
+    count and T_kin.  Returns the path's launch counts."""
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.ops import _build
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.oracles import lj_dense_oracle
+    from chiron_tpu_torch.runtime import CullCarry, make_culled_lj_runner
+
+    print("[14] the culled runner's list cadence (sort_every, rebuild_every)")
+    t_phase = time.perf_counter()
+    mass = float(common["topology"].masses()[0])
+    box64 = torch.as_tensor(box, device=dev).double()
+    pot = common["potential"]
+
+    def t_kin(v):
+        v = v.double()
+        return mass * float((v * v).sum()) / (3 * v.shape[0] * units.kB_MD)
+
+    def to_cpu(c):
+        return CullCarry(
+            x=c.x.cpu(), v=c.v.cpu(), F=c.F.cpu(), step=c.step.cpu(),
+            box_diag=c.box_diag.cpu(), overflowed=c.overflowed.cpu(),
+            pairs=lc.TilePairList(*(t.cpu() for t in c.pairs)),
+            x_anchor=c.x_anchor.cpu()).note_step(c.step_host)
+
+    def counted(fn, tally, key):
+        def wrapper(*args, **kw):
+            tally[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    def make(seg, slack, pair, device=dev):
+        return make_culled_lj_runner(
+            slack=slack, segment_steps=seg, sort_every=pair[0],
+            rebuild_every=pair[1], **dict(common, device=device))
+
+    # (a) 8 segments a pair, each held to its plain versions
+    for seg, slack in CADENCE_CONFIGS:
+        for pair in CADENCE_PAIRS:
+            r, plain = make(seg, slack, pair), make(seg, slack, pair, "cpu")
+            c = r.init(melt, box, seed=SEED)
+            plain.init(melt.cpu(), box, seed=SEED)
+            _require((plain.nslab, plain.capacity) == (r.nslab, r.capacity),
+                     f"{pair}: the CPU runner's layout differs")
+            md, sort = r.md, r._sort
+            tally = {"sort": 0, "rebuild": 0}
+            r._sort = counted(sort, tally, "sort")
+            build = md.build_pairs
+            md.build_pairs = counted(build, tally, "rebuild")
+            carries = [c]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(CADENCE_SEGMENTS):
+                    carries.append(r.segment_fn(seg)(carries[-1]))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            md.build_pairs = build
+            plan = [r.cadence(k * seg) for k in range(CADENCE_SEGMENTS)]
+            expect = {"sort": sum(p[0] for p in plan),
+                      "rebuild": sum(p[1] for p in plan)}
+            _require(tally == expect, f"{pair}: {tally}, formula {expect}")
+            latched = 0
+            for k in range(CADENCE_SEGMENTS):
+                cin, cout = carries[k], carries[k + 1]
+                what = f"{pair} S={seg} segment {k}"
+                _require(cout.step_host == int(cout.step) == (k + 1) * seg,
+                         f"{what}: host step {cout.step_host}, device "
+                         f"{int(cout.step)}")
+                ref = plain.segment_fn(1)(to_cpu(cin))
+                _require(all(torch.equal(a.cpu(), b) for a, b in
+                             zip(cout.pairs, ref.pairs))
+                         and torch.equal(cout.x_anchor.cpu(), ref.x_anchor),
+                         f"{what}: the list or anchor differs from the CPU "
+                         f"runner's")
+                xs, v3, F3 = ((sort(cin)[:3]) if plan[k][0]
+                              else (cin.x, cin.v, cin.F))
+                seq = md.run_segment_stepwise(
+                    xs, v3, F3, cin.box_diag, cout.pairs, SEED, cin.step,
+                    seg, drift_anchor=cout.x_anchor,
+                    drift_budget=md.slack_t)
+                _require(all(torch.equal(a, b) for a, b in
+                             zip((cout.x, cout.v, cout.F), seq[:3])),
+                         f"{what}: K3's call differs from its sequence")
+                flag = bool(seq[3])
+                _require(flag == bool(lc.tile_skin_drift_bad_plain(
+                    cout.x, cout.x_anchor, N, md.slack_t, cin.box_diag)),
+                         f"{what}: the latch differs from the plain latch")
+                _require(bool(cout.overflowed) == (
+                    bool(cin.overflowed) or bool(cout.pairs.overflowed)
+                    or flag or (plan[k][0] and bool(lc.live_nonfinite(
+                        cin.x, N)))), f"{what}: overflowed")
+                latched += flag
+            # K3 in the anchor mode against its plain loop (exact reciprocal)
+            ke = md.run_segment(xs, v3, F3, cin.box_diag, cout.pairs, SEED,
+                                cin.step, CADENCE_PLAIN_STEPS,
+                                approx_recip=False,
+                                drift_anchor=cout.x_anchor,
+                                drift_budget=md.slack_t)
+            pe = _culled_md_plain(md, xs, v3, F3, cin.box_diag, cout.pairs,
+                                  SEED, cin.step_host, CADENCE_PLAIN_STEPS)
+            err_x = float((ke[0] - pe[0]).abs().max())
+            err_v = float((ke[1] - pe[1]).abs().max())
+            pflag = bool(lc.tile_skin_drift_bad_plain(
+                pe[0], cout.x_anchor, N, md.slack_t, cin.box_diag))
+            _require(err_x < 1e-5 and err_v < 1e-4 and bool(ke[3]) == pflag,
+                     f"{pair}: K3 over an anchor vs plain: x {err_x}, v "
+                     f"{err_v}, flag {bool(ke[3])} vs {pflag}")
+            print(f"  (a) {pair} at S={seg}, slack {slack}: "
+                  f"{tally['sort']} sorts and {tally['rebuild']} rebuilds in "
+                  f"{CADENCE_SEGMENTS} segments, as the formula gives; no "
+                  f"host sync; lists and anchors equal to the CPU runner's, "
+                  f"K3 bitwise its sequence, latches equal to the plain "
+                  f"latch ({latched} fired); anchor mode vs plain over "
+                  f"{CADENCE_PLAIN_STEPS} steps x {err_x:.2e}, v "
+                  f"{err_v:.2e}; list count {int(carries[-1].pairs.count)} "
+                  f"of capacity {r.capacity}")
+
+    # (b) a 3000-step window a pair, counted
+    _build.reset_launch_counts()
+    for seg, slack in CADENCE_CONFIGS:
+        for pair in CADENCE_PAIRS:
+            r = make(seg, slack, pair)
+            c = r.run(r.init(melt, box, seed=SEED), seg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = r.run(c, CULLED_STEPS)
+            torch.cuda.synchronize()
+            rate = CULLED_STEPS / (time.perf_counter() - t0)
+            wall, busy, idle = _idle_share(
+                lambda: r.run(c, CADENCE_PROFILE_STEPS))
+            try:
+                r.check(c)
+                outcome = "clean"
+            except RuntimeError:
+                outcome = "latched"
+            energy = float(r.energy(c))
+            _, e64 = lj_dense_oracle(r.positions(c).double(), box64,
+                                     pot.sigma, pot.epsilon, pot.cutoff)
+            e_rel = abs(energy - float(e64)) / abs(float(e64))
+            tk = t_kin(r.velocities(c))
+            _require(math.isfinite(energy) and e_rel < 1e-5,
+                     f"{pair}: energy {energy}, oracle rel {e_rel}")
+            if pair == (1, 1) or outcome == "clean":
+                _require(outcome == "clean"
+                         and abs(tk - T_KELVIN) / T_KELVIN < 0.05,
+                         f"{pair} at S={seg}: check() {outcome}, T_kin {tk}")
+            print(f"  (b) {pair} at S={seg}, slack {slack}: {rate:.1f} "
+                  f"steps/s over {CULLED_STEPS} steps; profiled "
+                  f"{CADENCE_PROFILE_STEPS} steps: wall "
+                  f"{wall / CADENCE_PROFILE_STEPS:.1f} us/step, device "
+                  f"{busy / CADENCE_PROFILE_STEPS:.1f} us/step, idle share "
+                  f"{idle:.3f}; check() {outcome}; list count "
+                  f"{int(c.pairs.count)} of capacity {r.capacity}; T_kin "
+                  f"{tk:.3f} K; energy {energy:.6f} kJ/mol (f64 oracle rel "
+                  f"{e_rel:.2e})")
+    counts = dict(_build.launches)
+    print(f"  launches {counts}; [14] took {time.perf_counter() - t_phase:.1f}"
+          f" s ({smi})")
+    return {"cadence": counts}
+
+
 def main():
     import torch
 
@@ -2660,12 +2895,15 @@ def main():
     # loop
     seg_ws = lc.SegmentWorkspace(md, runner.capacity)
     budget = torch.tensor(0.5 * SLACK, device=dev)
-    modes = {"nvt": dict(drift_slack=slack_t),
-             "exact": dict(approx_recip=False, drift_slack=slack_t),
+    modes = {"nvt": dict(drift_budget=slack_t),
+             "exact": dict(approx_recip=False, drift_budget=slack_t),
              "npt": dict(final_energy=True, drift_anchor=c1.x_anchor,
                          drift_budget=budget)}
 
     def segment(steps, stepwise=False, x3=c0.x, **kw):
+        if "drift_budget" in kw:
+            # NVT's latch is the runner's: the anchor is the segment's entry
+            kw.setdefault("drift_anchor", x3)
         if stepwise:
             return md.run_segment_stepwise(x3, c0.v, c0.F, box_diag, pairs,
                                            SEED, c0.step, steps, **kw)
@@ -3399,6 +3637,7 @@ def main():
     counts.update(_phase11(dev, smi))
     counts.update(_phase12(dev, smi))
     counts.update(_phase13(dev, smi, results))
+    counts.update(_phase14(dev, common, runner.positions(st), box, smi))
     for path, names in PATH_KERNELS.items():
         for name in names:
             _require(counts[path].get(name, 0) > 0,

@@ -19,10 +19,19 @@ from . import units
 from .topology import Topology
 
 
+# the JAX package's top-level names, from modules that import torch
+_LAZY_NAMES = {"Space": "space", "OrthogonalPeriodicSpace": "space",
+               "OrthogonalNonPeriodicSpace": "space", "PRNG": "utils"}
+
+
 def __getattr__(name):
-    # lazy submodules keep `import chiron_tpu_torch` free of torch imports
+    # lazy submodules and names keep `import chiron_tpu_torch` free of torch
+    # imports
     import importlib
 
+    if name in _LAZY_NAMES:
+        module = importlib.import_module(f".{_LAZY_NAMES[name]}", __name__)
+        return getattr(module, name)
     submodules = {
         "analysis", "checkpoint", "config", "integrators", "interop", "io",
         "mcmc", "minimize", "multistate", "native", "neighbors",
@@ -35,4 +44,12 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["units", "Topology", "__version__"]
+__all__ = [
+    "units",
+    "Space",
+    "OrthogonalPeriodicSpace",
+    "OrthogonalNonPeriodicSpace",
+    "Topology",
+    "PRNG",
+    "__version__",
+]

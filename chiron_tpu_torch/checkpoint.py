@@ -4,10 +4,10 @@
 The file layout is the JAX package's: one ``.npz`` holding the flattened
 tree's leaves (``leaf_0``, ``leaf_1``, ...) and a JSON header (``treedef``,
 ``n_leaves``, ``metadata``), written atomically.  The tree is flattened as
-JAX flattens it -- a dict by its sorted keys, a dataclass by its fields, a
-list or a tuple in order, ``None`` an empty node -- and its structure is
-written in JAX's ``PyTreeDef`` notation, so that each package reads the
-other's files.  A tensor leaf is saved from the host and loaded onto the
+JAX flattens it -- a dict by its sorted keys, a dataclass or a NamedTuple
+by its fields, a list or a tuple in order, ``None`` an empty node -- and its
+structure is written in JAX's ``PyTreeDef`` notation, so that each package
+reads the other's files.  A tensor leaf is saved from the host and loaded onto the
 device of the template's leaf.
 
 One leaf cannot carry over: the PRNG key.  The port's is an integer and
@@ -41,6 +41,9 @@ def _flatten(tree, leaves: List[Any]) -> str:
         return "{" + ", ".join(items) + "}"
     if isinstance(tree, (list, tuple)):
         subs = [_flatten(t, leaves) for t in tree]
+        if hasattr(tree, "_fields"):   # a NamedTuple, such as TilePairList
+            return (f"CustomNode(namedtuple[{type(tree).__name__}], "
+                    f"[{', '.join(subs)}])")
         if isinstance(tree, list):
             return "[" + ", ".join(subs) + "]"
         return "(" + ", ".join(subs) + (",)" if len(subs) == 1 else ")")
@@ -81,7 +84,9 @@ def _unflatten(like, leaves):
         out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
         return {k: out[k] for k in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(t, leaves) for t in like)
+        items = [_unflatten(t, leaves) for t in like]
+        return type(like)(*items) if hasattr(like, "_fields") \
+            else type(like)(items)
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return type(like)(**{f.name: _unflatten(getattr(like, f.name), leaves)
                              for f in dataclasses.fields(like)})

@@ -87,7 +87,9 @@ def tile_pair_list(rows, cols, ccx, ptr2, rowcx, count, overflowed,
 def cull_carry(x, v, F, step, box, overflowed, pairs: dict, x_anchor,
                device) -> CullCarry:
     """A ``CullCarry`` from arrays; ``pairs`` maps the ``TilePairList``
-    field names to arrays."""
+    field names to arrays.  The list and its anchor pass as they are, so a
+    run continues the JAX run's list cadence: ``step`` is read once here,
+    into the host's copy that the cadence reads."""
     return CullCarry(
         x=_t(x, np.float32, device), v=_t(v, np.float32, device),
         F=_t(F, np.float32, device),
@@ -96,7 +98,7 @@ def cull_carry(x, v, F, step, box, overflowed, pairs: dict, x_anchor,
         overflowed=_t(overflowed, np.bool_, device).reshape(()),
         pairs=tile_pair_list(device=device, **pairs),
         x_anchor=_t(x_anchor, np.float32, device),
-    )
+    ).note_step(int(np.asarray(step).reshape(-1)[0]))
 
 
 def cull_npt_carry(x, v, F, U, step, box, overflowed, pairs: dict, x_anchor,

@@ -736,18 +736,17 @@ class CulledLJMD:
 
     def run_segment(self, x3, v3, f3, box_diag, pairs: TilePairList, seed: int,
                     step_offset, n_steps: int, approx_recip: bool = True,
-                    drift_slack: float = None, final_energy: bool = False,
-                    drift_anchor=None, drift_budget=None,
-                    workspace: SegmentWorkspace = None):
+                    final_energy: bool = False, drift_anchor=None,
+                    drift_budget=None, workspace: SegmentWorkspace = None):
         """Advance ``n_steps`` on a fixed list from (x3, v3, f3) (K3).
 
         ``step_offset`` is the (1, 1) int32 step counter of the noise
         stream.  Returns new (x, v, F) tensors, then:
 
-        * the () bool drift latch, against the entry positions with
-          threshold ``drift_slack`` (the engine's ``slack_t``), or (the NpT
-          mode) against ``drift_anchor`` with the 0-dim f32 threshold
-          ``drift_budget``;
+        * with ``drift_anchor``, the () bool drift latch: the top-2 joint
+          drift from ``drift_anchor`` (the positions the list was built
+          from) against ``drift_budget``, a float or a 0-dim f32 tensor
+          (the engine's ``slack_t``, or the NpT runner's budget);
         * with ``final_energy``, the () energy of the final configuration,
           taken by the last step's force pass with the exact reciprocal.
 
@@ -759,8 +758,7 @@ class CulledLJMD:
         if x3.device.type == "cpu":
             return self.run_segment_stepwise(
                 x3, v3, f3, box_diag, pairs, seed, step_offset, n_steps,
-                approx_recip, drift_slack, final_energy, drift_anchor,
-                drift_budget)
+                approx_recip, final_energy, drift_anchor, drift_budget)
         capacity = _check_cull_inputs(x3, box_diag, pairs, self.tm, self.tn)
         dev, n_pad = x3.device, self.n_pad
         for name, t in (("x3", x3), ("v3", v3), ("f3", f3)):
@@ -779,8 +777,6 @@ class CulledLJMD:
             threshold = _threshold(drift_budget, dev)
             _build.require(anchor, "drift_anchor", (3, n_pad), torch.float32,
                            dev)
-        elif drift_slack is not None:
-            anchor, threshold = x3, _threshold(drift_slack, dev)
         else:
             anchor = threshold = None
         half_dt = 0.5 * self.dt
@@ -819,7 +815,6 @@ class CulledLJMD:
     def run_segment_stepwise(self, x3, v3, f3, box_diag, pairs: TilePairList,
                              seed: int, step_offset, n_steps: int,
                              approx_recip: bool = True,
-                             drift_slack: float = None,
                              final_energy: bool = False, drift_anchor=None,
                              drift_budget=None):
         """``run_segment`` as a Python loop of the step's wrappers:
@@ -848,9 +843,6 @@ class CulledLJMD:
         if drift_anchor is not None:
             out.append(tile_skin_drift_bad(x, drift_anchor, self.n,
                                            drift_budget, box_diag))
-        elif drift_slack is not None:
-            out.append(tile_skin_drift_bad(x, x3, self.n, drift_slack,
-                                           box_diag))
         if final_energy:
             out.append(energy)
         return tuple(out)

@@ -577,3 +577,7 @@ def stack_registered_params(potentials, box_diag=None):
     energy.kind_list = kind_idx
     return energy, (kinds, per_kind)
 
+
+# the JAX package's earlier name for the closed {HO, IdealGas, LJ} set, now
+# the registry's pre-registered kinds
+stack_closed_set_params = stack_registered_params

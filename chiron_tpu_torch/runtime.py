@@ -5,9 +5,11 @@ package does: dense below N = 2048, culled up to 80,000, band above, and the
 halo-strip engine when asked for by name.
 
 ``make_fast_lj_runner`` is the dense BAOAB runner (K1 every step) that
-melts the lattice; ``make_culled_lj_runner`` is the production engine: each
-segment sorts the state by the spatial key, rebuilds the tile-pair list and
-advances S steps on the culled kernels, with the drift latch at its end.
+melts the lattice; ``make_culled_lj_runner`` is the production engine: a
+segment sorts the state by the spatial key and rebuilds the tile-pair list
+(every segment by default, at the ``sort_every``/``rebuild_every`` cadence
+otherwise) and advances S steps on the culled kernels, with the drift latch
+at its end.
 ``make_culled_npt_lj_runner`` adds a Monte Carlo barostat to the culled
 engine (K5 energies on a rescaled list, the drift budget as device data);
 ``make_npt_lj_runner`` is its dense counterpart on K1.  ``run`` is a Python
@@ -27,10 +29,9 @@ potential and pair scheme (``integrators.make_baoab_step_fn``), on K1 with
 The culled runner's two opt-in rebuild paths are ported: ``fused_rebuild``
 (the sort and the list build in one launch, ``ops/sortbuild.py``) and
 ``megakernel`` (the build from the current order, the steps, the latch and
-an order repair in one host call, ``ops/lj_mega.py``).  Not ported (opt-in
-or measured as losing levers in the JAX package): ``mxu_reduce``,
-``prefetch``, ``unroll``, ``sort_every``/``rebuild_every`` above 1,
-``seed_default`` and the per-call ``interpret`` flag.
+an order repair in one host call, ``ops/lj_mega.py``).  Not ported, since
+they only choose how the TPU kernels are lowered: ``mxu_reduce``,
+``prefetch``, ``unroll`` and the per-call ``interpret`` flag.
 """
 
 from __future__ import annotations
@@ -193,6 +194,13 @@ class CullCarry:
 
     ``pairs`` is the live tile-pair list and ``x_anchor`` the positions it
     was built from.
+
+    ``step_host`` is ``step`` as a host int, which the list cadence reads.
+    It is not a field, so a checkpoint holds the fields of JAX's carry and
+    nothing else.  ``init``, every segment and ``interop.cull_carry`` note
+    it beside the ``step`` tensor they make, and reading it then waits for
+    nothing; a carry made another way, or whose ``step`` has been replaced
+    or changed in place since, reads ``step`` from its device once.
     """
 
     x: torch.Tensor           # (3, n_pad)
@@ -203,6 +211,23 @@ class CullCarry:
     overflowed: torch.Tensor  # () bool: capacity/shift/drift violation
     pairs: TilePairList
     x_anchor: torch.Tensor    # (3, n_pad)
+
+    def _step_version(self):
+        # an inference tensor keeps no version counter
+        return None if self.step.is_inference() else self.step._version
+
+    def note_step(self, step_host: int) -> "CullCarry":
+        """Note ``step_host`` as the host's copy of ``step``; returns self."""
+        self._noted = (self.step, self._step_version(), int(step_host))
+        return self
+
+    @property
+    def step_host(self) -> int:
+        noted = self.__dict__.get("_noted")
+        if (noted is not None and noted[0] is self.step
+                and noted[1] == self._step_version()):
+            return noted[2]
+        return int(self.step.reshape(-1)[0])
 
 
 def _culled_layout_init(md: CulledLJMD, dense: LJDense, positions,
@@ -329,22 +354,26 @@ class _CulledRunner:
                                    device=md.device)
         return x3s, box_diag, pairs, gen, v3
 
-    def _resort(self, carry):
-        """The head of a segment: sort (x, v, F) by the spatial key and
-        rebuild the list.  Returns (xs, v, F, pairs, overflowed), where
-        ``overflowed`` adds a non-finite live coordinate and the rebuild's
-        overflow to the carry's."""
+    def _sort(self, carry):
+        """Sort (x, v, F) by the spatial key.  Returns (xs, v, F,
+        overflowed), where ``overflowed`` adds a non-finite live coordinate
+        to the carry's."""
         if self.capacity is None:
             raise RuntimeError("call init() before running a segment")
-        md = self.md
         box_diag = carry.box_diag
         # before the sort, which may move a NaN key out of the live lanes
-        nonfinite = live_nonfinite(carry.x, md.n)
-        key = slab_y_key(carry.x, md.n, self.nslab, box_diag[0, 0],
+        nonfinite = live_nonfinite(carry.x, self.md.n)
+        key = slab_y_key(carry.x, self.md.n, self.nslab, box_diag[0, 0],
                          Ly=box_diag[0, 1])
         xs, (v3, F3) = sort_by_key(key, carry.x, (carry.v, carry.F))
-        pairs = md.build_pairs(xs, box_diag[0], self.capacity)
-        return xs, v3, F3, pairs, carry.overflowed | nonfinite | pairs.overflowed
+        return xs, v3, F3, carry.overflowed | nonfinite
+
+    def _resort(self, carry):
+        """The head of a segment: sort, then rebuild the list.  Returns (xs,
+        v, F, pairs, overflowed), the rebuild's overflow added."""
+        xs, v3, F3, overflowed = self._sort(carry)
+        pairs = self.md.build_pairs(xs, carry.box_diag[0], self.capacity)
+        return xs, v3, F3, pairs, overflowed | pairs.overflowed
 
     def _segment_workspace(self, kind=SegmentWorkspace):
         """The segments' scratch on the card (K3's, or K11's with
@@ -377,18 +406,22 @@ class CulledLJRunner(_CulledRunner):
     (``runtime.py:553-875``).
 
     ``path`` names how a segment rebuilds: ``"default"`` (the torch sort and
-    ``build_tile_pairs``), ``"fused_rebuild"`` (K10) or ``"megakernel"``
-    (K11, with ``repair_passes``)."""
+    ``build_tile_pairs``, at the ``sort_every``/``rebuild_every`` cadence),
+    ``"fused_rebuild"`` (K10) or ``"megakernel"`` (K11, with
+    ``repair_passes``)."""
 
     _INVARIANT = ("culled runner invariant violated (pair-list capacity, "
                   "shift bound, or per-segment drift)")
 
     def __init__(self, md: CulledLJMD, dense: LJDense, segment_steps: int,
                  sort_mode: str, exact_forces: bool, path: str = "default",
-                 repair_passes: int = 16):
+                 repair_passes: int = 16, sort_every: int = 1,
+                 rebuild_every: int = 1):
         super().__init__(md, dense, segment_steps, sort_mode, exact_forces)
         self.path = path
         self.repair_passes = repair_passes
+        self.sort_every = sort_every
+        self.rebuild_every = rebuild_every
 
     def init(self, positions, box_vectors, seed: int = 0) -> CullCarry:
         md = self.md
@@ -403,12 +436,23 @@ class CulledLJRunner(_CulledRunner):
             overflowed=pairs.overflowed,
             pairs=pairs,
             x_anchor=x3s,
-        )
+        ).note_step(0)
+
+    def cadence(self, step: int):
+        """(sort, rebuild): what the segment that starts at ``step`` does on
+        the default path (``runtime.py:735-747``).  The segment index counts
+        whole ``segment_steps``, so a shorter remainder segment shifts the
+        phase, as in the JAX package."""
+        seg_i = step // self.segment_steps
+        do_sort = seg_i % (self.rebuild_every * self.sort_every) == 0
+        return do_sort, do_sort or seg_i % self.rebuild_every == 0
 
     def _segment(self, carry: CullCarry, n_steps: int) -> CullCarry:
         if self.path == "megakernel":
             return self._mega_segment(carry, n_steps)
         md = self.md
+        # the cadence is decided on the host's copy of the step: no sync
+        step_host = carry.step_host
         if self.path == "fused_rebuild":
             # before the sort, which may move a NaN key out of the live lanes
             nonfinite = live_nonfinite(carry.x, md.n)
@@ -416,19 +460,35 @@ class CulledLJRunner(_CulledRunner):
                 carry.x, carry.v, carry.F, carry.box_diag[0], md.n, md.tm,
                 md.tn, self.nslab, md.cutoff, md.slack, self.capacity)
             overflowed = carry.overflowed | nonfinite | pairs.overflowed
+            anchor = xs
         else:
-            xs, v3, F3, pairs, overflowed = self._resort(carry)
+            do_sort, do_rebuild = self.cadence(step_host)
+            if do_sort:
+                xs, v3, F3, overflowed = self._sort(carry)
+            else:
+                xs, v3, F3, overflowed = (carry.x, carry.v, carry.F,
+                                          carry.overflowed)
+            if do_rebuild:
+                pairs = md.build_pairs(xs, carry.box_diag[0], self.capacity)
+                anchor = xs
+            else:
+                pairs, anchor = carry.pairs, carry.x_anchor
+            overflowed = overflowed | pairs.overflowed
+        # the latch: the top-2 joint drift from the list's anchor against the
+        # slack, in K3's last launch.  With a rebuild every segment the anchor
+        # is the segment's entry; with rebuild_every > 1 it may be segments
+        # old, where the JAX package checks in XLA (runtime.py:800-810)
         x1, v1, F1, stale = md.run_segment(
             xs, v3, F3, carry.box_diag, pairs, seed=self.seed,
             step_offset=carry.step, n_steps=n_steps,
-            approx_recip=not self.exact_forces, drift_slack=md.slack_t,
-            workspace=self._segment_workspace(),
+            approx_recip=not self.exact_forces, drift_anchor=anchor,
+            drift_budget=md.slack_t, workspace=self._segment_workspace(),
         )
         return CullCarry(
             x=x1, v=v1, F=F1, step=carry.step + n_steps,
             box_diag=carry.box_diag, overflowed=overflowed | stale,
-            pairs=pairs, x_anchor=xs,
-        )
+            pairs=pairs, x_anchor=anchor,
+        ).note_step(step_host + n_steps)
 
     def _mega_segment(self, carry: CullCarry, n_steps: int) -> CullCarry:
         """A megakernel segment (``runtime.py:658-699``): the list and the
@@ -451,7 +511,7 @@ class CulledLJRunner(_CulledRunner):
             step=carry.step + n_steps, box_diag=carry.box_diag,
             overflowed=carry.overflowed | flag, pairs=carry.pairs,
             x_anchor=carry.x_anchor,
-        )
+        ).note_step(carry.step_host + n_steps)
 
     def run(self, state: CullCarry, n_steps: int) -> CullCarry:
         """Advance ``n_steps``: whole segments of ``segment_steps``, then
@@ -465,8 +525,9 @@ class CulledLJRunner(_CulledRunner):
         return state
 
     def segment_fn(self, n_steps: int):
-        """``carry -> carry`` advancing one ``n_steps``-step segment (sort,
-        list rebuild, S steps, latch): the body ``run`` iterates."""
+        """``carry -> carry`` advancing one ``n_steps``-step segment (sort
+        and list rebuild where due, S steps, latch): the body ``run``
+        iterates."""
         if self.capacity is None:
             raise RuntimeError("call init() before segment_fn()")
         return lambda carry: self._segment(carry, n_steps)
@@ -488,6 +549,8 @@ def make_culled_lj_runner(
     segment_steps: int = 50,
     sort_mode: str = "auto",
     exact_forces: bool = False,
+    sort_every: int = 1,
+    rebuild_every: int = 1,
     fused_rebuild: bool = False,
     megakernel: bool = False,
     repair_passes: int = 16,
@@ -496,11 +559,17 @@ def make_culled_lj_runner(
 ) -> CulledLJRunner:
     """Culled tile-pair fused LJ runner on ``device`` (the card by default).
 
-    Each segment re-sorts and rebuilds the list and checks the tile-skin
-    invariant at its end: if the list could have gone stale,
-    ``state.overflowed`` latches and ``check()`` raises.  ``sort_mode`` is
-    ``"auto"`` (the pure-x key below 6.5 reaches of box, else the
-    (x-slab, y) key), ``"x"`` or ``"slab"``; the noise seed is ``init``'s.
+    The list is rebuilt every ``rebuild_every`` segments and the state
+    re-sorted by the spatial key every ``sort_every`` rebuilds (both 1 by
+    default, as in the JAX package); the cadence is decided on the host.
+    Every segment checks the tile-skin invariant at its end, the top-2
+    joint drift from the positions the list was built from against the
+    slack: if the list could have gone stale, ``state.overflowed`` latches
+    and ``check()`` raises.  The capacity is fixed at ``init``, so the
+    fatter boxes of an unsorted rebuild may overflow it, which latches too.
+    ``sort_mode`` is ``"auto"`` (the pure-x key below 6.5 reaches of box,
+    else the (x-slab, y) key), ``"x"`` or ``"slab"``; the noise seed is
+    ``init``'s.
 
     ``fused_rebuild`` sorts and builds in one launch (K10) where n_pad is a
     power of two and both tiles are multiples of 128, as in the reference;
@@ -508,14 +577,20 @@ def make_culled_lj_runner(
     128) builds the list from the current order, runs the steps and the
     latch, and repairs the order with ``repair_passes`` odd-even passes
     instead of re-sorting (K11); it carries the list and anchor of ``init``
-    through unchanged.  ``runner.path`` names the path taken.
+    through unchanged.  Both refuse a cadence above 1, as in the reference.
+    ``runner.path`` names the path taken.
     """
     if sort_mode not in ("auto", "x", "slab"):
         raise ValueError(f"sort_mode {sort_mode!r}: use 'auto', 'x' or 'slab'")
-    if megakernel and fused_rebuild:
+    if sort_every < 1 or rebuild_every < 1:
         raise ValueError(
-            "megakernel rebuilds/repairs every segment; fused_rebuild does "
-            "not apply")
+            f"sort_every and rebuild_every count segments: both >= 1 (got "
+            f"{sort_every}, {rebuild_every})")
+    cadence = sort_every != 1 or rebuild_every != 1
+    if megakernel and (fused_rebuild or cadence):
+        raise ValueError(
+            "megakernel rebuilds/repairs every segment; cadence knobs and "
+            "fused_rebuild do not apply")
     md, dense = _culled_engine_setup(
         potential, n_particles, temperature, timestep, collision_rate,
         topology, tm, tn, slack, device,
@@ -532,9 +607,13 @@ def make_culled_lj_runner(
                 f"fused_rebuild sorts in one block's shared memory, up to "
                 f"n_pad={MAX_N_PAD} (got {n_pad}); use the default sort/build "
                 f"path")
+        if cadence:
+            raise ValueError(
+                "fused_rebuild sorts and rebuilds every segment; "
+                "sort_every/rebuild_every must stay 1 with it")
         path = "fused_rebuild"
     return CulledLJRunner(md, dense, segment_steps, sort_mode, exact_forces,
-                          path, repair_passes)
+                          path, repair_passes, sort_every, rebuild_every)
 
 
 # ---------------------------------------------------------------------------
@@ -1086,6 +1165,14 @@ class BandRunner(FastLJRunner):
 
     def energy(self, state: BandCarry):
         return self.dense.force_energy_t(state.x, state.box_diag)[1]
+
+
+def band_run_chunk(step_fn, carry, n_steps: int):
+    """``n_steps`` calls of the scan-style ``step_fn(carry, None) -> (carry,
+    out)`` (``runtime.py:365-368``), a Python loop of device work."""
+    for _ in range(n_steps):
+        carry, _ = step_fn(carry, None)
+    return carry
 
 
 def make_band_lj_runner(

@@ -12,7 +12,8 @@ package's bit for bit, and its PRNG goldens do not apply here (the tests
 feed both packages the same noise instead).
 
 ``get_data_file_path`` resolves ``chiron_tpu/data/<file>`` as a path
-relative to the repository's root, without importing the JAX package.
+relative to the repository's root, without importing the JAX package, and
+``get_full_path`` a path relative to that root.
 JAX's ``enable_compilation_cache`` has no counterpart: PyTorch compiles
 nothing on the path.
 """
@@ -132,6 +133,12 @@ def get_data_file_path(relative_path: str) -> str:
     if not path.exists():
         raise ValueError(f"Sorry! {path} does not exist.")
     return str(path)
+
+
+def get_full_path(relative_path: str) -> str:
+    """Path of a file relative to the directory that holds the package
+    (the repository's root in a checkout)."""
+    return f"{Path(__file__).resolve().parent}/../{relative_path}"
 
 
 def slice_array(arr, start_column: int, end_column: int):

@@ -203,7 +203,7 @@ def test_culled_segment_equals_the_stepwise_sequence(cuda, tm, mode):
     runner, c0, _ = _culled_on_card(cuda, 4000, tm)
     md = runner.md
     if mode == "nvt":
-        kw = dict(drift_slack=md.slack_t)
+        kw = dict(drift_budget=md.slack_t)
     else:
         kw = dict(final_energy=True, drift_anchor=c0.x * 1.0001,
                   drift_budget=torch.tensor(0.1, device=cuda))
@@ -215,8 +215,10 @@ def test_culled_segment_equals_the_stepwise_sequence(cuda, tm, mode):
                               (nan, 40, True)):
         args = (x3, c0.v, c0.F, c0.box_diag, c0.pairs, 5, c0.step + 3, steps,
                 approx)
-        one = md.run_segment(*args, workspace=ws, **kw)
-        seq = md.run_segment_stepwise(*args, **kw)
+        # NVT's latch is the runner's: the anchor is the segment's entry
+        at = dict(drift_anchor=x3) if mode == "nvt" else {}
+        one = md.run_segment(*args, workspace=ws, **kw, **at)
+        seq = md.run_segment_stepwise(*args, **kw, **at)
         assert len(one) == len(seq) == (5 if mode == "npt" else 4)
         for a, b in zip(one, seq):
             assert _same_bits(a, b), (steps, approx)
@@ -243,8 +245,8 @@ def test_culled_segment_at_an_n_pad_off_the_runners_grain(cuda):
     assert int(pairs.count) > 0
     ws = lc.SegmentWorkspace(eng, runner.capacity)
     budget = torch.tensor(0.1, device=cuda)
-    for steps, kw in ((1, dict(drift_slack=eng.slack_t)),
-                      (40, dict(drift_slack=eng.slack_t)),
+    for steps, kw in ((1, dict(drift_anchor=x, drift_budget=eng.slack_t)),
+                      (40, dict(drift_anchor=x, drift_budget=eng.slack_t)),
                       (40, dict(final_energy=True, drift_anchor=x,
                                 drift_budget=budget))):
         args = (x, v, F, c0.box_diag, pairs, 5, c0.step, steps)
@@ -267,12 +269,14 @@ def test_culled_segment_never_waits_and_reuses_its_workspace(carry):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        a = md.run_segment(*args, drift_slack=md.slack_t, workspace=ws)
+        a = md.run_segment(*args, drift_anchor=c0.x, drift_budget=md.slack_t,
+                           workspace=ws)
         b = md.run_segment(*args, final_energy=True, drift_anchor=c0.x,
                            drift_budget=budget, workspace=ws)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    again = md.run_segment(*args, drift_slack=md.slack_t, workspace=ws)
+    again = md.run_segment(*args, drift_anchor=c0.x,
+                           drift_budget=md.slack_t, workspace=ws)
     assert all(torch.equal(p, q) for p, q in zip(a, again))
     assert torch.equal(a[0], b[0]) and torch.isfinite(b[4])
 
@@ -811,7 +815,7 @@ def test_mega_segment_p0_is_the_classic_path_and_repeats(carry):
     pairs = md.build_pairs(c0.x, c0.box_diag[0], runner.capacity)
     xc, vc, Fc, stale = md.run_segment(
         c0.x, c0.v, c0.F, c0.box_diag, pairs, seed=2, step_offset=c0.step,
-        n_steps=8, drift_slack=md.slack_t)
+        n_steps=8, drift_anchor=c0.x, drift_budget=md.slack_t)
     ws = lm.MegaWorkspace(md, runner.capacity)
     args = (md, c0.x, w, c0.F, c0.box_diag, runner.capacity, 2, c0.step, 8)
     _build.reset_launch_counts()
@@ -904,6 +908,51 @@ def test_new_culled_paths_never_wait_for_the_device(carry, path):
         torch.cuda.set_sync_debug_mode("default")
     r.check(st)
     assert int(st.step[0, 0]) == 24
+
+
+def _carry_to_cpu(c):
+    return dataclasses.replace(
+        c, x=c.x.cpu(), v=c.v.cpu(), F=c.F.cpu(), step=c.step.cpu(),
+        box_diag=c.box_diag.cpu(), overflowed=c.overflowed.cpu(),
+        pairs=lc.TilePairList(*(t.cpu() for t in c.pairs)),
+        x_anchor=c.x_anchor.cpu())
+
+
+@pytest.mark.parametrize("sort_every,rebuild_every", [(4, 1), (1, 2), (2, 2)])
+def test_cadence_segments_never_wait_and_equal_their_plain_versions(
+        carry, sort_every, rebuild_every):
+    """The list cadence on the card: 6 segments queue device work only, and
+    each equals the runner on the CPU (the plain versions) from the same
+    carry: the list and its anchor exactly, x within 1e-5 nm and v within
+    1e-4 with exact forces, the host's step and the latch equal."""
+    runner, c0, pot = carry
+    kw = dict(potential=pot, n_particles=N, temperature=120.0 * units.kelvin,
+              slack=0.15, segment_steps=8, exact_forces=True,
+              sort_every=sort_every, rebuild_every=rebuild_every)
+    r = make_culled_lj_runner(**kw, device=c0.x.device)
+    plain = make_culled_lj_runner(**kw, device="cpu")
+    pos = runner.positions(c0)
+    st = r.init(pos, c0.box_diag, seed=4)
+    plain.init(pos.cpu(), c0.box_diag.cpu(), seed=4)
+    carries = [st]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(6):
+            carries.append(r.segment_fn(8)(carries[-1]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k in range(6):
+        got = carries[k + 1]
+        ref = plain.segment_fn(8)(_carry_to_cpu(carries[k]))
+        for a, b in zip(got.pairs, ref.pairs):
+            assert torch.equal(a.cpu(), b), k
+        assert torch.equal(got.x_anchor.cpu(), ref.x_anchor), k
+        assert float((got.x.cpu() - ref.x).abs().max()) < 1e-5, k
+        assert float((got.v.cpu() - ref.v).abs().max()) < 1e-4, k
+        assert got.step_host == ref.step_host == int(got.step) == 8 * (k + 1)
+        assert bool(got.overflowed) == bool(ref.overflowed), k
+    r.check(carries[-1])
 
 
 def _culled_on_card(cuda, n, tm, tn=256, slack=0.15, segment_steps=8, seed=1):

@@ -191,7 +191,7 @@ def test_two_step_segment_matches_jax(sorted_system):
     tx, tv, tF, tstale = tmd.run_segment(
         s["tpos"], torch.from_numpy(v0), torch.from_numpy(np.array(F0)),
         torch.from_numpy(box), s["tpairs"], seed=11, step_offset=5, n_steps=2,
-        approx_recip=False, drift_slack=SLACK)
+        approx_recip=False, drift_anchor=s["tpos"], drift_budget=SLACK)
     assert np.abs(tx.numpy() - _np(jx)).max() < 1e-5
     assert np.abs(tv.numpy() - _np(jv)).max() < 1e-4
     assert np.abs(tF.numpy() - _np(jF)).max() < 0.05

@@ -94,7 +94,7 @@ def test_p0_segment_is_the_classic_segment_bitwise(system):
     pairs = tmd.build_pairs(x, box, CAP)
     xc, vc, Fc, stale = tmd.run_segment(
         x, v, F, box, pairs, seed=SEED, step_offset=0, n_steps=STEPS,
-        drift_slack=tmd.slack_t)
+        drift_anchor=x, drift_budget=tmd.slack_t)
     xm, wm, Fm, flag = tmg.mega_segment(
         tmd, x, v - half_dt * F * tmd.minv, F, box, CAP, SEED,
         torch.zeros((1, 1), dtype=torch.int32), STEPS, repair_passes=0)

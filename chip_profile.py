@@ -111,6 +111,15 @@ median; the host's enqueue time a segment, split into the sort, the list
 build and K3's call, over 75 segments; then profiler rows of 400 steps of
 each pair with the host's top operators.
 
+    python3 chip_profile.py --ho-seeds 1234,1235,...
+
+runs ``examples_torch/ho_multistate_mbar.py`` at ``chip_smoke.py`` [15]'s
+cut (``run(14)`` of the example's ``run(25)``) once a seed, one process a
+seed, all started together (so their wall seconds are not the example's
+rate), with an in-memory reporter: each seed's f_k error against the
+analytic values, the asymptotic d f_k of the last rung, the unsampled
+sigma's reweighted f, and whether the example's ``check`` holds.
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -121,7 +130,7 @@ import sys
 import time
 from dataclasses import replace
 
-from chip_smoke import _busy_us
+from chip_smoke import EXAMPLE_CUTS, _busy_us, _MemoryReporter
 
 N = 4000
 SEED = 1234
@@ -482,7 +491,7 @@ def mc(dev):
     """Windows and profiler rows of ``chip_smoke.py`` [12]'s paths: the
     LJ_MCMC state point's displacement chain, barostat chain and
     ``LangevinDynamicsMove`` (N=1100 methane on ``DensePairs``, K1), the
-    lj_mcmove chain on ``NeighborListNsqrd``, and [12](c)'s whole
+    lj_mcmove chain on ``NeighborListNsqrd``, and [12](b)'s whole
     ``ReplicaExchangeSampler.run(5)`` (4 replicas, 5 iterations of 5 x 50
     Langevin steps each, the energy matrices, the swaps and the offline
     MBAR)."""
@@ -721,6 +730,41 @@ def cadence(common, box, pos0):
                      PROFILE_STEPS["culled"], host_rows=10)
 
 
+def ho_seed(seed):
+    """One seed of the harmonic ladder at [15]'s cut: one line of numbers."""
+    from examples_torch import ho_multistate_mbar as ho
+
+    n_iterations = EXAMPLE_CUTS["ho_multistate_mbar"]["n_iterations"]
+    t0 = time.perf_counter()
+    r = ho.main(device="cuda", n_iterations=n_iterations, seed=seed,
+                reporter=_MemoryReporter())
+    wall = time.perf_counter() - t0
+    try:
+        ho.check(r)
+        held = "holds"
+    except AssertionError as err:
+        held = f"fails ({err})"
+    print(f"seed {seed}: run({n_iterations}) f_k error {r['max_error']:.4f} "
+          f"kT (limit 0.1), d f_k[-1] {r['d_f_k'][-1]:.4f} kT, unsampled f "
+          f"{r['f_unsampled']:.4f} +- {r['d_f_unsampled']:.4f} (analytic "
+          f"{r['f_unsampled_true']:.4f}); check {held}; {wall:.1f} s wall",
+          flush=True)
+
+
+def ho_seeds(seeds):
+    """``ho_seed`` for each of ``seeds``, one process a seed, all at once."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ho-seed", str(seed)],
+                              stdout=subprocess.PIPE, text=True)
+             for seed in seeds]
+    failed = 0
+    for seed, proc in zip(seeds, procs):
+        out, _ = proc.communicate()
+        print(out.strip() or f"seed {seed}: no output", flush=True)
+        failed += proc.returncode != 0
+    return 1 if failed else 0
+
+
 def main():
     import torch
 
@@ -728,6 +772,14 @@ def main():
         print("chip_profile: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ho-seed":
+        ho_seed(int(sys.argv[2]))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--ho-seeds":
+        print(f"card before: {_card()}")
+        rc = ho_seeds([int(s) for s in sys.argv[2].split(",")])
+        print(f"card after: {_card()}")
+        return rc
     from chiron_tpu_torch import units
     from chiron_tpu_torch.ops import _build
     from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy

@@ -11,9 +11,9 @@ JAX's threefry by design: the port's trajectories are not the JAX
 package's bit for bit, and its PRNG goldens do not apply here (the tests
 feed both packages the same noise instead).
 
-``get_data_file_path`` resolves ``chiron_tpu/data/<file>`` as a path
-relative to the repository's root, without importing the JAX package, and
-``get_full_path`` a path relative to that root.
+``get_data_file_path`` resolves ``<file>`` in the port's own ``data/``
+directory beside this module, and ``get_full_path`` a path relative to the
+directory that holds the package.
 JAX's ``enable_compilation_cache`` has no counterpart: PyTorch compiles
 nothing on the path.
 """
@@ -127,9 +127,9 @@ def initialize_velocities_md(temperature_md: float, masses: torch.Tensor,
 
 
 def get_data_file_path(relative_path: str) -> str:
-    """Full path of a data file of the repository (``chiron_tpu/data/``),
-    resolved from this file's place in the checkout."""
-    path = Path(__file__).resolve().parents[1] / "chiron_tpu" / "data" / relative_path
+    """Full path of a data file of the package (``chiron_tpu_torch/data/``),
+    resolved from this file's place, so an installed package finds it."""
+    path = Path(__file__).resolve().parent / "data" / relative_path
     if not path.exists():
         raise ValueError(f"Sorry! {path} does not exist.")
     return str(path)

@@ -260,7 +260,7 @@ def test_velocities_and_masses():
 
 def test_data_file_path_resolves_the_repository_data():
     path = tutils.get_data_file_path("two_particles.pdb")
-    assert path.endswith("chiron_tpu/data/two_particles.pdb")
+    assert path.endswith("chiron_tpu_torch/data/two_particles.pdb")
     with open(path) as f:
         assert f.read(6)
     with pytest.raises(ValueError):

@@ -6,6 +6,9 @@ Metropolis moves, replica exchange and MBAR on K1, the replica axis, the
 culled runner's list cadence, and the example programs (``examples_torch/``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --strip-tree TREE   # [8]'s strip window and its
+        per-segment checks alone, on the ``chiron_tpu_torch`` of the checkout
+        TREE (a ``git archive`` of another commit); exit 1 if a check fails
 
 Phases (any failure raises, and the script exits nonzero):
 
@@ -26,8 +29,9 @@ Phases (any failure raises, and the script exits nonzero):
    (anchor, budget, final energy), a NaN latching both, and within 1e-5 nm
    of its plain loop over 5 steps, and K7 on the strip layout of that
    state (its force, force and energy, each bitwise equal when repeated,
-   its chunks skipped and LJ loop trips counted by a torch replica, and
-   BAOAB phase with the halo refresh).  K6 is held to its plain version at
+   its chunks skipped and LJ loop trips counted by a torch replica,
+   BAOAB phase with the halo refresh, and its wrap of x bitwise equal to
+   its plain version).  K6 is held to its plain version at
    the end of phase 7, on the band layout of the N=100,000 fluid;
 4. run one culled segment, one NpT segment with the barostat's generator
    restored in between, and one strip segment, twice from one carry: the
@@ -56,9 +60,12 @@ Phases (any failure raises, and the script exits nonzero):
    that ``check()`` raises, and K6's visit kinds and vote rate counted by a
    torch replica of its choices;
 8. the strip path, counted: ``make_lj_runner(engine="strip")`` at N=4000
-   from phase 5's state (S=50, slack 0.3) for 3000 steps; ``check()``
-   clean, ``strip_baoab``, the strip force, the latch and K1 launched (the
-   counts are read after the runner's ``energy``); the K1 and K7 energies
+   from phase 5's state (S=50, slack 0.3) for 3000 steps, segment by
+   segment; ``check()`` clean, ``strip_baoab``, the strip force, the wrap,
+   the latch and K1 launched (the counts are read after the runner's
+   ``energy``); every segment's carry F within 1e-3 of the largest force of
+   K1's exact force on the carry's positions, and the live lanes each
+   segment wrapped printed, their sum above 0; the K1 and K7 energies
    within 1e-5 of the f64 oracle, T_kin within 5%; K7 on that state with
    the halo a tile narrower than the band the cutoff needs, where the strip
    misses pairs, within its tolerances of its plain version, its change
@@ -106,7 +113,9 @@ Phases (any failure raises, and the script exits nonzero):
    against its bound, a P=0 ``mega_segment`` from a freshly
    sorted state bitwise equal to the classic kernel path, a P=16 one a pure
    permutation of it with the padding unmoved, the segment within 1e-5 nm of
-   its plain version over 5 steps, then, counted, the culled runner with
+   its plain version over 5 steps, and at tm = 256 too (with the runner's
+   megakernel path at tm = 256 for 400 steps: ``check()`` clean, energy
+   within 1e-5 of the oracle), then, counted, the culled runner with
    ``megakernel`` (pure x, S=40, slack 0.15, P=16) for 3000 steps:
    ``check()`` clean, energy within 1e-5 of the oracle, T_kin within 5%,
    the share of neighbouring live lanes in cyclic x order above one half
@@ -311,7 +320,8 @@ PATH_KERNELS = {
     "npt": ("lj_dense", "culled_md", "culled_force", "culled_force_energy",
             "baoab", "tile_skin_drift"),
     "band": ("band_force", "lj_dense"),
-    "strip": ("strip_baoab", "strip_force", "tile_skin_drift", "lj_dense"),
+    "strip": ("strip_baoab", "strip_force", "strip_wrap", "tile_skin_drift",
+              "lj_dense"),
     "spatial": ("lj_dense_square", "row_slab_force", "row_slab_force_energy",
                 "row_band_force"),
     "fused": ("fused_md", "lj_dense"),
@@ -392,6 +402,104 @@ def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _strip_carry_errors(runner, carries, sigma, epsilon, cutoff):
+    """Each strip carry's F against K1's exact force on the carry's
+    positions: the largest difference over the live rows over the largest
+    |F| of K1, one a carry."""
+    import torch
+
+    from chiron_tpu_torch.ops.lj_dense import lj_dense_force_energy
+
+    n, n_pad = runner.md.n, runner.md.n_pad
+    out = []
+    for c in carries:
+        x = torch.where(runner.valid, c.x[:, :n_pad], 0.0)
+        F1, _ = lj_dense_force_energy(x, c.box_diag, n, sigma, epsilon,
+                                      cutoff, with_energy=False)
+        out.append((c.F - F1)[:, :n].abs().max() / F1[:, :n].abs().max())
+    return torch.stack(out).tolist()
+
+
+def _strip_window(runner, carry):
+    """[8]'s window: ``STRIP_STEPS`` steps of the strip runner from
+    ``carry``, segment by segment as ``run`` takes them.  Returns every
+    carry, ``carry`` first, and the steps a second."""
+    import torch
+
+    n_seg = STRIP_STEPS // runner.segment_steps
+    _require(n_seg * runner.segment_steps == STRIP_STEPS, "strip window")
+    carries = [carry]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_seg):
+        carries.append(runner.segment(carries[-1], runner.segment_steps))
+    torch.cuda.synchronize()
+    return carries, STRIP_STEPS / (time.perf_counter() - t0)
+
+
+def _strip_wrapped_lanes(carries, n):
+    """The live lanes each strip segment between successive ``carries``
+    wrapped in x, counted outside the program: a segment sorts the wrapped
+    center of its first carry by x, so its lane j starts at the j-th
+    smallest wrapped x, and a lane whose x in the next carry lies more than
+    L/2 from there crossed x = 0 or x = L."""
+    import torch
+
+    out = []
+    for prev, carry in zip(carries, carries[1:]):
+        Lx = prev.box_diag[0, 0]
+        x0 = prev.x[0, :n]
+        start = torch.sort(x0 - torch.floor(x0 / Lx) * Lx).values
+        out.append(int(((carry.x[0, :n] - start).abs() > 0.5 * Lx).sum()))
+    return out
+
+
+def _strip_tree(tree):
+    """``chip_smoke.py --strip-tree TREE``: [8]'s strip window and its
+    per-segment checks on the ``chiron_tpu_torch`` of another checkout, such
+    as a ``git archive`` of a parent commit, from a melt of ``DENSE_STEPS``
+    on K1 (shorter than [8]'s).  Prints a line a segment and a JSON summary;
+    exits 1 where a carry's F is off K1's by 1e-3 of max |F| or more."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(tree))
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.runtime import make_fast_lj_runner, make_lj_runner
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+
+    dev = torch.device("cuda")
+    fluid = LennardJonesFluid(nparticles=N, reduced_density=DENSITY)
+    box = fluid.box_vectors.value_in_unit_system(units.md_unit_system)
+    pos0 = fluid.positions.value_in_unit_system(units.md_unit_system)
+    pot = fluid.potential
+    common = dict(potential=pot, n_particles=N, topology=fluid.topology,
+                  temperature=T_KELVIN * units.kelvin,
+                  timestep=2.0 * units.femtoseconds, device=dev)
+    fast = make_fast_lj_runner(**common)
+    melt = fast.positions(fast.run(fast.init(pos0, box, seed=7),
+                                   DENSE_STEPS))
+    sr = make_lj_runner(engine="strip", box_vectors=box, **common)
+    carries, rate = _strip_window(sr, sr.init(melt, box, seed=SEED))
+    err = _strip_carry_errors(sr, carries[1:], pot.sigma, pot.epsilon,
+                              pot.cutoff)
+    wrapped = _strip_wrapped_lanes(carries, N)
+    for k, (e, w) in enumerate(zip(err, wrapped)):
+        print(f"segment {k}: F err / max |F| {e:.3e}, {w} live lanes "
+              f"wrapped")
+    print(json.dumps({
+        "tree": os.path.abspath(tree), "segments": len(err),
+        "max_err": max(err), "min_err": min(err),
+        "segments_over_limit": sum(e >= 1e-3 for e in err),
+        "first_over_limit": next((k for k, e in enumerate(err)
+                                  if e >= 1e-3), None),
+        "wrapped_sum": sum(wrapped), "overflowed": bool(carries[-1].overflowed),
+        "steps_per_s": rate, "card": torch.cuda.get_device_name(0)}))
+    return 0 if max(err) < 1e-3 else 1
 
 
 def _segment_flops(listed, in_cut, n_pad):
@@ -1405,6 +1513,38 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
         replaces="chiron_tpu/ops/lj_mega.py:368",
         max_abs_err=max(err_x, err_w), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by)
+
+    # K11 at tm = 256, as the reference takes it (its tiles are multiples of
+    # 128 rows; K3's row tile goes up to 256): 5 steps against its plain
+    # version, then the runner's megakernel path at that tile
+    t256 = time.perf_counter()
+    r256 = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
+                                 sort_mode="x", megakernel=True, tm=TM_WIDE,
+                                 **common)
+    s256 = r256.init(melt, box, seed=SEED)
+    md256 = r256.md
+    w256 = s256.v - half * s256.F * md256.minv
+    margs = (md256, s256.x, w256, s256.F, box_diag, r256.capacity, SEED)
+    k256 = lm.mega_segment(*margs, s256.step, 5, 0, approx_recip=False)
+    p256 = lm.mega_segment_plain(*margs, int(s256.step), 5, 0)
+    err_x = float((k256[0] - p256[0]).abs().max())
+    err_w = float((k256[1] - p256[1]).abs().max())
+    _require(err_x < 1e-5 and err_w < 1e-4 and bool(k256[3]) == bool(p256[3]),
+             f"mega_md at tm={TM_WIDE} vs plain over 5 steps: x err {err_x}, "
+             f"w err {err_w}")
+    s256 = r256.run(s256, WIDE_STEPS)
+    r256.check(s256)
+    e256 = float(r256.energy(s256))
+    e_rel = oracle_rel(e256, r256.positions(s256))
+    _require(math.isfinite(e256) and e_rel < 1e-5,
+             f"megakernel at tm={TM_WIDE}: energy {e256}, rel err {e_rel}")
+    print(f"    K11 at tm={TM_WIDE}, tn={md256.tn} (capacity "
+          f"{r256.capacity}): 5 steps (exact reciprocal, P=0) x err "
+          f"{err_x:.3e} (1e-5), w err {err_w:.3e} (1e-4); the runner "
+          f"{WIDE_STEPS} steps (P={r256.repair_passes}): check() passed, "
+          f"energy f64 oracle rel {e_rel:.2e} "
+          f"({time.perf_counter() - t256:.2f} s)")
+    del r256, s256, k256, p256
 
     def in_order(carry):
         d = carry.x[0, 1:N] - carry.x[0, :N - 1]
@@ -3095,6 +3235,46 @@ def main():
         replaces="chiron_tpu/ops/lj_strip.py:308", max_abs_err=max(ex, ew),
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
+    # K7's wrap at the segment's end, on that phase's output with a lane
+    # past x = L and one below 0: bitwise its plain version, in place (the
+    # x row only, as ``run_segment`` takes it) and as before a sort (all
+    # three rows into a new array, the sentinel, no halo)
+    xw = xp.clone()
+    xw[0, N - 1] = box1[0] + 1e-3
+    xw[0, 0] = -1e-3
+    want = ls.strip_wrap_plain(xw, box1, N, n_pad, H)
+    got = ls.strip_wrap(xw, box1, N, n_pad, H)
+    inplace = xw.clone()
+    ls.strip_wrap(inplace, box1, N, n_pad, H, out=inplace)
+    centre = ls.strip_wrap(xw, box1, N, n_pad, 0, sentinel=True)
+    moved = int((want[0, :N] != xw[0, :N]).sum())
+    _require(torch.equal(got, want) and torch.equal(inplace, want)
+             and moved >= 2
+             and torch.equal(centre, ls.strip_wrap_plain(
+                 xw, box1, N, n_pad, 0, sentinel=True)),
+             "strip_wrap differs from its plain version")
+    ms = _cuda_ms(lambda: ls.strip_wrap(inplace, box1, N, n_pad, H,
+                                        out=inplace))
+    plain_ms = _cuda_ms(lambda: ls.strip_wrap_plain(inplace, box1, N, n_pad,
+                                                    H))
+    # in place: reads the live x row and Lx, writes it and the x halo; a
+    # division, floor, product and difference a live x, a sum a halo lane
+    h_live = min(N, H)
+    bound_ms, bound_by = _bound(4 * N + h_live, (2 * N + h_live) * 4 + 4)
+    _report(f"strip_wrap in place (bitwise, {moved} lanes moved)", 0.0,
+            "equal", ms, plain_ms)
+    results["strip_wrap"] = dict(
+        source="chiron_tpu_torch/csrc/lj_strip.cu",
+        replaces="chiron_tpu/ops/lj_strip.py:308", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    # the copy before a sort: reads the live lanes of 3 rows, writes
+    # (3, n_pad)
+    copy_ms = _cuda_ms(lambda: ls.strip_wrap(xw, box1, N, n_pad, 0,
+                                             sentinel=True))
+    copy_bound, copy_by = _bound(4 * N, (3 * N + 3 * n_pad) * 4 + 4)
+    print(f"    strip_wrap before a sort (copy, sentinel, no halo): "
+          f"{copy_ms:.4f} ms, bound {copy_bound * 1e3:.4f} us ({copy_by})")
+
     # ---- 4. determinism ----
     seg = runner.segment_fn(SEGMENT)
     a, b = seg(c0), seg(c0)
@@ -3343,17 +3523,31 @@ def main():
     _build.reset_launch_counts()
     sr = make_lj_runner(engine="strip", box_vectors=box, **common)
     ss = sr.init(melt, box, seed=SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ss = sr.run(ss, STRIP_STEPS)
-    torch.cuda.synchronize()
-    strip_rate = STRIP_STEPS / (time.perf_counter() - t0)
+    carries, strip_rate = _strip_window(sr, ss)
+    ss = carries[-1]
+    n_seg = len(carries) - 1
     sr.check(ss)
     energy = float(sr.energy(ss))
     strip_counts = dict(_build.launches)
+    # every segment's carry: its F (taken on x continuous since the sort)
+    # against K1's exact force on the carry's wrapped positions, and the
+    # live lanes the segment wrapped
+    t0 = time.perf_counter()
+    seg_err = _strip_carry_errors(sr, carries[1:], sig, eps, cut)
+    wrapped = _strip_wrapped_lanes(carries, N)
+    check_s = time.perf_counter() - t0
+    print(f"[8] strip carries: F against K1's force on the carry's positions, "
+          f"max over live rows / max |F|, each of {n_seg} segments: "
+          + " ".join(f"{e:.2e}" for e in seg_err))
+    print(f"    live lanes wrapped a segment: {wrapped} (sum {sum(wrapped)}); "
+          f"the checks took {check_s:.2f} s")
+    _require(max(seg_err) < 1e-3,
+             f"strip carry F off K1's force by {max(seg_err)} of max |F| "
+             f"(limit 1e-3)")
+    _require(sum(wrapped) > 0, "no live lane wrapped in the strip window")
+    del carries
     # K7 on the layout the next segment would take: re-sorted, the halo
-    # rebuilt (a particle that wrapped in x mid-segment has lost its strip
-    # pairs until then, in the JAX package too)
+    # rebuilt
     centre = torch.where(sr.valid, ss.x[:, :sr.md.n_pad], ls._PAD_X)
     _, e_k7 = sr.md.force_energy(
         sr.md.extend(ls.sort_by_key_strip(centre, ())[0], ss.box_diag),
@@ -3696,4 +3890,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--strip-tree"] and len(sys.argv) == 3:
+        sys.exit(_strip_tree(sys.argv[2]))
     sys.exit(main())

@@ -5,18 +5,40 @@
 // strip_md_raw (pallas_call at :308), strip_force_raw (:477) and
 // strip_force_energy_raw (:526), all on _strip_force_pass (:69).  The TPU
 // kernel runs S whole steps in one call; here a step is a sequence of
-// launches on one stream: chiron_strip_baoab, then chiron_strip_force.
+// launches on one stream: chiron_strip_baoab, then chiron_strip_force; and
+// chiron_strip_wrap once at the segment's end, on the x row.
+//
+// x is continuous between sorts.  The halo carries the x image of the order
+// the sort left, so the pass takes x with no minimum image; a particle that
+// crossed x = 0 or x = L and was wrapped at once would keep its rank at the
+// other end of the box and meet none of its partners until the next sort
+// (the TPU kernel wraps every step and loses those pairs).  So the steps do
+// not wrap x, and strip_wrap wraps it once the segment's last force is
+// taken, and again before a sort for a carry from elsewhere.
 //
 // strip_baoab, per lane (axis, col) of (3, n_pad), in the half-kick
 // convention w = v - dt/2 F/m (:209-265):
 //   v = w + dt F minv; x += dt/2 v; v = a v + b sigv noise; x += dt/2 v;
-//   live lanes (col < n) wrapped by x - floor(x / L) L, padding left at its
-//   1e18 sentinel; and a lane with col < H also writes its halo copy at
+//   live lanes' (col < n) y and z wrapped by x - floor(x / L) L (the pass
+//   takes their minimum image either way), x left unwrapped, padding left at
+//   its 1e18 sentinel; and a lane with col < H also writes its halo copy at
 //   n_pad + col, shifted by +Lx on x.  The noise is the JAX stream bit for
 //   bit: counters 2 lane and 2 lane + 1 with lane = axis n_pad + col, times
 //   0x9E3779B9, plus seed 0x9E3779B9 + step 0x85EBCA6B; the splitmix32
 //   finaliser, (mix >> 8) 2^-24, and the cos branch of Box-Muller only.
 //   Bound: memory (7 floats read, 2 written a lane, plus the halo).
+//
+// strip_wrap, in place (the segment's end): per live lane of the x row, x
+// wrapped by x - floor(x / L) L, one rounding an op, as the plain version,
+// and a lane with col < H rewrites its halo copy as x + Lx; y, z, their
+// halo and the padding are left as they are (the steps keep them so).
+// Bound: memory (n floats read, n + H written).
+//
+// strip_wrap_copy, per lane (axis, col) of (3, n_pad), from src into dst
+// (a new array, or src itself): the live x wrapped as above; y, z and the
+// padding copied, or the padding set to the 1e18 sentinel; the halo
+// (col < H) rewritten as the shifted center.  Bound: memory (one float read
+// and one written a lane, plus the halo).
 //
 // strip_pairs: the function of the TPU pass.  Row tile i (rows i tm ..
 // i tm + tm) meets the extended columns [i tm, i tm + tm + H), except the
@@ -94,13 +116,50 @@ __global__ void strip_baoab(float* __restrict__ xe, float* __restrict__ w,
   float x = xe[axis * n_ext + col] + half_dt * v;
   v = a * v + b * sigv[col] * noise;
   x = x + half_dt * v;
-  if (col < n) {
+  if (col < n && axis != 0) {
     const float L = box[axis];
     x = x - floorf(x / L) * L;
   }
   xe[axis * n_ext + col] = x;
   w[lane] = v;
   if (col < H) xe[axis * n_ext + n_pad + col] = axis == 0 ? x + box[0] : x;
+}
+
+constexpr float kPadX = 1.0e18f;  // the padding sentinel (lj_strip.py _PAD_X)
+
+__device__ __forceinline__ float wrap_x(float x, float L) {
+  return __fsub_rn(x, __fmul_rn(floorf(__fdiv_rn(x, L)), L));
+}
+
+// xe: (3, n_pad + H), in place; only the live x lanes and their halo.
+__global__ void strip_wrap(float* __restrict__ xe,
+                           const float* __restrict__ box, int n, int n_pad,
+                           int H) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  const float x = wrap_x(xe[col], box[0]);
+  xe[col] = x;
+  if (col < H) xe[n_pad + col] = __fadd_rn(x, box[0]);
+}
+
+// src: (3, src_ext), dst: (3, n_pad + H); both may be one array.
+__global__ void strip_wrap_copy(const float* src, int src_ext, float* dst,
+                                const float* __restrict__ box, int n,
+                                int n_pad, int H, bool pad) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;  // over (3, n_pad)
+  if (lane >= 3 * n_pad) return;
+  const int axis = lane / n_pad;
+  const int col = lane - axis * n_pad;
+  const int dst_ext = n_pad + H;
+  float x = src[axis * src_ext + col];
+  if (col >= n) {
+    if (pad) x = kPadX;
+  } else if (axis == 0) {
+    x = wrap_x(x, box[0]);
+  }
+  dst[axis * dst_ext + col] = x;
+  if (col < H)
+    dst[axis * dst_ext + n_pad + col] = axis == 0 ? __fadd_rn(x, box[0]) : x;
 }
 
 constexpr int kLanes = 32;  // particles per block: one a lane
@@ -296,6 +355,30 @@ CHIRON_EXPORT int chiron_strip_baoab(float* xe, float* w, const float* F,
                 static_cast<cudaStream_t>(stream)>>>(
       xe, w, F, minv, sigv, box, step_offset, s, seed, n, n_pad, H, dt,
       half_dt, a, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src: (3, src_ext) f32 with src_ext >= n_pad; dst: (3, n_pad + H) f32, src
+// itself where src_ext == n_pad + H (in place); box: (3,) f32; pad sets the
+// padding lanes to the sentinel.  In place without pad, one launch over the
+// live x lanes; else one over every lane of (3, n_pad).
+CHIRON_EXPORT int chiron_strip_wrap(const float* src, int src_ext, float* dst,
+                                    const float* box, int n, int n_pad, int H,
+                                    int pad, void* stream) {
+  if (src_ext < n_pad || H < 0 || n < 0 || n > n_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kBlock = 256;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (src == dst && pad == 0) {
+    if (src_ext != n_pad + H) return static_cast<int>(cudaErrorInvalidValue);
+    if (n > 0)
+      strip_wrap<<<(n + kBlock - 1) / kBlock, kBlock, 0, st>>>(dst, box, n,
+                                                               n_pad, H);
+  } else {
+    const int lanes = 3 * n_pad;
+    strip_wrap_copy<<<(lanes + kBlock - 1) / kBlock, kBlock, 0, st>>>(
+        src, src_ext, dst, box, n, n_pad, H, pad != 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -62,6 +62,7 @@ _SIGNATURES = {
         _F, _F, _F, _F, _F, _I, _I, _P),
     "chiron_strip_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _I, _I, _F, _F, _F, _F, _P),
+    "chiron_strip_wrap": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "chiron_strip_force": (
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
     "chiron_row_slab_force": (

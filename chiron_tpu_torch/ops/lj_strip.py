@@ -8,14 +8,24 @@ the (3, n_pad + H) extended array repeats ranks 0..H-1 with x shifted by
 sentinel on every axis, which puts every pair with padding beyond the
 cutoff.
 
+x is continuous between sorts: the steps of a segment do not wrap it (a
+particle wrapped across x = 0 or x = L mid-segment would keep its rank at
+the other end and meet none of its partners until the next sort, as in the
+JAX package, whose steps wrap x), and ``StripLJMD.run_segment`` wraps it
+once after the segment's last force, so a carry holds x in [0, L) as the
+JAX carry does.  y and z stay wrapped every step (the pass takes their
+minimum image).
+
 Kernel K7 (``csrc/lj_strip.cu``) replaces ``strip_md_raw``,
 ``strip_force_raw`` and ``strip_force_energy_raw``: ``strip_baoab_`` is a
 step's BAOAB phase with the halo refresh, ``strip_force`` and
 ``strip_force_energy`` the strip force pass with the halo fold, one launch
 in which each particle meets every pair it is in from its own end (its
 strip ahead as a row, the rows whose strips cover it as a column), so no
-column reactions are gathered.  On a CPU tensor each runs its plain version
-(``strip_baoab_plain``, ``strip_force_plain``).
+column reactions are gathered; ``strip_wrap`` the wrap of the live x with
+the halo refresh, once a segment.  On a CPU tensor each runs its plain
+version (``strip_baoab_plain``, ``strip_force_plain``,
+``strip_wrap_plain``).
 """
 
 from __future__ import annotations
@@ -61,7 +71,8 @@ def strip_baoab_plain(xe, w, F, minv, sigv, box_diag, seed: int, step: int,
                       n: int, H: int, dt: float, a: float, b: float):
     """Plain version of one step's BAOAB phase (``lj_strip.py:209-265``):
     merged kick, drift, O step with the strip noise, drift, the wrap of the
-    live lanes only, then the halo refresh.  Returns the new (xe, w)."""
+    live lanes' y and z (x stays continuous until the segment's end), then
+    the halo refresh.  Returns the new (xe, w)."""
     n_pad = w.shape[1]
     box = box_diag.reshape(3, 1)
     v = w + dt * F * minv
@@ -70,7 +81,8 @@ def strip_baoab_plain(xe, w, F, minv, sigv, box_diag, seed: int, step: int,
     v = a * v + b * sigv * noise
     x = x + (dt * 0.5) * v
     live = torch.arange(n_pad, device=xe.device) < n
-    x = torch.where(live, x - torch.floor(x / box) * box, x)
+    yz = torch.arange(3, device=xe.device)[:, None] > 0
+    x = torch.where(live & yz, x - torch.floor(x / box) * box, x)
     halo = x[:, :H].clone()
     halo[0] = halo[0] + box[0, 0]
     return torch.cat([x, halo], dim=1), v
@@ -104,6 +116,59 @@ def strip_baoab_(xe, w, F, minv, sigv, box_diag, seed: int, step_offset,
         sigv.data_ptr(), box_diag.data_ptr(), step_offset.data_ptr(), s,
         seed & _MASK32, n, n_pad, H, dt, dt * 0.5, a, b, _build.stream_of(xe),
     )
+
+
+def strip_wrap_plain(xe, box_diag, n: int, n_pad: int, H: int,
+                     sentinel: bool = False):
+    """Plain version of ``strip_wrap``: the (3, n_pad + H) array of the
+    center of ``xe`` with the live lanes' x wrapped into [0, L) (y and z
+    copied), the padding copied or, with ``sentinel``, set to ``_PAD_X``,
+    and the halo the shifted center."""
+    x = xe[:, :n_pad].clone()
+    Lx = box_diag.reshape(3)[0]
+    live = torch.arange(n_pad, device=xe.device) < n
+    x[0] = torch.where(live, x[0] - torch.floor(x[0] / Lx) * Lx, x[0])
+    if sentinel:
+        x = torch.where(live, x, _PAD_X)
+    halo = x[:, :H].clone()
+    halo[0] = halo[0] + Lx
+    return torch.cat([x, halo], dim=1)
+
+
+def strip_wrap(xe, box_diag, n: int, n_pad: int, H: int,
+               sentinel: bool = False, out=None):
+    """Wrap the live lanes' x of ``xe``'s center into [0, L) and refresh a
+    halo of H: returns ``out`` ((3, n_pad + H); ``xe`` itself to wrap in
+    place, else a new array), the padding copied or, with ``sentinel``, set
+    to ``_PAD_X``.  In place without ``sentinel`` only the live x lanes and
+    their halo copies are written: y, z, their halo and the padding must
+    already be as the plain version leaves them, as the steps keep them.
+    On a CUDA tensor one launch, counted as ``strip_wrap``."""
+    if xe.device.type == "cpu":
+        new = strip_wrap_plain(xe, box_diag, n, n_pad, H, sentinel)
+        if out is None:
+            return new
+        out.copy_(new)
+        return out
+    _build.check_cuda(xe, "xe")
+    dev = xe.device
+    _build.require(xe, "xe", None, torch.float32, dev)
+    _build.require(box_diag, "box_diag", None, torch.float32, dev)
+    if (xe.dim() != 2 or xe.shape[0] != 3 or xe.shape[1] < n_pad
+            or box_diag.numel() != 3 or H < 0 or not 0 < n <= n_pad):
+        raise ValueError("strip wrap: xe (3, >= n_pad), 3 box lengths, "
+                         "H >= 0, 0 < n <= n_pad")
+    if out is None:
+        out = torch.empty((3, n_pad + H), dtype=torch.float32, device=dev)
+    _build.require(out, "out", (3, n_pad + H), torch.float32, dev)
+    if out.data_ptr() == xe.data_ptr() and xe.shape[1] != n_pad + H:
+        raise ValueError("strip wrap: in place needs xe of (3, n_pad + H)")
+    _build.launch(
+        "strip_wrap", "chiron_strip_wrap", xe.data_ptr(), xe.shape[1],
+        out.data_ptr(), box_diag.data_ptr(), n, n_pad, H, int(sentinel),
+        _build.stream_of(xe),
+    )
+    return out
 
 
 def strip_slots(n_pad: int, tm: int, H: int, device="cpu"):
@@ -308,7 +373,9 @@ class StripLJMD:
                     n_steps: int, approx_recip: bool = True):
         """Advance ``n_steps`` from (xe, v3, f3) (K7's ``strip_md_raw``);
         ``step_offset`` is the (1, 1) int32 step counter of the noise
-        stream.  Returns new (xe, v, F) tensors."""
+        stream.  x stays continuous over the steps and is wrapped into
+        [0, L) after the last force, with the halo refreshed (one
+        ``strip_wrap``, in place).  Returns new (xe, v, F) tensors."""
         if not torch.is_tensor(step_offset):
             step_offset = torch.tensor([[step_offset]], dtype=torch.int32,
                                        device=xe.device)
@@ -322,5 +389,6 @@ class StripLJMD:
                          step_offset, s, self.n, self.H, self.dt, self.a,
                          self.b)
             F = self.force(xe, box, approx_recip)
+        strip_wrap(xe, box, self.n, self.n_pad, self.H, out=xe)
         return xe, w + half_dt * F * self.minv, F
 

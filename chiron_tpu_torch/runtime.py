@@ -60,7 +60,7 @@ from .ops.lj_cull import (
 from .ops.lj_band import LJBand, band_width_needed, sort_by_x
 from .ops.lj_dense import LJDense, box_diagonal
 from .ops.lj_mega import MegaWorkspace, check_mega_tiles, mega_segment
-from .ops.lj_strip import _PAD_X, StripLJMD, sort_by_key_strip
+from .ops.lj_strip import _PAD_X, StripLJMD, sort_by_key_strip, strip_wrap
 from .ops.sortbuild import MAX_N_PAD, sort_build
 
 
@@ -574,8 +574,8 @@ def make_culled_lj_runner(
     ``fused_rebuild`` sorts and builds in one launch (K10) where n_pad is a
     power of two and both tiles are multiples of 128, as in the reference;
     elsewhere the default path runs.  ``megakernel`` (pure-x key only, tm
-    128) builds the list from the current order, runs the steps and the
-    latch, and repairs the order with ``repair_passes`` odd-even passes
+    128 or 256) builds the list from the current order, runs the steps and
+    the latch, and repairs the order with ``repair_passes`` odd-even passes
     instead of re-sorting (K11); it carries the list and anchor of ``init``
     through unchanged.  Both refuse a cadence above 1, as in the reference.
     ``runner.path`` names the path taken.
@@ -1264,16 +1264,18 @@ class StripRunner:
 
     def segment(self, state: StripCarry, n_steps: int) -> StripCarry:
         """One segment: the sort, the band check, ``n_steps`` steps on K7
-        and the drift latch (the scan body of ``runtime.py:1412-1459``)."""
+        and the drift latch (the scan body of ``runtime.py:1412-1459``).
+        The live x is wrapped into [0, L) before the sort (a carry from
+        elsewhere may hold it unwrapped) and, by ``run_segment``, after the
+        last force; x stays continuous between."""
         if self.seed is None:
             raise RuntimeError("call init() before running a segment")
         md = self.md
         n, n_pad = md.n, md.n_pad
         box = state.box_diag
-        center = state.x[:, :n_pad]
         # before the sort, which may move a NaN key out of the live lanes
-        nonfinite = live_nonfinite(center, n)
-        center = torch.where(self.valid, center, _PAD_X)
+        nonfinite = live_nonfinite(state.x[:, :n_pad], n)
+        center = strip_wrap(state.x, box, n, n_pad, 0, sentinel=True)
         x3s, (v3, F3) = sort_by_key_strip(center, (state.v, state.F))
         # pad slots sit between rank n-1 and the halo, so a wrap-crossing
         # row needs an array window of W + (n_pad - n)

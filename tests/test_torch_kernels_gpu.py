@@ -479,9 +479,74 @@ def test_strip_segment_is_bitwise_repeatable_and_counted(strip_state):
     a, b = runner.segment(st, 8), runner.segment(st, 8)
     for name in ("x", "v", "F", "step", "overflowed"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+    # a wrap before the sort and one after the segment's last force
     assert dict(_build.launches) == {"strip_baoab": 16, "strip_force": 16,
-                                     "tile_skin_drift": 2}
+                                     "strip_wrap": 4, "tile_skin_drift": 2}
     runner.check(a)
+
+
+def test_strip_wrap_and_a_crossing_lane_match_plain(strip_state):
+    """A live lane that crosses x = L in a BAOAB phase stays unwrapped in
+    the kernel as in its plain version; ``strip_wrap`` (into a new array,
+    in place on the x row, and with the sentinel and no halo as before a
+    sort) equals its plain version bit for bit."""
+    from chiron_tpu_torch.ops import lj_strip as ls
+
+    runner, st, _ = strip_state
+    md = runner.md
+    n, n_pad, H = md.n, md.n_pad, md.H
+    box = st.box_diag.reshape(-1)
+    Lx = float(box[0])
+    x = st.x.clone()
+    x[0, n - 1] = Lx - 1e-4  # the last rank, moving out of the box
+    w = st.v - (0.5 * md.dt) * st.F * md.minv
+    w[0, n - 1] = 2.0
+    step = torch.full((1, 1), 40, dtype=torch.int32, device=x.device)
+    xk, wk = x.clone(), w.clone()
+    ls.strip_baoab_(xk, wk, st.F, md.minv, md.sigv, box, 77, step, 3, n, H,
+                    md.dt, md.a, md.b)
+    xp, wp = ls.strip_baoab_plain(x, w, st.F, md.minv, md.sigv, box, 77, 43,
+                                  n, H, md.dt, md.a, md.b)
+    assert float(xk[0, n - 1]) > Lx and float(xp[0, n - 1]) > Lx
+    assert float((xk - xp)[:, :n].abs().max()) < 1e-5
+    assert float((wk - wp).abs().max()) < 1e-4
+    _build.reset_launch_counts()
+    got = ls.strip_wrap(xk, box, n, n_pad, H)
+    want = ls.strip_wrap_plain(xk.cpu(), box.cpu(), n, n_pad, H)
+    assert torch.equal(got.cpu(), want)
+    assert int((want[0, :n] != xk[0, :n].cpu()).sum()) >= 1
+    assert float(got[0, :n].max()) < Lx
+    inplace = xk.clone()
+    ls.strip_wrap(inplace, box, n, n_pad, H, out=inplace)
+    assert torch.equal(inplace, got)
+    centre = ls.strip_wrap(xk, box, n, n_pad, 0, sentinel=True)
+    assert torch.equal(centre.cpu(), ls.strip_wrap_plain(
+        xk.cpu(), box.cpu(), n, n_pad, 0, sentinel=True))
+    assert dict(_build.launches) == {"strip_wrap": 3}
+
+
+def test_strip_runner_never_waits_and_its_carry_force_is_k1s(strip_state):
+    """Three 50-step segments queue device work only; each carry's F is
+    K1's exact force on the carry's positions within 1e-3 of the largest
+    force on every live row, and the segments wrapped some live lanes."""
+    runner, st, pot = strip_state
+    md = runner.md
+    n, n_pad = md.n, md.n_pad
+    carries = [st]
+    with _NoSync():
+        for k in range(3):
+            st = runner.segment(st, 50)
+            carries.append(st)
+    runner.check(st)
+    for c in carries[1:]:
+        x = torch.where(runner.valid, c.x[:, :n_pad], 0.0)
+        F1, _ = lj_dense_force_energy(x, c.box_diag, n, pot.sigma,
+                                      pot.epsilon, pot.cutoff,
+                                      with_energy=False)
+        scale = float(F1[:, :n].abs().max())
+        assert float((c.F - F1)[:, :n].abs().max()) / scale < 1e-3
+    cs = _chip_smoke()
+    assert sum(cs._strip_wrapped_lanes(carries, n)) > 0
 
 
 @pytest.fixture(scope="module")
@@ -834,6 +899,37 @@ def test_mega_segment_p0_is_the_classic_path_and_repeats(carry):
         assert torch.equal(a[:, N:], b[:, N:])
         assert torch.equal(torch.sort(a[:, :N].flatten()).values,
                            torch.sort(b[:, :N].flatten()).values)
+
+
+def test_megakernel_at_tm256_matches_plain_and_never_waits(carry):
+    """K11 at tm = 256, as the reference takes it: 5 steps (exact
+    reciprocal, P = 0) within 1e-5 nm of its plain version, the flag equal;
+    the runner's megakernel path (P = 16) at tm = 256 queues device work
+    only."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    runner, c0, pot = carry
+    r = make_culled_lj_runner(
+        potential=pot, n_particles=N, temperature=120.0 * units.kelvin,
+        tm=256, slack=0.15, segment_steps=8, sort_mode="x", megakernel=True,
+        device=c0.x.device)
+    assert r.path == "megakernel" and r.md.tm == 256
+    st = r.init(runner.positions(c0), c0.box_diag, seed=4)
+    md = r.md
+    w = st.v - 0.5 * md.dt * st.F * md.minv
+    args = (md, st.x, w, st.F, st.box_diag, r.capacity, 4)
+    _build.reset_launch_counts()
+    k = lm.mega_segment(*args, st.step, 5, 0, approx_recip=False)
+    assert dict(_build.launches) == {
+        "mega_md": 1, "tile_build": 1, "baoab": 1, "culled_force": 5,
+        "tile_skin_drift": 1, "mega_repair": 1}
+    p = lm.mega_segment_plain(*args, 0, 5, 0)
+    assert float((k[0] - p[0]).abs().max()) < 1e-5
+    assert float((k[1] - p[1]).abs().max()) < 1e-4
+    assert bool(k[3]) == bool(p[3])
+    with _NoSync():
+        st = r.run(st, 24)
+    r.check(st)
 
 
 def _nearly_sorted(n, n_pad, device, seed=9):

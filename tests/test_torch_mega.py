@@ -84,6 +84,49 @@ def test_plain_mega_segment_matches_jax(system, passes):
     assert bool(flag) == bool(jflag[0, 0] > 0.5)
 
 
+@pytest.fixture(scope="module")
+def system256(system):
+    """The same sorted state at tm = 256, tn = 128 (n_pad 1024) in both
+    packages: the port's engine, JAX's list of that state and JAX's mega
+    segment at P = 16."""
+    tm = 256
+    kw = dict(MD_KW, tm=tm)
+    jmd = jlc.CulledLJMD(N, SIGMA, EPS, CUTOFF, **kw)
+    tmd = tlc.CulledLJMD(N, SIGMA, EPS, CUTOFF, **kw, device="cpu")
+    assert tmd.n_pad == jmd.n_pad == 1024 and tmd.tm == tm
+    _, state, box, _ = system
+    jpos, w0, F0 = (jnp.asarray(t.numpy()) for t in state)
+    jbox = jnp.asarray(box.numpy())
+    jpairs = jmd.build_pairs(jpos, jbox, capacity=CAP)
+    ref = tuple(_np(a) for a in mega_md_raw(
+        jpos, w0, F0, jbox, jnp.asarray(SEED, jnp.int32).reshape(1, 1),
+        jnp.zeros((1, 1), jnp.int32), jmd.minv, jmd.sigv, N, STEPS, tm, TN,
+        SIGMA, EPS, CUTOFF, jmd.dt, jmd.a, jmd.b, False, jmd.interpret,
+        unroll=jmd.unroll, slack=jmd.slack, capacity=CAP, repair_passes=16))
+    return tmd, state, box, jpairs, ref
+
+
+def test_plain_mega_segment_at_tm256_matches_jax(system256):
+    """K11 at tm = 256, as the reference takes it: the segment's list (the
+    build from the current order) equal to JAX's exactly, the segment's flag
+    equal, x within 1e-5 nm of JAX's ``mega_md_raw`` (interpret mode); and
+    the runner's factory takes the megakernel at tm = 256."""
+    tmd, (x, w, F), box, jpairs, (jx, jw, jF, jflag) = system256
+    pairs = tmg.tile_build(x, N, tmd.tm, tmd.tn, box, tmd.cutoff, tmd.slack,
+                           CAP)
+    for name in tlc.TilePairList._fields:
+        np.testing.assert_array_equal(getattr(pairs, name).numpy(),
+                                      _np(getattr(jpairs, name)), name)
+    assert int(pairs.count) > 0 and not bool(pairs.overflowed)
+    tx, tw, tF, flag = tmg.mega_segment(tmd, x, w, F, box, CAP, SEED, 0,
+                                        STEPS, repair_passes=16)
+    assert np.abs(tx.numpy() - jx).max() < 1e-5
+    assert np.abs(tw.numpy() - jw).max() < 1e-4
+    assert bool(flag) == bool(jflag[0, 0] > 0.5)
+    tr = _runner(trt, tts, tu, tm=256, device="cpu")[0]
+    assert tr.path == "megakernel" and tr.md.tm == 256
+
+
 def test_p0_segment_is_the_classic_segment_bitwise(system):
     """With the repair off, a segment equals the classic path's (the
     list of build_tile_pairs, run_segment with its drift latch) bit for
@@ -225,7 +268,7 @@ def test_megakernel_drift_latch_fires():
 
 def test_megakernel_refusals():
     """The pure-x key only (checked at the segment, once init has resolved
-    the key), not with fused_rebuild, and tm = 128 tiles."""
+    the key), not with fused_rebuild, and tm = 128 or 256 tiles."""
     tr, pos, box = _runner(trt, tts, tu, device="cpu")
     st = tr.init(pos, box, seed=5)
     tr.nslab = 4  # as a slab-key layout would resolve
@@ -233,5 +276,5 @@ def test_megakernel_refusals():
         tr.run(st, 10)
     with pytest.raises(ValueError, match="fused_rebuild"):
         _runner(trt, tts, tu, fused_rebuild=True, device="cpu")
-    with pytest.raises(ValueError, match="tm = 128"):
+    with pytest.raises(ValueError, match=r"tm in \(128, 256\)"):
         _runner(trt, tts, tu, tm=64, device="cpu")

@@ -120,6 +120,18 @@ rate), with an in-memory reporter: each seed's f_k error against the
 analytic values, the asymptotic d f_k of the last rung, the unsampled
 sigma's reweighted f, and whether the example's ``check`` holds.
 
+    python3 chip_profile.py --wide
+
+profiles the kernels at the reference's wider tiles (``wide``) beside their
+own tiles, on ``chip_smoke.py``'s states: the culled force pass (20 calls)
+and K3's segment (one call, S=40) at 128 x 256, 256 x 256, 512 x 512, 128 x
+1024 and 384 x 768, K11's segment (S=40, P=16) at 128 x 256 and 512 x 512,
+all from the 1000-step dense melt at N=4000; K7 (20 calls) at tm 128 with
+the strip runner's halo and at tm 256 and 512 with the covering halo
+rounded up to tm, on that state sorted; and K6 (5 calls) at tm 256 and 512
+on N=100,000 after 1000 band steps from the lattice: the device time a
+launch of each kernel (``chip_smoke.py`` holds each to its plain version).
+
 Without a CUDA device it exits nonzero before measuring anything.
 """
 
@@ -310,15 +322,20 @@ def segment_dump(common, box, pos0, out, ref=None):
     K4) and, on its list, 40-step segments in NVT (with the latch), with
     the exact reciprocal, and in NpT (anchor, budget 0.1, final energy),
     and a megakernel segment (pure x, P=16), then K10 (``sort_build``,
-    nslab 0) and K11's ``tile_build`` on that segment's output.  It makes
-    only calls that
-    older trees of the port have too, so that it runs in a parent tree;
-    with ``ref``, an npz of another tree, each array is compared bit for
-    bit."""
+    nslab 0) and K11's ``tile_build`` on that segment's output; and the
+    culled pass (K4, K5 and a 40-step segment), K6 and K7 at the tiles
+    every tree since PR 8 takes (culled 16 x 64, 64 x 192, 256 x 256; K6 at
+    tm 64, 128, 256, w 1100 and 1500; K7 at tm 16-128, halos of 1024 and
+    1152 rounded up to tm).  It makes only calls that older trees of the
+    port have too, so that it runs in a parent tree; with ``ref``, an npz
+    of another tree, each array is compared bit for bit."""
     import numpy as np
     import torch
 
+    from chiron_tpu_torch.ops import lj_band as lb
+    from chiron_tpu_torch.ops import lj_cull as lc
     from chiron_tpu_torch.ops import lj_mega, sortbuild
+    from chiron_tpu_torch.ops import lj_strip as ls
     from chiron_tpu_torch.runtime import (
         make_culled_lj_runner,
         make_fast_lj_runner,
@@ -362,6 +379,46 @@ def segment_dump(common, box, pos0, out, ref=None):
                                  c.step + 7, 40, **kw)
             names = ("x", "v", "F", "flag", "energy")[:len(got)]
             arrays.update({f"{mode}_{k}": t for k, t in zip(names, got)})
+    melt = fast.positions(dense)
+    pot = common["potential"]
+    lj = (pot.sigma, pot.epsilon, pot.cutoff)
+    for tm, tn in ((16, 64), (64, 192), (256, 256)):
+        r = make_culled_lj_runner(slack=0.15, segment_steps=40, tm=tm,
+                                  tn=tn, **common)
+        c = r.init(melt, box, seed=SEED)
+        a = (c.x, c.box_diag, c.pairs, N, tm, tn, *lj)
+        arrays[f"cull{tm}x{tn}_F"] = lc.culled_force_pass(*a)[0]
+        F5, E5 = lc.culled_force_energy(*a)
+        arrays[f"cull{tm}x{tn}_F5"], arrays[f"cull{tm}x{tn}_E5"] = F5, E5
+        got = r.md.run_segment(c.x, c.v, c.F, c.box_diag, c.pairs, SEED,
+                               c.step + 7, 40, drift_anchor=c.x,
+                               drift_budget=r.md.slack_t)
+        arrays.update({f"cull{tm}x{tn}_seg_{k}": t
+                       for k, t in zip(("x", "v", "F", "flag"), got)})
+    n_pad = -(-N // 256) * 256
+    dev = melt.device
+    x3 = torch.zeros((3, n_pad), device=dev)
+    x3[:, :N] = melt.T
+    bd = c.box_diag
+    xs = lb.sort_by_x(x3, (), N)[0].contiguous()
+    for tm in (64, 128, 256):
+        for w in (1100, 1500):
+            a = (xs, bd.reshape(3), N, w, *lj, tm)
+            arrays[f"band{tm}_{w}_F"] = lb.band_force(*a)
+            F6, E6 = lb.band_force_energy(*a)
+            arrays[f"band{tm}_{w}_F6"], arrays[f"band{tm}_{w}_E6"] = F6, E6
+    x3 = torch.full((3, n_pad), ls._PAD_X, device=dev)
+    x3[:, :N] = melt.T
+    x3 = ls.sort_by_key_strip(x3, ())[0]
+    for tm in (16, 32, 64, 128):
+        for H in (1024, 1152):
+            H = -(-H // tm) * tm
+            halo = x3[:, :H].clone()
+            halo[0] = halo[0] + bd[0, 0]
+            a = (torch.cat([x3, halo], dim=1), bd, N, tm, H, *lj)
+            arrays[f"strip{tm}_{H}_F"] = ls.strip_force(*a)
+            F7, E7 = ls.strip_force_energy(*a)
+            arrays[f"strip{tm}_{H}_F7"], arrays[f"strip{tm}_{H}_E7"] = F7, E7
     arrays = {k: t.cpu().numpy() for k, t in arrays.items()}
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez(out, **arrays)
@@ -765,6 +822,100 @@ def ho_seeds(seeds):
     return 1 if failed else 0
 
 
+WIDE_CULL = ((128, 256), (256, 256), (512, 512), (128, 1024), (384, 768))
+WIDE_MEGA = ((128, 256), (512, 512))
+WIDE_CALLS = 20
+WIDE_BAND_CALLS = 5
+WIDE_BAND_MELT = 1000
+
+
+def wide(common, box, pos0):
+    """``--wide``: device time a launch of the culled pass, K3's and K11's
+    segments, K7 and K6 at the reference's wider tiles beside their own."""
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.ops import lj_band as lb
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.ops import lj_mega as lm
+    from chiron_tpu_torch.ops import lj_strip as ls
+    from chiron_tpu_torch.runtime import (
+        make_band_lj_runner,
+        make_culled_lj_runner,
+        make_fast_lj_runner,
+        make_strip_lj_runner,
+    )
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+
+    fast = make_fast_lj_runner(**common)
+    melt = fast.positions(fast.run(fast.init(pos0, box, seed=SEED),
+                                   MELT_STEPS))
+    pot = common["potential"]
+    lj = (pot.sigma, pot.epsilon, pot.cutoff)
+
+    def times(fn, k):
+        return lambda: [fn() for _ in range(k)]
+
+    for tm, tn in WIDE_CULL:
+        r = make_culled_lj_runner(slack=0.15, segment_steps=SEGMENT_STEPS,
+                                  tm=tm, tn=tn, **common)
+        c = r.init(melt, box, seed=SEED)
+        md = r.md
+        a = (c.x, c.box_diag, c.pairs, N, tm, tn, *lj)
+        _profile(f"culled force pass at {tm} x {tn} (count "
+                 f"{int(c.pairs.count)}, n_pad {md.n_pad}; a step is a call)",
+                 times(lambda: lc.culled_force_pass(*a), WIDE_CALLS),
+                 WIDE_CALLS)
+        ws = lc.SegmentWorkspace(md, r.capacity)
+        _profile(f"K3's segment at {tm} x {tn} (S={SEGMENT_STEPS})",
+                 lambda: md.run_segment(
+                     c.x, c.v, c.F, c.box_diag, c.pairs, SEED, c.step,
+                     SEGMENT_STEPS, drift_anchor=c.x,
+                     drift_budget=md.slack_t, workspace=ws), SEGMENT_STEPS)
+    for tm, tn in WIDE_MEGA:
+        r = make_culled_lj_runner(slack=0.15, segment_steps=SEGMENT_STEPS,
+                                  tm=tm, tn=tn, sort_mode="x",
+                                  megakernel=True, **common)
+        c = r.init(melt, box, seed=SEED)
+        md = r.md
+        w = c.v - 0.5 * md.dt * c.F * md.minv
+        ws = lm.MegaWorkspace(md, r.capacity)
+        _profile(f"K11's segment at {tm} x {tn} (S={SEGMENT_STEPS}, P=16)",
+                 lambda: lm.mega_segment(md, c.x, w, c.F, c.box_diag,
+                                         r.capacity, SEED, c.step,
+                                         SEGMENT_STEPS, 16, workspace=ws),
+                 SEGMENT_STEPS)
+    strip = make_strip_lj_runner(tm=128, **common)
+    s0 = strip.init(melt, box, seed=SEED)
+    xs = s0.x[:, :strip.md.n_pad]
+    need = int(lb.band_width_needed(torch.where(strip.valid, xs[0], 3.0e38),
+                                    N, pot.cutoff, s0.box_diag[0, 0]))
+    need += strip.md.n_pad - N
+    for tm in (128, 256, 512):
+        H = strip.md.H if tm == 128 else -(-need // tm) * tm
+        halo = xs[:, :H].clone()
+        halo[0] = halo[0] + s0.box_diag[0, 0]
+        xe = torch.cat([xs, halo], dim=1)
+        _profile(f"K7 at tm {tm}, H {H} (a step is a call)",
+                 times(lambda: ls.strip_force(xe, s0.box_diag, N, tm, H, *lj),
+                       WIDE_CALLS), WIDE_CALLS)
+    big = LennardJonesFluid(nparticles=N_BAND, reduced_density=0.8)
+    md_units = units.md_unit_system
+    bcommon = dict(common, potential=big.potential, n_particles=N_BAND,
+                   topology=big.topology)
+    bbox = big.box_vectors.value_in_unit_system(md_units)
+    br = make_band_lj_runner(**bcommon)
+    bs = br.run(br.init(big.positions.value_in_unit_system(md_units), bbox,
+                        seed=SEED), WIDE_BAND_MELT)
+    for tm in (256, 512):
+        rb = br if tm == br.band.tm else make_band_lj_runner(tm=tm, **bcommon)
+        st = rb.init(br.positions(bs), bbox, seed=SEED)
+        band = rb.band
+        _profile(f"K6 at tm {tm} (n_pad {rb.n_pad}, w {band.w}; a step is a "
+                 f"call)", times(lambda: band.force(st.x, st.box_diag),
+                                 WIDE_BAND_CALLS), WIDE_BAND_CALLS)
+
+
 def main():
     import torch
 
@@ -823,6 +974,10 @@ def main():
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--pt":
         pt(dev)
+        print(f"card after: {_card()}")
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--wide":
+        wide(common, box, pos0)
         print(f"card after: {_card()}")
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--cadence":

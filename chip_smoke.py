@@ -691,17 +691,19 @@ def _row_band_votes(x3, box_diag, n, cutoff, w, tm):
 def _strip_candidates(n_pad, tm, H, device="cpu"):
     """A torch replica of K7's index math (``csrc/lj_strip.cu``,
     ``strip_pairs``): block b holds the particles q = 32 b + lane, and its
-    warps walk chunks of 32 ranks from lane 0's first rank ts - H (ts = q -
-    q mod tm), rounded down to a multiple of 32, to lane 31's end ts + tm +
-    H; a chunk inside every lane's range [ts - H, ts + tm + H) and holding
-    no lane's own rank is taken whole, another rank by rank.  Returns (q, j,
-    take), each (blocks, chunks, 32 lanes, 32 ranks): lane q, rank j, and
-    whether the kernel takes that slot."""
+    warps walk chunks of 32 ranks from lane 0's first rank lo = tm floor((q
+    - H) / tm) (ts - H where tm divides H; ts = q - q mod tm), rounded down
+    to a multiple of 32, to lane 31's end ts + tm + H; a chunk inside every
+    lane's range [lo, ts + tm + H) and holding no lane's own rank is taken
+    whole, another rank by rank.  Returns (q, j, take), each (blocks,
+    chunks, 32 lanes, 32 ranks): lane q, rank j, and whether the kernel
+    takes that slot."""
     import torch
 
     q = torch.arange(n_pad, device=device).reshape(-1, 32)
     ts = q - q % tm
-    lo, hi = ts - H, ts + tm + H
+    lo = torch.div(q - H, tm, rounding_mode="floor") * tm
+    hi = ts + tm + H
     base = lo[:, :1] & ~31
     n_chunks = (hi[:, -1:] - base + 31) // 32
     k = torch.arange(int(n_chunks.max()), device=device)
@@ -927,6 +929,318 @@ def _culled_md_plain(md, x3, v3, f3, box_diag, pairs, seed, step, n_steps,
         return out
     return out + (lc.tile_skin_drift_bad_plain(x, x3, md.n, slack,
                                                box_diag),)
+
+
+# [3]'s wider tiles, as the reference takes them: (tm, tn) of the culled
+# pass at N; the row tiles above 256 run in chunks of 256 or 128 rows a
+# block, the column tiles above 512 in more slices
+WIDE_CULL = ((512, 512), (128, 1024), (384, 768))
+
+
+def _wide_entry(tm, tn, n_pad, err, ms, plain_ms, bound):
+    return dict(tm=tm, tn=tn, n_pad=n_pad, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+
+
+def _wide_culled(common, positions, box, box_diag, results):
+    """[3] at the reference's wider tiles (WIDE_CULL, N=4000: n_pad 4096,
+    and 4608 at 384 x 768): the culled force, K5 and K3's segment of each
+    against their plain versions and repeated bitwise, K3's segment bitwise
+    its step-by-step sequence in NVT and NpT; each timed with its bound,
+    into ``results``' rows as ``wide_tiles``."""
+    import torch
+
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.runtime import make_culled_lj_runner
+
+    for name in ("culled_force", "culled_force_energy", "culled_md"):
+        results[name]["wide_tiles"] = []
+    for tm, tn in WIDE_CULL:
+        t0 = time.perf_counter()
+        r = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT, tm=tm,
+                                  tn=tn, **common)
+        c = r.init(positions, box, seed=7)
+        md, pairs = r.md, c.pairs
+        n_pad = md.n_pad
+        a = (c.x, box_diag, pairs, N, tm, tn, md.sigma, md.epsilon,
+             md.cutoff)
+        Fp, Ep = lc.row_force_pass_plain(*a, with_energy=True)
+        Fk, Ek = lc.culled_force_energy(*a)
+        Fa, _ = lc.culled_force_pass(*a, approx_recip=True)
+        scale = float(Fp.abs().max())
+        diff = (Fk - Fp)[:, :N].abs()
+        err = float(diff.max())
+        p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+        e_rel = abs(float(Ek) - float(Ep)) / abs(float(Ep))
+        err_a = float((Fa - Fk).abs().max()) / scale
+        F_mix, E_mix = lc.culled_force_pass(*a, approx_recip=True,
+                                            with_energy=True)
+        again = lc.culled_force_energy(*a)
+        _require(err < 0.05 and p99 < 1e-5 and e_rel < 1e-5 and err_a < 1e-4
+                 and float(Fk[:, N:].abs().max()) == 0.0,
+                 f"{tm} x {tn}: culled force err {err}, p99 {p99}, energy "
+                 f"{e_rel}, approx {err_a}")
+        _require(torch.equal(again[0], Fk) and torch.equal(again[1], Ek)
+                 and torch.equal(lc.culled_force_pass(
+                     *a, approx_recip=True)[0], Fa)
+                 and torch.equal(F_mix, Fa) and torch.equal(E_mix, Ek),
+                 f"{tm} x {tn}: a repeated pass differs, or the exact-energy "
+                 f"step is not K5's")
+        ws = lc.SegmentWorkspace(md, r.capacity)
+        budget = torch.tensor(0.5 * SLACK, device=c.x.device)
+        for kw in (dict(drift_budget=md.slack_t),
+                   dict(final_energy=True, drift_budget=budget)):
+            seg = (c.x, c.v, c.F, box_diag, pairs, SEED, c.step, SEGMENT)
+            one = md.run_segment(*seg, workspace=ws, drift_anchor=c.x, **kw)
+            two = md.run_segment(*seg, workspace=ws, drift_anchor=c.x, **kw)
+            seq = md.run_segment_stepwise(*seg, drift_anchor=c.x, **kw)
+            _require(all(torch.equal(p, q) and torch.equal(p, s)
+                         for p, q, s in zip(one, two, seq)),
+                     f"{tm} x {tn}: K3's segment differs from a repeat or "
+                     f"from the step-by-step sequence ({sorted(kw)})")
+        ke = md.run_segment(c.x, c.v, c.F, box_diag, pairs, SEED, c.step, 5,
+                            approx_recip=False, workspace=ws)
+        pe = _culled_md_plain(md, c.x, c.v, c.F, box_diag, pairs, SEED, 0, 5)
+        err_x = float((ke[0] - pe[0]).abs().max())
+        err_v = float((ke[1] - pe[1]).abs().max())
+        _require(err_x < 1e-5 and err_v < 1e-4,
+                 f"{tm} x {tn}: K3 vs plain over 5 steps: x {err_x}, v "
+                 f"{err_v}")
+        count = int(pairs.count)
+        listed = count * tm * tn
+        in_cut = _pairs_in_cutoff(c.x, box_diag, N, md.cutoff)
+        lane_bytes = 3 * n_pad * 4
+        list_bytes = 4 * (2 * count + 2 * (n_pad // tm) + 2) + 12
+        ms = _cuda_ms(lambda: lc.culled_force_pass(*a, approx_recip=True))
+        plain_ms = _cuda_ms(lambda: lc.row_force_pass_plain(*a), reps=2)
+        bound = _bound(listed * TEST_FLOPS["culled"] + in_cut * LJ_FLOPS,
+                       2 * lane_bytes + list_bytes)
+        results["culled_force"]["wide_tiles"].append(
+            _wide_entry(tm, tn, n_pad, err, ms, plain_ms, bound))
+        ms5 = _cuda_ms(lambda: lc.culled_force_energy(*a))
+        plain5 = _cuda_ms(lambda: lc.row_force_pass_plain(
+            *a, with_energy=True), reps=2)
+        bound5 = _bound(
+            listed * TEST_FLOPS["culled"]
+            + in_cut * (LJ_FLOPS + ENERGY_FLOPS),
+            2 * lane_bytes + list_bytes + 4)
+        results["culled_force_energy"]["wide_tiles"].append(
+            _wide_entry(tm, tn, n_pad, err, ms5, plain5, bound5))
+        seg_ms = _cuda_ms(lambda: md.run_segment(
+            c.x, c.v, c.F, box_diag, pairs, SEED, c.step, SEGMENT,
+            workspace=ws, drift_anchor=c.x, drift_budget=md.slack_t),
+            reps=10)
+        seg_plain = _cuda_ms(lambda: _culled_md_plain(
+            md, c.x, c.v, c.F, box_diag, pairs, SEED, 0, SEGMENT,
+            md.slack_t), reps=1)
+        seg_bound = _bound(_segment_flops(listed, in_cut, n_pad),
+                           6 * lane_bytes + 2 * n_pad * 4 + list_bytes + 9)
+        results["culled_md"]["wide_tiles"].append(_wide_entry(
+            tm, tn, n_pad, max(err_x, err_v), seg_ms, seg_plain, seg_bound))
+        print(f"  culled pass at {tm} x {tn} (n_pad {n_pad}, count {count}, "
+              f"{listed} listed pairs, {in_cut} within the cutoff): K5 vs "
+              f"plain max abs {err:.3e} (0.05), p99 rel {p99:.3e} (1e-5), "
+              f"energy rel {e_rel:.3e} (1e-5), approx {err_a:.3e} (1e-4); "
+              f"a repeat, the exact-energy step and K3's segment (S="
+              f"{SEGMENT}, NVT and NpT, against its step-by-step sequence) "
+              f"bitwise; 5 steps x {err_x:.3e} (1e-5), v {err_v:.3e} (1e-4)")
+        print(f"    culled_force {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+              f"{bound[0] * 1e3:.3f} us, {bound[1]}); culled_force_energy "
+              f"{ms5:.4f} ms (plain {plain5:.4f}, bound "
+              f"{bound5[0] * 1e3:.3f} us); culled_md {seg_ms:.4f} ms a "
+              f"segment (plain {seg_plain:.4f}, bound "
+              f"{seg_bound[0] * 1e3:.3f} us) ({time.perf_counter() - t0:.1f} "
+              f"s)")
+        del r, c, pairs, Fp, Fk, Fa, diff, ws
+
+
+# [7] at the band's widest tile here (the reference's band takes any tm):
+# its own runner from [7]'s melted state, n_pad 100,352
+BAND_WIDE_TM = 512
+WIDE_BAND_STEPS = 200
+
+
+def _wide_band(bcommon, positions, bbox, results):
+    """[7] at tm BAND_WIDE_TM: ``make_band_lj_runner(tm=512)`` from the
+    melted state, WIDE_BAND_STEPS steps with check() clean, then K6 on its
+    layout against its plain version (and the energy against K1's), bitwise
+    equal to K6 taking every slot and to a repeat; timed with its bound
+    into ``results``' rows as ``wide_tiles``."""
+    import torch
+
+    from chiron_tpu_torch.ops import lj_band as lb
+    from chiron_tpu_torch.ops import lj_cull as lc
+    from chiron_tpu_torch.runtime import make_band_lj_runner
+
+    t0 = time.perf_counter()
+    br = make_band_lj_runner(tm=BAND_WIDE_TM, **bcommon)
+    bs = br.run(br.init(positions, bbox, seed=SEED), WIDE_BAND_STEPS)
+    br.check(bs)
+    e_k1 = float(br.energy(bs))
+    pot = bcommon["potential"]
+    band, n_pad = br.band, br.n_pad
+    w, tm = band.w, band.tm
+    _require(tm == BAND_WIDE_TM and n_pad % tm == 0
+             and br.dense.n_pad == n_pad,
+             f"band runner at tm {tm}, n_pad {n_pad} (dense "
+             f"{br.dense.n_pad})")
+    bargs = (bs.x, bs.box_diag, N_BAND, w, pot.sigma, pot.epsilon,
+             pot.cutoff, tm)
+    Fp, Ep = lb.band_force_plain(*bargs, with_energy=True)
+    Fk, Ek = lb.band_force_energy(*bargs)
+    Fa = lb.band_force(*bargs)
+    scale = float(Fp.abs().max())
+    diff = (Fk - Fp)[:, :N_BAND].abs()
+    err = float(diff.max())
+    p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+    err_a = float((Fa - Fk).abs().max()) / scale
+    e_rel = abs(float(Ek) - float(Ep)) / abs(float(Ep))
+    e_rel_k1 = abs(float(Ek) - e_k1) / abs(e_k1)
+    _require(err < 0.05 and p99 < 1e-5 and err_a < 1e-4
+             and float(Fk[:, N_BAND:].abs().max()) == 0.0,
+             f"K6 at tm {tm}: err {err}, p99 {p99}, approx {err_a}")
+    _require(e_rel < 1e-5 and e_rel_k1 < 1e-5,
+             f"K6 at tm {tm}: energy rel {e_rel} (plain), {e_rel_k1} (K1)")
+    again = lb.band_force_energy(*bargs)
+    _require(torch.equal(lb.band_force(*bargs, skip=False), Fa)
+             and all(torch.equal(a, b) for a, b in zip(
+                 lb.band_force_energy(*bargs, skip=False), (Fk, Ek)))
+             and torch.equal(again[0], Fk) and torch.equal(again[1], Ek),
+             f"K6 at tm {tm} differs from K6 taking every slot or from a "
+             f"repeat")
+    in_cut, in_x = _pairs_in_band(bs.x, bs.box_diag, N_BAND, pot.cutoff, w)
+    lane_bytes = 3 * n_pad * 4
+    for name, energy in (("band_force", False), ("band_force_energy", True)):
+        def call(energy=energy):
+            if energy:
+                return lb.band_force_energy(*bargs)
+            return lb.band_force(*bargs)
+
+        ms = _cuda_ms(call)
+        plain_ms = _cuda_ms(lambda energy=energy: lb.band_force_plain(
+            *bargs, with_energy=energy), reps=2)
+        bound = _bound(
+            in_x * TEST_FLOPS["band"]
+            + in_cut * (LJ_FLOPS + (ENERGY_FLOPS if energy else 0)),
+            2 * lane_bytes + 12 + (4 if energy else 0))
+        results[name]["wide_tiles"] = [
+            _wide_entry(tm, tm, n_pad, err, ms, plain_ms, bound)]
+        print(f"    {name} at tm {tm}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"bound {bound[0] * 1e3:.3f} us, {bound[1]})")
+    print(f"  band runner at tm {tm} (n_pad {n_pad}, w {w}, n_band "
+          f"{lb.n_band_tiles(w, tm, n_pad // tm)} tiles of {tm}, sub-tiles "
+          f"of {lc.row_chunk(tm)}): {WIDE_BAND_STEPS} steps check() "
+          f"passed; K6 vs plain max abs {err:.3e} (0.05), p99 rel "
+          f"{p99:.3e} (1e-5), approx {err_a:.3e} (1e-4), energy rel "
+          f"{e_rel:.3e} to plain and {e_rel_k1:.3e} to K1 (1e-5); bitwise "
+          f"equal to skip=False and to a repeat; {in_x} pairs within the "
+          f"cutoff in x, {in_cut} within it "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+# [8] at the reference's wider row tiles: the strip runner at tm 256 at N
+# (its halo, the band with headroom and a tile rounded to a 2048-wide strip,
+# 1792), and at tm 512 at N=8000, where that halo first fits twice in n_pad
+# at the bench density (at N it would be 3584 of n_pad 4096, refused by both
+# packages); K7 at tm 256 and 512 at N
+STRIP_WIDE_TMS = (256, 512)
+STRIP_WIDE_RUNNERS = ((256, N), (512, 8000))
+WIDE_STRIP_STEPS = 400
+
+
+def _wide_strip(common, fluid, melt, box, results):
+    """[8] at STRIP_WIDE_TMS: each runner of STRIP_WIDE_RUNNERS (tm, N; the
+    first from the melted state, the others from the lattice)
+    WIDE_STRIP_STEPS steps with every segment's carry F within 1e-3 of K1's
+    largest force and check() clean;
+    K7 at each tm on the melted state at N (the covering halo rounded up to
+    tm) against its plain version and repeated bitwise; timed with its
+    bound into ``results``' rows as ``wide_tiles``."""
+    import torch
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.ops import lj_band as lb
+    from chiron_tpu_torch.ops import lj_strip as ls
+    from chiron_tpu_torch.runtime import make_strip_lj_runner
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+
+    pot = fluid.potential
+    sig, eps, cut = pot.sigma, pot.epsilon, pot.cutoff
+    md_units = units.md_unit_system
+    for tm, n in STRIP_WIDE_RUNNERS:
+        t0 = time.perf_counter()
+        fl, start, bx = fluid, melt, box
+        if n != N:
+            fl = LennardJonesFluid(nparticles=n, reduced_density=DENSITY)
+            start = fl.positions.value_in_unit_system(md_units)
+            bx = fl.box_vectors.value_in_unit_system(md_units)
+        sr = make_strip_lj_runner(**dict(
+            common, potential=fl.potential, n_particles=n,
+            topology=fl.topology), tm=tm)
+        st = sr.init(start, bx, seed=SEED)
+        carries = [st]
+        for _ in range(WIDE_STRIP_STEPS // sr.segment_steps):
+            carries.append(sr.segment(carries[-1], sr.segment_steps))
+        sr.check(carries[-1])
+        seg_err = _strip_carry_errors(sr, carries[1:], sig, eps, cut)
+        _require(max(seg_err) < 1e-3,
+                 f"strip runner at tm {tm}: carry F off K1's by "
+                 f"{max(seg_err)} of max |F| (limit 1e-3)")
+        print(f"  strip runner at tm {tm} (N={n}, n_pad {sr.md.n_pad}, H "
+              f"{sr.md.H}): {WIDE_STRIP_STEPS} steps check() passed; each "
+              f"segment's carry F against K1's, max over live rows / max "
+              f"|F|: {max(seg_err):.2e} (1e-3) "
+              f"({time.perf_counter() - t0:.2f} s)")
+        del sr, st, carries
+    # K7 at each tm on the melted state at N, sorted, with the halo that
+    # covers the band the cutoff needs, rounded up to tm
+    n_pad = -(-N // 128) * 128
+    dev = torch.device(common["device"])
+    x3 = torch.full((3, n_pad), ls._PAD_X, device=dev)
+    x3[:, :N] = torch.as_tensor(melt, dtype=torch.float32, device=dev).T
+    bd = torch.as_tensor(box, dtype=torch.float32,
+                         device=dev).diagonal().reshape(1, 3).contiguous()
+    xs = ls.sort_by_key_strip(x3, ())[0]
+    valid = torch.arange(n_pad, device=dev) < N
+    need = int(lb.band_width_needed(torch.where(valid, xs[0], 3.0e38), N, cut,
+                                    bd[0, 0])) + n_pad - N
+    in_cut = _pairs_in_cutoff(xs, bd, N, cut)
+    results["strip_force"]["wide_tiles"] = []
+    for tm in STRIP_WIDE_TMS:
+        H = -(-need // tm) * tm
+        halo = xs[:, :H].clone()
+        halo[0] = halo[0] + bd[0, 0]
+        sargs = (torch.cat([xs, halo], dim=1), bd, N, tm, H, sig, eps, cut)
+        Fp, Ep = ls.strip_force_plain(*sargs, with_energy=True)
+        Fk, Ek = ls.strip_force_energy(*sargs)
+        Fa = ls.strip_force(*sargs, approx_recip=True)
+        scale = float(Fp.abs().max())
+        diff = (Fk - Fp)[:, :N].abs()
+        err = float(diff.max())
+        p99 = float(torch.quantile(diff.flatten(), 0.99)) / scale
+        err_a = float((Fa - Fk).abs().max()) / scale
+        e_rel = abs(float(Ek) - float(Ep)) / abs(float(Ep))
+        again = ls.strip_force_energy(*sargs)
+        _require(err < 0.05 and p99 < 1e-5 and err_a < 1e-4 and e_rel < 1e-5
+                 and float(Fk[:, N:].abs().max()) == 0.0,
+                 f"K7 at tm {tm}, H {H}: err {err}, p99 {p99}, approx "
+                 f"{err_a}, energy {e_rel}")
+        _require(torch.equal(again[0], Fk) and torch.equal(again[1], Ek)
+                 and torch.equal(ls.strip_force(*sargs, approx_recip=True),
+                                 Fa),
+                 f"K7 at tm {tm}: a repeated call differs")
+        ms = _cuda_ms(lambda: ls.strip_force(*sargs, approx_recip=True))
+        plain_ms = _cuda_ms(lambda: ls.strip_force_plain(*sargs), reps=2)
+        slots = n_pad * (tm + H) - (n_pad // tm) * tm * (tm + 1) // 2
+        bound = _bound(slots * TEST_FLOPS["strip"] + in_cut * LJ_FLOPS,
+                       3 * (n_pad + H) * 4 + 12 + 3 * n_pad * 4)
+        results["strip_force"]["wide_tiles"].append(
+            dict(_wide_entry(tm, tm, n_pad, err, ms, plain_ms, bound), H=H))
+        print(f"  K7 at tm {tm}, H {H} (N={N}): max abs {err:.3e} (0.05), "
+              f"p99 rel {p99:.3e} (1e-5), approx {err_a:.3e} (1e-4), energy "
+              f"rel {e_rel:.3e} (1e-5), a repeat bitwise; {ms:.4f} ms "
+              f"(plain {plain_ms:.4f}, bound {bound[0] * 1e3:.3f} us, "
+              f"{bound[1]}; {slots} slots)")
 
 
 def _canon(x, v, F, n):
@@ -1514,37 +1828,73 @@ def _phase10(dev, common, fluid, st, runner, results, smi, t_kin):
         max_abs_err=max(err_x, err_w), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by)
 
-    # K11 at tm = 256, as the reference takes it (its tiles are multiples of
-    # 128 rows; K3's row tile goes up to 256): 5 steps against its plain
-    # version, then the runner's megakernel path at that tile
-    t256 = time.perf_counter()
-    r256 = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
-                                 sort_mode="x", megakernel=True, tm=TM_WIDE,
-                                 **common)
-    s256 = r256.init(melt, box, seed=SEED)
-    md256 = r256.md
-    w256 = s256.v - half * s256.F * md256.minv
-    margs = (md256, s256.x, w256, s256.F, box_diag, r256.capacity, SEED)
-    k256 = lm.mega_segment(*margs, s256.step, 5, 0, approx_recip=False)
-    p256 = lm.mega_segment_plain(*margs, int(s256.step), 5, 0)
-    err_x = float((k256[0] - p256[0]).abs().max())
-    err_w = float((k256[1] - p256[1]).abs().max())
-    _require(err_x < 1e-5 and err_w < 1e-4 and bool(k256[3]) == bool(p256[3]),
-             f"mega_md at tm={TM_WIDE} vs plain over 5 steps: x err {err_x}, "
-             f"w err {err_w}")
-    s256 = r256.run(s256, WIDE_STEPS)
-    r256.check(s256)
-    e256 = float(r256.energy(s256))
-    e_rel = oracle_rel(e256, r256.positions(s256))
-    _require(math.isfinite(e256) and e_rel < 1e-5,
-             f"megakernel at tm={TM_WIDE}: energy {e256}, rel err {e_rel}")
-    print(f"    K11 at tm={TM_WIDE}, tn={md256.tn} (capacity "
-          f"{r256.capacity}): 5 steps (exact reciprocal, P=0) x err "
-          f"{err_x:.3e} (1e-5), w err {err_w:.3e} (1e-4); the runner "
-          f"{WIDE_STEPS} steps (P={r256.repair_passes}): check() passed, "
-          f"energy f64 oracle rel {e_rel:.2e} "
-          f"({time.perf_counter() - t256:.2f} s)")
-    del r256, s256, k256, p256
+    # K11 and the fused_rebuild runner at the wider tiles the reference
+    # takes (multiples of 128; K3's row tile of 512 in two chunks): K11's 5
+    # steps against its plain version, its segment repeated bitwise and timed
+    # with its bound, then both runners' paths WIDE_STEPS steps
+    results["mega_md"]["wide_tiles"] = []
+    for tm, tn in ((TM_WIDE, 256), (512, 512)):
+        t1 = time.perf_counter()
+        kw = dict(slack=SLACK, segment_steps=SEGMENT, tm=tm, tn=tn, **common)
+        rw = make_culled_lj_runner(sort_mode="x", megakernel=True, **kw)
+        sw = rw.init(melt, box, seed=SEED)
+        mdw, capw = rw.md, rw.capacity
+        ww = sw.v - half * sw.F * mdw.minv
+        margs = (mdw, sw.x, ww, sw.F, box_diag, capw, SEED)
+        kw5 = lm.mega_segment(*margs, sw.step, 5, 0, approx_recip=False)
+        pw5 = lm.mega_segment_plain(*margs, int(sw.step), 5, 0)
+        err_x = float((kw5[0] - pw5[0]).abs().max())
+        err_w = float((kw5[1] - pw5[1]).abs().max())
+        _require(err_x < 1e-5 and err_w < 1e-4
+                 and bool(kw5[3]) == bool(pw5[3]),
+                 f"mega_md at {tm} x {tn} vs plain over 5 steps: x err "
+                 f"{err_x}, w err {err_w}")
+        workw = lm.MegaWorkspace(mdw, capw)
+
+        def mega_w():
+            return lm.mega_segment(*margs, sw.step, SEGMENT, REPAIR_PASSES,
+                                   workspace=workw)
+
+        _require(all(torch.equal(p, q) for p, q in zip(mega_w(), mega_w())),
+                 f"a repeated K11 segment at {tm} x {tn} differs")
+        count = int(lc.build_tile_pairs(sw.x, N, tm, tn, box1, mdw.cutoff,
+                                        mdw.slack, capw).count)
+        in_cut = _pairs_in_cutoff(sw.x, box_diag, N, cut)
+        ms = _cuda_ms(mega_w, reps=10)
+        plain_ms = _cuda_ms(lambda: lm.mega_segment_plain(
+            *margs, int(sw.step), SEGMENT, REPAIR_PASSES), reps=1)
+        bound = _bound(
+            _segment_flops(count * tm * tn, in_cut, n_pad)
+            + REPAIR_PASSES * (N // 2) * REPAIR_FLOPS,
+            6 * lane_bytes + 2 * n_pad * 4 + 21)
+        results["mega_md"]["wide_tiles"].append(_wide_entry(
+            tm, tn, mdw.n_pad, max(err_x, err_w), ms, plain_ms, bound))
+        sw = rw.run(sw, WIDE_STEPS)
+        rw.check(sw)
+        e_mega = float(rw.energy(sw))
+        e_rel_mega = oracle_rel(e_mega, rw.positions(sw))
+        rb = make_culled_lj_runner(fused_rebuild=True, **kw)
+        _require(rb.path == "fused_rebuild",
+                 f"fused_rebuild at {tm} x {tn}: path {rb.path}")
+        sb_ = rb.run(rb.init(melt, box, seed=SEED), WIDE_STEPS)
+        rb.check(sb_)
+        e_fused = float(rb.energy(sb_))
+        e_rel_fused = oracle_rel(e_fused, rb.positions(sb_))
+        _require(math.isfinite(e_mega) and math.isfinite(e_fused)
+                 and e_rel_mega < 1e-5 and e_rel_fused < 1e-5,
+                 f"at {tm} x {tn}: megakernel energy {e_mega} (rel "
+                 f"{e_rel_mega}), fused_rebuild {e_fused} (rel "
+                 f"{e_rel_fused})")
+        print(f"    K11 at {tm} x {tn} (capacity {capw}, count {count}): 5 "
+              f"steps (exact reciprocal, P=0) x err {err_x:.3e} (1e-5), w "
+              f"err {err_w:.3e} (1e-4); a segment (S={SEGMENT}, "
+              f"P={REPAIR_PASSES}) repeated bitwise, {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, bound {bound[0] * 1e3:.3f} us, {bound[1]}); "
+              f"the megakernel and fused_rebuild runners {WIDE_STEPS} steps "
+              f"each: check() passed, energy f64 oracle rel "
+              f"{e_rel_mega:.2e} and {e_rel_fused:.2e} "
+              f"({time.perf_counter() - t1:.2f} s)")
+        del rw, sw, kw5, pw5, workw, rb, sb_
 
     def in_order(carry):
         d = carry.x[0, 1:N] - carry.x[0, :N - 1]
@@ -2943,7 +3293,7 @@ def main():
         replaces="chiron_tpu/ops/lj_cull.py:766", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
-    # the culled runner at its widest row tile
+    # the culled runner at the widest row tile one block takes whole
     r256 = make_culled_lj_runner(slack=SLACK, segment_steps=SEGMENT,
                                  tm=TM_WIDE, **common)
     c256 = r256.init(fast.positions(fs), box, seed=7)
@@ -3129,6 +3479,9 @@ def main():
         replaces="chiron_tpu/ops/lj_cull.py:984",
         max_abs_err=max(err_x, err_v), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by)
+
+    # the culled pass at the reference's wider tiles
+    _wide_culled(common, fast.positions(fs), box, box_diag, results)
 
     # K7: the halo-strip kernels on the strip layout of the melted state
     strip = make_lj_runner(engine="strip", box_vectors=box, **common)
@@ -3518,6 +3871,8 @@ def main():
     # phase 9 starts from this melted, band-sorted state
     big_melt, big_box, big_w, big_in_cut = br.positions(bs), bs.box_diag, w, in_cut
     del Fp, Fk, Fa, diff, bs, br
+    # K6 and the band runner at the reference's wider row tile
+    _wide_band(bcommon, big_melt, bbox, results)
 
     # ---- 8. the strip path, counted ----
     _build.reset_launch_counts()
@@ -3624,6 +3979,8 @@ def main():
           f"{e_rel7:.2e}), T_kin {t8:.3f} K, launches {strip_counts}; auto "
           f"picks FastLJRunner at N=1000 and CulledLJRunner at N={N}")
     print(f"    strip {strip_rate:.1f} steps/s (N={N}, {smi})")
+    # the strip runner and K7 at the reference's wider row tiles
+    _wide_strip(common, fluid, melt, box, results)
     print(f"  K7 at H={h_narrow}, a tile narrower than the {need} ranks the "
           f"band needs (the missed pairs move the plain force by up to "
           f"{missed:.3e}; the kernel's change from H={h_full} differs from "
@@ -3880,7 +4237,7 @@ def main():
             replaces=r["replaces"], launches=sum(by_path.values()),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            launches_by_path=by_path))
+            launches_by_path=by_path, wide_tiles=r.get("wide_tiles", [])))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

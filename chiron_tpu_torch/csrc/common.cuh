@@ -159,6 +159,15 @@ cudaError_t drift_latch(const float* x, const float* anchor, const float* box,
                         int n, int n_pad, const float* threshold, int* part,
                         unsigned* ticket, bool* flag, cudaStream_t s);
 
+// The rows of a row tile of tm that one block of the culled and band passes
+// takes (lj_cull_force.cu, lj_band.cu; ops/lj_cull.py row_chunk): the whole
+// tile up to 256, else 256 where they divide it, else 128, so that a
+// block's registers and shared memory stay those of tm = 256 whatever the
+// tile.
+inline int row_chunk(int tm) {
+  return tm <= 256 ? tm : (tm % 256 == 0 ? 256 : 128);
+}
+
 // Culling a warp's whole block of pairs at once (lj_dense.cu,
 // lj_cull_force.cu).  A warp gathers the bounding box of its particles:
 // each point's offsets from one reference point, min-imaged on the periodic

@@ -11,17 +11,24 @@
 //
 // The TPU kernel subtracts the column reactions straight from the force
 // block of other tiles, race-free only because its grid runs in order.
-// Here, as in lj_cull_force.cu and with its reductions (common.cuh):
-//   1. band_rows: block (i, s) owns row tile i and visits k = s, s + S, ...
-//      A thread holds RPT rows against every kCG-th column; each visit's
-//      column partials are reduced over the kRG row groups in a fixed
-//      order into R[i n_band + k] (3 x tm), and the row sums into P[s].
-//   2. band_gather: each particle sums P[0..S) and subtracts, for k in
-//      order, the partial of the row tile (c - k) mod n_tiles, where c is
-//      its own tile.
-// Every sum has one order, so a repeated call is bitwise identical.  The
-// scratch R is n_tiles x n_band x 3 x tm floats (54 MB at N = 100,000,
-// tm = 256, w = 10,859): written once and read once a call.
+// Here, as in lj_cull_force.cu and with its reductions (common.cuh), on
+// square sub-tiles of ts = tm rows up to 256 (ts = 256 where it divides a
+// wider tm, else 128; C = tm / ts of them a tile), so that a thread's rows
+// and the block's shared memory stay those of tm = 256 whatever the tile:
+//   1. band_rows: block (x, s) owns row sub-tile x (chunk x mod C of row
+//      tile i = x / C) and visits k = s, s + S, ...: each visit (i, k)
+//      is C sub-visits, column chunks b = 0 .. C-1 of tile (i + k) mod
+//      n_tiles.  A thread holds RPT rows against every kCG-th column; each
+//      sub-visit's column partials are reduced over the kRG row groups in a
+//      fixed order into R[(x n_band + k) C + b] (3 x ts), and the row sums
+//      into P[s].
+//   2. band_gather: each particle, in chunk b of its tile c, sums P[0..S)
+//      and subtracts, for k in order and then a, the partial of sub-tile
+//      a of row tile (c - k) mod n_tiles.
+// Every sum has one order, so a repeated call is bitwise identical; at
+// C = 1 the layout is that of one block a row tile.  The scratch R is
+// n_tiles x n_band x 3 x tm x C floats (54 MB at N = 100,000, tm = 256,
+// w = 10,859): written once and read once a call.
 //
 // Bound: pair arithmetic, the distance test on the band pairs within the
 // cutoff in x and the LJ term on the few (about 0.4% of the slots at
@@ -76,11 +83,11 @@ struct Params {
   const float* x;   // (3, n_pad) x-sorted positions
   const float* box; // (3,)
   float* P;         // (S, 3, n_pad) row partials
-  float* R;         // (n_tiles n_band, 3, tm) column partials
-  float* e_part;    // (n_tiles S,) energy partials
+  float* R;         // (n_tiles C n_band C, 3, ts) column partials
+  float* e_part;    // (n_tiles C S,) energy partials
   float* F;         // (3, n_pad) output force
   float* energy;    // (1,) output energy, or null
-  int n, n_pad, tm, w, n_tiles, n_band;
+  int n, n_pad, tm, ts, n_sub, w, n_tiles, n_band;  // n_sub = C = tm / ts
   float sigma2, cutoff2, r2_floor, coef_scale, eps4;
   int approx;
   int skip;  // 0: every visit as kWhole, the reference for tests
@@ -183,8 +190,8 @@ __device__ __forceinline__ bool in_band(int rid, int cid, int n, int w) {
   return rid < n && cid < n && delta >= 1 && delta <= w;
 }
 
-// The thread's RPT rows against its columns of one staged tile, the
-// visit's column sums of each column to red[rg][3][tm].  kWhole takes every
+// The thread's RPT rows against its columns of one staged sub-tile, the
+// visit's column sums of each column to red[rg][3][ts].  kWhole takes every
 // slot in order.  The other kinds take,
 // for each column, the RPT distances first (independent chains, with no
 // branch) into a bit a row of the pairs within the cutoff, OR the warp's
@@ -198,11 +205,11 @@ __device__ __forceinline__ void visit_tile(
     int row0, int col0, const float (&xi)[RPT], const float (&yi)[RPT],
     const float (&zi)[RPT], float* fs, float& ea, float& ec, bool& moves) {
   constexpr unsigned kAll = (1u << RPT) - 1u;
-  const int tm = p.tm, n = p.n;
+  const int ts = p.ts, n = p.n;
   const int rg = threadIdx.x / kCG, cg = threadIdx.x % kCG;
   const int rid0 = row0 + rg * RPT;
   const float* rx = srow + rg * RPT;
-  for (int t = cg; t < tm; t += kCG) {
+  for (int t = cg; t < ts; t += kCG) {
     const int cid = col0 + t;
     const float xj = sx[t], yj = sy[t], zj = sz[t];
     float cx = 0.0f, cy = 0.0f, cz = 0.0f;
@@ -235,7 +242,7 @@ __device__ __forceinline__ void visit_tile(
       while (fired != 0) {
         const int u = __ffs(fired) - 1;
         fired &= fired - 1;
-        band::displacement<kMode>(rx[u], rx[tm + u], rx[2 * tm + u], xj, yj,
+        band::displacement<kMode>(rx[u], rx[ts + u], rx[2 * ts + u], xj, yj,
                                   zj, g, dx, dy, dz);
         slot_term<kEnergy>(p, band::norm2(dx, dy, dz), (bits >> u) & 1u, dx,
                            dy, dz, fs[u * kThreads], fs[(RPT + u) * kThreads],
@@ -246,9 +253,9 @@ __device__ __forceinline__ void visit_tile(
         }
       }
     }
-    red[(rg * 3 + 0) * tm + t] = cx;
-    red[(rg * 3 + 1) * tm + t] = cy;
-    red[(rg * 3 + 2) * tm + t] = cz;
+    red[(rg * 3 + 0) * ts + t] = cx;
+    red[(rg * 3 + 1) * ts + t] = cy;
+    red[(rg * 3 + 2) * ts + t] = cz;
   }
 }
 
@@ -256,17 +263,18 @@ template <int RPT, bool kEnergy>
 __global__ void __launch_bounds__(kThreads, 2) band_rows(Params p) {
   extern __shared__ float smem[];
   __shared__ int vis[kWarps][3];
-  const int tm = p.tm, n_pad = p.n_pad, n = p.n;
+  const int tm = p.tm, ts = p.ts, C = p.n_sub, n_pad = p.n_pad, n = p.n;
   float* sx = smem;
-  float* sy = sx + tm;
-  float* sz = sy + tm;
-  float* red = sz + tm;  // [kRG][3][tm] columns, then [kCG][3][tm] rows
+  float* sy = sx + ts;
+  float* sz = sy + ts;
+  float* red = sz + ts;  // [kRG][3][ts] columns, then [kCG][3][ts] rows
   // the thread's row sums, [3][RPT][kThreads]: only an LJ term touches them
-  float* fs = red + kRG * 3 * tm + threadIdx.x;
-  float* srow = fs - threadIdx.x + 3 * 16 * tm;  // the row tile, [3][tm]
-  const int i = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
+  float* fs = red + kRG * 3 * ts + threadIdx.x;
+  float* srow = fs - threadIdx.x + 3 * 16 * ts;  // the row sub-tile, [3][ts]
+  const int sub = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
+  const int i = sub / C;  // the row tile
   const int tid = threadIdx.x, rg = tid / kCG;
-  const int row0 = i * tm;
+  const int row0 = sub * ts;
   const band::Geometry g = band::geometry(p.box);
 
   float xi[RPT], yi[RPT], zi[RPT];
@@ -281,9 +289,9 @@ __global__ void __launch_bounds__(kThreads, 2) band_rows(Params p) {
     for (int a = 0; a < 3; ++a) fs[(a * RPT + u) * kThreads] = 0.0f;
     rows.add(xi[u], yi[u], zi[u], g);
   }
-  for (int t = tid; t < tm; t += kThreads) {
+  for (int t = tid; t < ts; t += kThreads) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) srow[a * tm + t] = p.x[a * n_pad + row0 + t];
+    for (int a = 0; a < 3; ++a) srow[a * ts + t] = p.x[a * n_pad + row0 + t];
   }
   rows.publish(vis);
   __syncthreads();
@@ -292,52 +300,57 @@ __global__ void __launch_bounds__(kThreads, 2) band_rows(Params p) {
   bool moves = false;
 
   for (int k = split; k < p.n_band; k += n_split) {
-    const int col0 = ((i + k) % p.n_tiles) * tm;
-    __syncthreads();  // the previous visit's staging, flags and partials
-    Points cols;
-    for (int t = tid; t < tm; t += kThreads) {
-      const float x = p.x[col0 + t], y = p.x[n_pad + col0 + t];
-      const float z = p.x[2 * n_pad + col0 + t];
-      sx[t] = x;
-      sy[t] = y;
-      sz[t] = z;
-      cols.add(x, y, z, g);
-    }
-    cols.publish(vis);
-    // with kEnergy, a 0 term that would move some thread's compensated sum
-    // keeps its visit's slots
-    const bool pinned = kEnergy ? __syncthreads_or(moves) : false;
-    if constexpr (!kEnergy) __syncthreads();
-    cols.gather(vis);
-    const float rlo = band::key_value(rows.lo), rhi = band::key_value(rows.hi);
-    const float clo = band::key_value(cols.lo), chi = band::key_value(cols.hi);
-    const bool fast = p.skip && g.ok && rows.ok && cols.ok;
-    const bool x0 = fast && band::x_image_zero(rlo, rhi, clo, chi, g.a[0]);
-    const Visit mode =
-        !fast ? kWhole
-        : x0 && !pinned && band::x_apart(rlo, rhi, clo, chi, p.cutoff2)
-            ? kApart
-        : x0 && rank_interior(row0, col0, tm, n, p.w) ? kInterior
-                                                      : kEdge;
-    if (mode == kApart) {
-      for (int t = tid % kCG; t < tm; t += kCG) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) red[(rg * 3 + a) * tm + t] = 0.0f;
+    for (int b = 0; b < C; ++b) {
+      const int col0 = ((i + k) % p.n_tiles) * tm + b * ts;
+      __syncthreads();  // the previous visit's staging, flags and partials
+      Points cols;
+      for (int t = tid; t < ts; t += kThreads) {
+        const float x = p.x[col0 + t], y = p.x[n_pad + col0 + t];
+        const float z = p.x[2 * n_pad + col0 + t];
+        sx[t] = x;
+        sy[t] = y;
+        sz[t] = z;
+        cols.add(x, y, z, g);
       }
-    } else if (mode == kInterior) {
-      visit_tile<kInterior, RPT, kEnergy>(p, g, sx, sy, sz, srow, red, row0,
-                                          col0, xi, yi, zi, fs, ea, ec,
-                                          moves);
-    } else if (mode == kEdge) {
-      visit_tile<kEdge, RPT, kEnergy>(p, g, sx, sy, sz, srow, red, row0,
-                                      col0, xi, yi, zi, fs, ea, ec, moves);
-    } else {
-      visit_tile<kWhole, RPT, kEnergy>(p, g, sx, sy, sz, srow, red, row0,
-                                       col0, xi, yi, zi, fs, ea, ec, moves);
+      cols.publish(vis);
+      // with kEnergy, a 0 term that would move some thread's compensated
+      // sum keeps its visit's slots
+      const bool pinned = kEnergy ? __syncthreads_or(moves) : false;
+      if constexpr (!kEnergy) __syncthreads();
+      cols.gather(vis);
+      const float rlo = band::key_value(rows.lo);
+      const float rhi = band::key_value(rows.hi);
+      const float clo = band::key_value(cols.lo);
+      const float chi = band::key_value(cols.hi);
+      const bool fast = p.skip && g.ok && rows.ok && cols.ok;
+      const bool x0 = fast && band::x_image_zero(rlo, rhi, clo, chi, g.a[0]);
+      const Visit mode =
+          !fast ? kWhole
+          : x0 && !pinned && band::x_apart(rlo, rhi, clo, chi, p.cutoff2)
+              ? kApart
+          : x0 && rank_interior(row0, col0, ts, n, p.w) ? kInterior
+                                                        : kEdge;
+      if (mode == kApart) {
+        for (int t = tid % kCG; t < ts; t += kCG) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) red[(rg * 3 + a) * ts + t] = 0.0f;
+        }
+      } else if (mode == kInterior) {
+        visit_tile<kInterior, RPT, kEnergy>(p, g, sx, sy, sz, srow, red, row0,
+                                            col0, xi, yi, zi, fs, ea, ec,
+                                            moves);
+      } else if (mode == kEdge) {
+        visit_tile<kEdge, RPT, kEnergy>(p, g, sx, sy, sz, srow, red, row0,
+                                        col0, xi, yi, zi, fs, ea, ec, moves);
+      } else {
+        visit_tile<kWhole, RPT, kEnergy>(p, g, sx, sy, sz, srow, red, row0,
+                                         col0, xi, yi, zi, fs, ea, ec, moves);
+      }
+      __syncthreads();
+      store_col_partials(
+          red, ts,
+          p.R + ((static_cast<size_t>(sub) * p.n_band + k) * C + b) * 3 * ts);
     }
-    __syncthreads();
-    store_col_partials(
-        red, tm, p.R + (static_cast<size_t>(i) * p.n_band + k) * 3 * tm);
   }
   float fx[RPT], fy[RPT], fz[RPT];
 #pragma unroll
@@ -347,24 +360,29 @@ __global__ void __launch_bounds__(kThreads, 2) band_rows(Params p) {
     fz[u] = fs[(2 * RPT + u) * kThreads];
   }
   store_row_partials<RPT>(
-      red, tm, fx, fy, fz, p.P + static_cast<size_t>(split) * 3 * n_pad + row0,
+      red, ts, fx, fy, fz, p.P + static_cast<size_t>(split) * 3 * n_pad + row0,
       n_pad);
   if constexpr (kEnergy)
-    store_energy_partial(red, ea - ec, p.e_part + i * n_split + split);
+    store_energy_partial(red, ea - ec, p.e_part + sub * n_split + split);
 }
 
 __global__ void band_gather(Params p, int n_split, int n_parts) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= p.n_pad) return;
-  const int tm = p.tm, c = q / tm, t = q - c * tm;
+  const int tm = p.tm, ts = p.ts, C = p.n_sub;
+  const int c = q / tm, b = (q - c * tm) / ts, t = q - c * tm - b * ts;
   float f[3];
   sum_row_partials(p.P, n_split, p.n_pad, q, f);
   for (int k = 0; k < p.n_band; ++k) {
     const int i = (c - k + p.n_tiles) % p.n_tiles;
-    const float* Rk = p.R + (static_cast<size_t>(i) * p.n_band + k) * 3 * tm;
-    f[0] -= Rk[t];
-    f[1] -= Rk[tm + t];
-    f[2] -= Rk[2 * tm + t];
+    for (int a = 0; a < C; ++a) {
+      const float* Rk =
+          p.R +
+          ((static_cast<size_t>(i * C + a) * p.n_band + k) * C + b) * 3 * ts;
+      f[0] -= Rk[t];
+      f[1] -= Rk[ts + t];
+      f[2] -= Rk[2 * ts + t];
+    }
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) p.F[a * p.n_pad + q] = f[a];
@@ -375,7 +393,7 @@ __global__ void band_gather(Params p, int n_split, int n_parts) {
 template <int RPT>
 cudaError_t launch_rows(const Params& p, int n_split, size_t smem,
                         cudaStream_t s) {
-  const dim3 grid(p.n_tiles, n_split);
+  const dim3 grid(p.n_tiles * p.n_sub, n_split);
   return p.energy != nullptr
              ? launch_pass(band_rows<RPT, true>, grid, smem, s, p)
              : launch_pass(band_rows<RPT, false>, grid, smem, s, p);
@@ -383,30 +401,34 @@ cudaError_t launch_rows(const Params& p, int n_split, size_t smem,
 
 }  // namespace
 
-// x, F: (3, n_pad) f32; box: (3,) f32; P: (n_split, 3, n_pad) f32;
-// R: (n_pad / tm * n_band, 3, tm) f32; e_part: (n_pad / tm * n_split,) f32;
-// energy: (1,) f32 or null (then the force-only instantiation runs).  tm
-// must be 64, 128 or 256 and divide n_pad.  approx sets the force's
-// reciprocal; the energy's is always exact.  skip = 0 takes every slot
-// (kWhole): the reference whose bits the skips keep on a finite state (for
-// tests).
+// x, F: (3, n_pad) f32; box: (3,) f32; P: (n_split, 3, n_pad) f32; with
+// ts = row_chunk(tm) and C = tm / ts: R: (n_pad / ts * n_band * C, 3,
+// ts) f32; e_part: (n_pad / ts * n_split,) f32; energy: (1,) f32 or null
+// (then the force-only instantiation runs).  tm must be 64 or a multiple of
+// 128 and divide n_pad.  approx sets the force's reciprocal; the energy's
+// is always exact.  skip = 0 takes every slot (kWhole): the reference whose
+// bits the skips keep on a finite state (for tests).
 CHIRON_EXPORT int chiron_band_force(
     const float* x, const float* box, float* P, float* R, float* e_part,
     float* F, float* energy, int n, int n_pad, int tm, int w, int n_band,
     int n_split, float sigma2, float cutoff2, float r2_floor,
     float coef_scale, float eps4, int approx, int skip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((tm != 64 && (tm <= 0 || tm % 128 != 0)) || n_pad % tm != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ts = row_chunk(tm);
   const int n_tiles = n_pad / tm;
-  Params p{x,     box,     P,       R,        e_part,     F,
-           energy, n,      n_pad,   tm,       w,          n_tiles,
-           n_band, sigma2, cutoff2, r2_floor, coef_scale, eps4,
-           approx, skip};
-  // the staged tile, red (kRG == kCG: the rows fit where the columns were),
-  // the row sums (3 x RPT x kThreads = 3 x 16 tm) and the row tile
-  const int floats = 3 * tm + kRG * 3 * tm + 3 * 16 * tm + 3 * tm;
+  Params p{x,      box,    P,       R,        e_part,     F,    energy,
+           n,      n_pad,  tm,      ts,       tm / ts,    w,    n_tiles,
+           n_band, sigma2, cutoff2, r2_floor, coef_scale, eps4, approx,
+           skip};
+  // the staged sub-tile, red (kRG == kCG: the rows fit where the columns
+  // were), the row sums (3 x RPT x kThreads = 3 x 16 ts) and the row
+  // sub-tile
+  const int floats = 3 * ts + kRG * 3 * ts + 3 * 16 * ts + 3 * ts;
   const size_t smem = static_cast<size_t>(floats) * sizeof(float);
   cudaError_t err;
-  switch (tm / kRG) {
+  switch (ts / kRG) {
     case 4: err = launch_rows<4>(p, n_split, smem, s); break;
     case 8: err = launch_rows<8>(p, n_split, smem, s); break;
     case 16: err = launch_rows<16>(p, n_split, smem, s); break;
@@ -415,6 +437,6 @@ CHIRON_EXPORT int chiron_band_force(
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kGather = 256;
   band_gather<<<(n_pad + kGather - 1) / kGather, kGather, 0, s>>>(
-      p, n_split, n_tiles * n_split);
+      p, n_split, n_pad / ts * n_split);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,23 +14,28 @@
 // because its grid runs in order.  On Hopper the work is cut so that it
 // fills the card, and every partial sum goes to a slot of its own:
 //   1. cull_pairs: one block of 128 threads per work item (entry k, column
-//      slice s), the slices being the entry's column tile cut into kSlice =
-//      64 columns (S = ceil(tn / 64) of them).  The grid is capacity x S;
-//      items past the device-side count exit at once, so the host never
-//      reads the count, and no row tile's entry count sets the time: at
-//      N=4000 the 143 entries give 572 blocks, four to five an SM.  A block
-//      stages its slice's columns once, a thread holds RPT rows of the row
-//      tile in registers against every KCG-th column of the slice, and the
-//      block writes its row partials to P[k S + s] (3 x tm) and its column
-//      partials to R[k] (3 x tn, the slice's 64 columns), each reduced over
-//      its thread groups in one fixed order through shared memory.
+//      slice s, row chunk c), the slices being the entry's column tile cut
+//      into kSlice = 64 columns (S = ceil(tn / 64) of them) and the chunks
+//      its row tile cut into C = tm / tr chunks of tr rows (tr = tm up to
+//      256, else 256 where it divides tm, else 128: RPT = tr / 32 rows a
+//      thread stay in registers whatever the tile).  The grid is capacity x
+//      S x C; items past the device-side count exit at once, so the host
+//      never reads the count, and no row tile's entry count sets the time:
+//      at N=4000 the 143 entries give 572 blocks, four to five an SM.  A
+//      block stages its slice's columns once, a thread holds RPT rows of the
+//      chunk in registers against every KCG-th column of the slice, and the
+//      block writes its row partials to rows [c tr, c tr + tr) of P[k S + s]
+//      (3 x tm) and its column partials to R[k C + c] (3 x tn, the slice's
+//      64 columns), each reduced over its thread groups in one fixed order
+//      through shared memory.
 //   2. cull_gather: one block per 128 particles.  A particle adds the row
 //      partials of its row tile's items (contiguous in P, since the list is
 //      ordered by row tile), then subtracts the column partials of the
-//      entries whose column tile is its own: the block reads `cols` once, a
-//      round of 512 entries at a time, compacts the entries of its column
-//      tiles in slot order into shared memory, and each particle walks that
-//      short list, never the whole list.
+//      entries whose column tile is its own, each entry's C chunks in
+//      order: the block reads `cols` once, a round of 512 entries at a
+//      time, compacts the entries of its column tiles in slot order into
+//      shared memory, and each particle walks that short list, never the
+//      whole list.
 // Every sum has one order and no float atomics, so a repeated call is
 // bitwise identical.
 //
@@ -87,11 +92,11 @@ struct Params {
   const float* rowcx;   // (nr,)
   const int* count;     // (1,)
   float* P;             // (capacity S, 3, tm) row partials
-  float* R;             // (capacity, 3, tn) column partials
-  float* e_part;        // (capacity S,) energy partials
+  float* R;             // (capacity C, 3, tn) column partials
+  float* e_part;        // (capacity S C,) energy partials
   float* F;             // (3, n_pad) output force
   float* energy;        // (1,) output energy, or null
-  int n, n_pad, tm, tn, n_slices;
+  int n, n_pad, tm, tn, n_slices, n_chunks;
   float inv_sigma, sigma_fold, cutoff2_s, cull2_s, eps_scale, e_scale;
 };
 
@@ -178,17 +183,20 @@ __device__ __forceinline__ void slice_pairs(
 }
 
 // A block of KRG row groups x KCG column groups, RPT rows a row group
-// (tm = KRG RPT); thread tid is row group tid / KCG, so a warp holds
-// 32 / KCG row groups: 32 RPT / KCG consecutive rows.
+// (a chunk of TR = KRG RPT rows of the row tile); thread tid is row group
+// tid / KCG, so a warp holds 32 / KCG row groups: 32 RPT / KCG consecutive
+// rows.
 template <int RPT, int KRG, bool kEnergy, bool kApprox>
 __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
   constexpr int KCG = kThreads / KRG;
+  constexpr int TR = KRG * RPT;
   static_assert(KCG * RPT <= kSlice, "row partials must fit the buffer");
   __shared__ float4 sc[kSlice];
   __shared__ float red[KRG * 3 * kSlice];
   __shared__ float sbox[7];
   __shared__ float scratch[kThreads / 32];
-  const int item = blockIdx.x;
+  const int item = blockIdx.x / p.n_chunks;
+  const int chunk = blockIdx.x - item * p.n_chunks;
   const int k = item / p.n_slices;  // < capacity: the list's arrays hold it
   const int s = item - k * p.n_slices;
   // issued together, before the count decides: one load latency, not four
@@ -201,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
   const int rg = tid / KCG, cg = tid - rg * KCG;
   const int tm = p.tm, tn = p.tn, n_pad = p.n_pad;
   const bool general = k < p.ptr2[2 * i + 1];
-  const int row0 = i * tm;
+  const int row0 = i * tm + chunk * TR;
   const int c0 = s * kSlice;
   const int width = min(kSlice, tn - c0);
   const int col0 = col_tile * tn + c0;
@@ -284,7 +292,8 @@ __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
   }
   __syncthreads();
   // the slice's column sums over the row groups, in order
-  float* Rk = p.R + static_cast<size_t>(k) * 3 * tn + c0;
+  float* Rk =
+      p.R + static_cast<size_t>(k * p.n_chunks + chunk) * 3 * tn + c0;
   for (int idx = tid; idx < 3 * width; idx += kThreads) {
     const int a = idx / width, t = idx - a * width;
     float sum = 0.0f;
@@ -292,25 +301,25 @@ __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
     Rk[a * tn + t] = sum;
   }
   __syncthreads();
-  // the rows' sums over the column groups, in order
+  // the chunk's rows' sums over the column groups, in order
 #pragma unroll
   for (int u = 0; u < RPT; ++u) {
     const int r = rg * RPT + u;
-    red[(cg * 3 + 0) * tm + r] = fx[u];
-    red[(cg * 3 + 1) * tm + r] = fy[u];
-    red[(cg * 3 + 2) * tm + r] = fz[u];
+    red[(cg * 3 + 0) * TR + r] = fx[u];
+    red[(cg * 3 + 1) * TR + r] = fy[u];
+    red[(cg * 3 + 2) * TR + r] = fz[u];
   }
   __syncthreads();
-  float* Pk = p.P + static_cast<size_t>(item) * 3 * tm;
-  for (int idx = tid; idx < 3 * tm; idx += kThreads) {
-    const int a = idx / tm, r = idx - a * tm;
+  float* Pk = p.P + static_cast<size_t>(item) * 3 * tm + chunk * TR;
+  for (int idx = tid; idx < 3 * TR; idx += kThreads) {
+    const int a = idx / TR, r = idx - a * TR;
     float sum = 0.0f;
-    for (int c = 0; c < KCG; ++c) sum += red[(c * 3 + a) * tm + r];
-    Pk[idx] = sum;
+    for (int c = 0; c < KCG; ++c) sum += red[(c * 3 + a) * TR + r];
+    Pk[a * tm + r] = sum;
   }
   if constexpr (kEnergy) {
     const float e = cull::block_sum<kThreads>(ea, scratch, tid);
-    if (tid == 0) p.e_part[item] = e;
+    if (tid == 0) p.e_part[blockIdx.x] = e;
   }
 }
 
@@ -340,6 +349,7 @@ __global__ void __launch_bounds__(kGather) cull_gather(Params p, Step st) {
   __shared__ float scratch[kGather / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tm = p.tm, tn = p.tn, n_pad = p.n_pad, S = p.n_slices;
+  const int C = p.n_chunks;
   const float* __restrict__ P = p.P;
   const float* __restrict__ R = p.R;
   const int q0 = blockIdx.x * kGather;
@@ -410,26 +420,33 @@ __global__ void __launch_bounds__(kGather) cull_gather(Params p, Step st) {
       }
     }
     __syncthreads();
+    // the hits' chunks in order: item h is chunk h mod C of hit h / C
+    const int n_items = total * C;
     int h = 0;
-    for (; h + kBatch <= total; h += kBatch) {
+    for (; h + kBatch <= n_items; h += kBatch) {
       float v[kBatch][3];
+      bool own[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-        const bool own = hit_c[h + u] == c;
-        const float* Rk = R + static_cast<size_t>(hit_k[h + u]) * 3 * tn + t;
+        const int hit = (h + u) / C, ch = h + u - hit * C;
+        own[u] = hit_c[hit] == c;
+        const float* Rk =
+            R + static_cast<size_t>(hit_k[hit] * C + ch) * 3 * tn + t;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) v[u][a] = own ? Rk[a * tn] : 0.0f;
+        for (int a = 0; a < 3; ++a) v[u][a] = own[u] ? Rk[a * tn] : 0.0f;
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
-        if (hit_c[h + u] != c) continue;
+        if (!own[u]) continue;
 #pragma unroll
         for (int a = 0; a < 3; ++a) f[a] -= v[u][a];
       }
     }
-    for (; h < total; ++h) {
-      if (hit_c[h] != c) continue;
-      const float* Rk = R + static_cast<size_t>(hit_k[h]) * 3 * tn + t;
+    for (; h < n_items; ++h) {
+      const int hit = h / C, ch = h - hit * C;
+      if (hit_c[hit] != c) continue;
+      const float* Rk =
+          R + static_cast<size_t>(hit_k[hit] * C + ch) * 3 * tn + t;
       f[0] -= Rk[0];
       f[1] -= Rk[tn];
       f[2] -= Rk[2 * tn];
@@ -468,7 +485,7 @@ __global__ void __launch_bounds__(kGather) cull_gather(Params p, Step st) {
     }
   }
   if (p.energy != nullptr && blockIdx.x == 0) {
-    const int n_parts = count * S;
+    const int n_parts = count * S * C;
     float acc = 0.0f, comp = 0.0f;
     for (int j = tid; j < n_parts; j += kGather)
       kahan_add(acc, comp, p.e_part[j]);
@@ -494,10 +511,10 @@ cudaError_t launch_pairs_at(const Params& p, int blocks, bool approx,
   return cudaGetLastError();
 }
 
-// The pair pass at row tile tm (16, 32, 64, 128 or 256).
+// The pair pass over chunks of tr rows (16, 32, 64, 128 or 256).
 cudaError_t launch_pairs(const Params& p, int blocks, bool approx,
                          cudaStream_t s) {
-  switch (p.tm) {
+  switch (row_chunk(p.tm)) {
     case 16: return launch_pairs_at<1, 16>(p, blocks, approx, s);
     case 32: return launch_pairs_at<1, 32>(p, blocks, approx, s);
     case 64: return launch_pairs_at<2, 32>(p, blocks, approx, s);
@@ -507,9 +524,10 @@ cudaError_t launch_pairs(const Params& p, int blocks, bool approx,
   }
 }
 
+// tm 16, 32, 64 or a multiple of 128; tn a multiple of 16.
 bool tiles_ok(int tm, int tn, int capacity) {
   return capacity >= 1 && tn > 0 && tn % 16 == 0 &&
-         (tm == 16 || tm == 32 || tm == 64 || tm == 128 || tm == 256);
+         (tm == 16 || tm == 32 || tm == 64 || (tm > 0 && tm % 128 == 0));
 }
 
 int gather_blocks(int n_pad) { return (n_pad + kGather - 1) / kGather; }
@@ -527,13 +545,14 @@ cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s) {
                         0, m.seed, m.n_pad, m.dt, m.half_dt, m.a, m.b, s);
   if (rc != 0) return static_cast<cudaError_t>(rc);
   const int n_slices = (m.tn + kSlice - 1) / kSlice;
+  const int n_chunks = m.tm / row_chunk(m.tm);
   Params p{m.x, m.box, m.rows, m.cols, m.ccx, m.ptr2, m.rowcx, m.count, m.P,
            m.R, m.e_part, m.F, nullptr, m.n, m.n_pad, m.tm, m.tn, n_slices,
-           m.inv_sigma, m.sigma_fold, m.cutoff2_s,
+           n_chunks, m.inv_sigma, m.sigma_fold, m.cutoff2_s,
            m.cutoff2_s * cull::kRaise, m.eps_scale, m.e_scale};
   Step st{m.x, m.w, m.minv, m.sigv, m.step_offset, m.seed, 0,
           m.dt, m.half_dt, m.a, m.b};
-  const int blocks = m.capacity * n_slices;
+  const int blocks = m.capacity * n_slices * n_chunks;
   for (int k = 0; k < m.n_steps; ++k) {
     const bool last = k == m.n_steps - 1;
     p.energy = last ? m.energy : nullptr;
@@ -553,10 +572,10 @@ cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s) {
 
 // x, F: (3, n_pad) f32; box (3,) f32; rows, cols, ccx: (capacity,); ptr2:
 // (2 nr + 1,) i32; rowcx: (nr,) f32; count: (1,) i32; with S = ceil(tn /
-// 64): P: (capacity S, 3, tm) f32; R: (capacity, 3, tn) f32; e_part:
-// (capacity S,) f32; energy: (1,) f32 or null.  tm must be 16, 32, 64, 128
-// or 256 and tn a multiple of 16.  approx sets the force's reciprocal; the
-// energy's is always exact.
+// 64) and C = tm / row_chunk(tm): P: (capacity S, 3, tm) f32; R: (capacity
+// C, 3, tn) f32; e_part: (capacity S C,) f32; energy: (1,) f32 or null.  tm
+// must be 16, 32, 64 or a multiple of 128 and tn a multiple of 16.  approx
+// sets the force's reciprocal; the energy's is always exact.
 CHIRON_EXPORT int chiron_cull_force(
     const float* x, const float* box, const int* rows, const int* cols,
     const float* ccx, const int* ptr2, const float* rowcx, const int* count,
@@ -569,10 +588,13 @@ CHIRON_EXPORT int chiron_cull_force(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_slices = (tn + kSlice - 1) / kSlice;
+  const int n_chunks = tm / row_chunk(tm);
   const Params p{x, box, rows, cols, ccx, ptr2, rowcx, count, P, R, e_part,
-                 F, energy, n, n_pad, tm, tn, n_slices, inv_sigma, sigma_fold,
-                 cutoff2_s, cutoff2_s * cull::kRaise, eps_scale, e_scale};
-  const cudaError_t err = launch_pairs(p, capacity * n_slices, approx != 0, s);
+                 F, energy, n, n_pad, tm, tn, n_slices, n_chunks, inv_sigma,
+                 sigma_fold, cutoff2_s, cutoff2_s * cull::kRaise, eps_scale,
+                 e_scale};
+  const cudaError_t err =
+      launch_pairs(p, capacity * n_slices * n_chunks, approx != 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   cull_gather<false><<<gather_blocks(n_pad), kGather, 0, s>>>(p, Step{});
   return static_cast<int>(cudaGetLastError());

@@ -52,10 +52,12 @@
 // so there are no reactions, no partials and no gather launch:
 //   * as a row, its forward strip: ranks (q, ts + tm + H), ts = q - q mod tm,
 //     the extended columns past n_pad being the halo copies;
-//   * as a column, the rows of the tiles whose strip covers it: ranks
-//     [ts - H, q), where a rank j < 0 is row n_pad + j against q's halo copy
-//     (x + Lx, the column n_pad + q of the TPU pass).
-// So its candidates are the ranks [ts - H, ts + tm + H) but q, and every
+//   * as a column, the rows of the tiles whose strip covers it, those whose
+//     first rank lies past q - tm - H: ranks [lo, q) with lo = tm floor((q -
+//     H) / tm), which is ts - H where tm divides H, and where a rank j < 0
+//     is row n_pad + j against q's halo copy (x + Lx, the column n_pad + q
+//     of the TPU pass).
+// So its candidates are the ranks [lo, ts + tm + H) but q, and every
 // pair term is coef(r^2) (p_q - p_j) with the lane's own point first (its
 // halo copy for j < 0): a pair is taken from its two ends with r^2 of the
 // same bits, since RN(a - b) = -RN(b - a) and the y and z images are odd
@@ -260,7 +262,10 @@ strip_pairs(Strip p) {
   const float xq = xe[q], yq = xe[n_ext + q], zq = xe[2 * n_ext + q];
   const float xh = q < H ? xe[n_pad + q] : xq;
   const int ts = q - q % p.tm;
-  const int lo = ts - H, hi = ts + p.tm + H;  // the lane's ranks, q aside
+  // the lane's ranks, q aside: lo = tm floor((q - H) / tm), q - H >= -H >
+  // -n_pad
+  const int lo = ((q - H + n_pad) / p.tm) * p.tm - n_pad;
+  const int hi = ts + p.tm + H;
   // the warp's ranks in chunks aligned to multiples of 32: a chunk is all
   // below 0 (rows n_pad + j against the halo copies) or all at or above
   const int base = __shfl_sync(kFull, lo, 0) & ~(kChunk - 1);
@@ -384,18 +389,18 @@ CHIRON_EXPORT int chiron_strip_wrap(const float* src, int src_ext, float* dst,
 
 // xe: (3, n_pad + H) f32; box: (3,) f32; F: (3, n_pad) f32; e_part:
 // (n_pad / 32,) f32 scratch and energy (1,) f32, or both null for the force
-// alone.  tm must be 16, 32, 64 or 128 and divide H and n_pad, and n_pad a
-// multiple of 32.  approx sets the force's reciprocal; with the energy both
-// take the exact one.  e_scale scales the energy sum (each pair counted
-// twice).
+// alone.  tm must be 16, 32, 64 or a multiple of 128 and divide n_pad, n_pad
+// a multiple of 32 and H > 0.  approx sets the force's reciprocal; with the
+// energy both take the exact one.  e_scale scales the energy sum (each pair
+// counted twice).
 CHIRON_EXPORT int chiron_strip_force(const float* xe, const float* box,
                                      float* F, float* e_part, float* energy,
                                      int n_pad, int tm, int H, float sigma2,
                                      float cutoff2, float r2_floor,
                                      float coef_scale, float e_scale,
                                      int approx, void* stream) {
-  if ((tm != 16 && tm != 32 && tm != 64 && tm != 128) || H % tm ||
-      n_pad % tm || n_pad % kLanes)
+  if ((tm != 16 && tm != 32 && tm != 64 && (tm <= 0 || tm % 128 != 0)) ||
+      H <= 0 || n_pad % tm || n_pad % kLanes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strip p{xe,  box,    F,       e_part,   n_pad,     tm,

@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 from .diff import energy_with_force_gradient
-from .lj_cull import sort_by_key
+from .lj_cull import row_chunk, sort_by_key
 from .lj_dense import _round_up
 
 
@@ -25,6 +25,15 @@ def n_band_tiles(w: int, tm: int, n_tiles: int) -> int:
     padding gap between rank n-1 and rank 0, and the row tile's own span,
     never more than every tile once."""
     return min((w + tm - 1) // tm + 2, n_tiles)
+
+
+def check_band_tiles(n_pad: int, tm: int):
+    """Raise unless K6 takes row tile ``tm`` at ``n_pad``: 64 or a multiple
+    of 128, dividing n_pad."""
+    if not (tm == 64 or (tm > 0 and tm % 128 == 0)) or n_pad % tm:
+        raise ValueError(
+            f"band kernel takes tm 64 or a multiple of 128 dividing n_pad "
+            f"(got tm={tm}, n_pad={n_pad})")
 
 
 def sort_by_x(pos3, payloads, n: int):
@@ -109,17 +118,20 @@ def _band_launch(kernel: str, pos3, box_diag, n: int, w: int, sigma: float,
     n_pad = pos3.shape[1]
     _build.require(pos3, "pos3", (3, n_pad), torch.float32)
     _build.require(box_diag, "box_diag", None, torch.float32, dev)
-    if (tm not in (64, 128, 256) or n_pad % tm or box_diag.numel() != 3
-            or not 0 < w < (n - 1) // 2 or not 0 < n <= n_pad):
+    check_band_tiles(n_pad, tm)
+    if (box_diag.numel() != 3 or not 0 < w < (n - 1) // 2
+            or not 0 < n <= n_pad):
         raise ValueError(
-            f"band kernel takes tm in (64, 128, 256) dividing n_pad, 3 box "
-            f"lengths and 0 < w < (n-1)//2 (got tm={tm}, n_pad={n_pad}, "
-            f"n={n}, w={w})"
+            f"band kernel takes 3 box lengths and 0 < w < (n-1)//2 (got "
+            f"n_pad={n_pad}, n={n}, w={w})"
         )
     n_tiles = n_pad // tm
     nbt = n_band_tiles(w, tm, n_tiles)
+    ts = row_chunk(tm)  # the square sub-tile a block takes
+    # each block a sub-tile, each visit C = tm / ts column chunks
     F, P, R, e_part, energy = _build.pass_buffers(
-        n_pad, n_tiles, n_tiles * nbt, tm, with_energy, dev)
+        n_pad, n_pad // ts, n_pad // ts * nbt * (tm // ts), ts, with_energy,
+        dev)
     sigma2 = sigma * sigma
     _build.launch(
         kernel, "chiron_band_force",

@@ -291,10 +291,12 @@ def row_force_pass_plain(x3, box_diag, pairs: TilePairList, n: int, tm: int,
 
 
 # The kernel's work items (csrc/lj_cull_force.cu): entry k's column tile is
-# cut into slices of CULL_SLICE columns, and item k S + s (one block) takes
-# slice s of entry k against all tm rows of the entry's row tile.
+# cut into slices of CULL_SLICE columns and its row tile into chunks of
+# row_chunk(tm) rows, and block (k S + s) C + c takes slice s of entry
+# k against chunk c of the entry's row tile.
 CULL_SLICE = 64
-CULL_TM = (16, 32, 64, 128, 256)
+# the row tiles below 128 the kernel takes; above, every multiple of 128
+CULL_SMALL_TM = (16, 32, 64)
 
 
 def cull_slices(tn: int):
@@ -303,28 +305,39 @@ def cull_slices(tn: int):
     return [(c0, min(CULL_SLICE, tn - c0)) for c0 in range(0, tn, CULL_SLICE)]
 
 
+def row_chunk(tm: int) -> int:
+    """The rows of a row tile of ``tm`` that one block of the culled and
+    band passes takes (``csrc/common.cuh`` ``row_chunk``): the whole tile up
+    to 256, else 256 where they divide it, else 128, so that a block's
+    registers and shared memory stay those of tm = 256 whatever the
+    tile."""
+    return tm if tm <= 256 else (256 if tm % 256 == 0 else 128)
+
+
 def cull_buffers(n_pad: int, tm: int, tn: int, capacity: int,
                  with_energy: bool, device):
-    """Outputs and scratch of the culled pass at this capacity: the (3,
-    n_pad) force, the row partials (capacity S, 3, tm), the column partials
-    (capacity, 3, tn), the energy partials (capacity S,) and the (1,)
-    energy or None."""
+    """Outputs and scratch of the culled pass at this capacity, with S
+    column slices and C = tm / ``row_chunk(tm)`` row chunks an entry:
+    the (3, n_pad) force, the row partials (capacity S, 3, tm), the column
+    partials (capacity C, 3, tn), the energy partials (capacity S C,) and
+    the (1,) energy or None."""
     S = len(cull_slices(tn))
+    C = tm // row_chunk(tm)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((3, n_pad), **f32),
             torch.empty((capacity * S, 3, tm), **f32),
-            torch.empty((capacity, 3, tn), **f32),
-            torch.empty(capacity * S, **f32),
+            torch.empty((capacity * C, 3, tn), **f32),
+            torch.empty(capacity * S * C, **f32),
             torch.empty(1, **f32) if with_energy else None)
 
 
 def check_cull_tiles(n_pad: int, tm: int, tn: int):
-    if (tm not in CULL_TM or tn % 16 or not 0 < tn <= 512 or n_pad % tm
-            or n_pad % tn):
+    if (not (tm in CULL_SMALL_TM or (tm > 0 and tm % 128 == 0)) or tn <= 0
+            or tn % 16 or n_pad % tm or n_pad % tn):
         raise ValueError(
-            f"culled force kernel takes tm in {CULL_TM}, tn a multiple of 16 "
-            f"up to 512, both dividing n_pad (got tm={tm}, tn={tn}, "
-            f"n_pad={n_pad})"
+            f"culled force kernel takes tm in {CULL_SMALL_TM} or a multiple "
+            f"of 128, tn a multiple of 16, both dividing n_pad (got tm={tm}, "
+            f"tn={tn}, n_pad={n_pad})"
         )
 
 

@@ -65,16 +65,13 @@ def repair_plain(x, w, F, n: int, box_diag, passes: int):
     return rows[0:3], rows[3:6], rows[6:9]
 
 
-MEGA_TM = (128, 256)
-
-
 def check_mega_tiles(n_pad: int, tm: int, tn: int):
-    # the TPU kernel takes tiles in multiples of its 128-lane rows; the
-    # segment's steps are K3's, whose row tile goes up to 256
-    if tm not in MEGA_TM or tn % 128 or tn > 512 or n_pad % tn or n_pad % tm:
+    # the TPU kernel takes tiles in multiples of its 128-lane rows, and so
+    # do the build (tile_build.cuh) and K3's steps
+    if tm <= 0 or tn <= 0 or tm % 128 or tn % 128 or n_pad % tn or n_pad % tm:
         raise ValueError(
-            f"the megakernel takes tm in {MEGA_TM} and tn in (128, 256, 384, "
-            f"512), both dividing n_pad (got tm={tm}, tn={tn}, n_pad={n_pad})")
+            f"the megakernel takes tm and tn multiples of 128, both dividing "
+            f"n_pad (got tm={tm}, tn={tn}, n_pad={n_pad})")
 
 
 def tile_build(x3, n: int, tm: int, tn: int, box_diag, cutoff: float,

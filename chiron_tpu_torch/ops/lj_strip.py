@@ -236,6 +236,20 @@ def strip_force_plain(xe, box_diag, n: int, tm: int, H: int, sigma: float,
     return F, ((4.0 * epsilon) * e).to(xe.dtype)
 
 
+def check_strip_tiles(n_pad: int, tm: int, H: int):
+    """Raise unless K7 takes row tile ``tm`` and halo ``H`` at ``n_pad``: tm
+    16, 32, 64 or a multiple of 128 dividing n_pad, H > 0 (any width: the
+    reference rounds it to whole ``_SUBW`` strips), n_pad a multiple of
+    ``STRIP_ROWS`` and at least 2 (tm + H)."""
+    if (not (tm in (16, 32, 64) or (tm > 0 and tm % 128 == 0)) or H <= 0
+            or n_pad % tm or n_pad % STRIP_ROWS or n_pad < 2 * (tm + H)):
+        raise ValueError(
+            f"strip kernel takes tm in (16, 32, 64) or a multiple of 128 "
+            f"dividing n_pad, H > 0, and n_pad a multiple of {STRIP_ROWS} "
+            f"and >= 2 (tm + H) (got tm={tm}, H={H}, n_pad={n_pad})"
+        )
+
+
 def _strip_launch(kernel: str, xe, box_diag, n: int, tm: int, H: int,
                   sigma: float, epsilon: float, cutoff: float,
                   approx_recip: bool, with_energy: bool):
@@ -248,14 +262,9 @@ def _strip_launch(kernel: str, xe, box_diag, n: int, tm: int, H: int,
     n_pad = n_ext - H
     _build.require(xe, "xe", (3, n_ext), torch.float32)
     _build.require(box_diag, "box_diag", None, torch.float32, dev)
-    if (tm not in (16, 32, 64, 128) or H <= 0 or H % tm or n_pad % tm
-            or n_pad % STRIP_ROWS or n_pad < 2 * (tm + H)
-            or box_diag.numel() != 3):
-        raise ValueError(
-            f"strip kernel takes tm in (16, 32, 64, 128) dividing n_pad and "
-            f"H, n_pad a multiple of {STRIP_ROWS} and >= 2 (tm + H), and 3 "
-            f"box lengths (got tm={tm}, H={H}, n_pad={n_pad})"
-        )
+    check_strip_tiles(n_pad, tm, H)
+    if box_diag.numel() != 3:
+        raise ValueError("strip kernel takes 3 box lengths")
     f32 = dict(dtype=torch.float32, device=dev)
     F = torch.empty((3, n_pad), **f32)
     e_part = torch.empty(n_pad // STRIP_ROWS, **f32) if with_energy else None

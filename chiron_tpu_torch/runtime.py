@@ -573,12 +573,12 @@ def make_culled_lj_runner(
 
     ``fused_rebuild`` sorts and builds in one launch (K10) where n_pad is a
     power of two and both tiles are multiples of 128, as in the reference;
-    elsewhere the default path runs.  ``megakernel`` (pure-x key only, tm
-    128 or 256) builds the list from the current order, runs the steps and
-    the latch, and repairs the order with ``repair_passes`` odd-even passes
-    instead of re-sorting (K11); it carries the list and anchor of ``init``
-    through unchanged.  Both refuse a cadence above 1, as in the reference.
-    ``runner.path`` names the path taken.
+    elsewhere the default path runs.  ``megakernel`` (pure-x key only, tiles
+    in multiples of 128) builds the list from the current order, runs the
+    steps and the latch, and repairs the order with ``repair_passes``
+    odd-even passes instead of re-sorting (K11); it carries the list and
+    anchor of ``init`` through unchanged.  Both refuse a cadence above 1,
+    as in the reference.  ``runner.path`` names the path taken.
     """
     if sort_mode not in ("auto", "x", "slab"):
         raise ValueError(f"sort_mode {sort_mode!r}: use 'auto', 'x' or 'slab'")
@@ -1196,6 +1196,10 @@ def make_band_lj_runner(
     band = LJBand(n_particles, potential.sigma, potential.epsilon,
                   potential.cutoff, margin=margin, tm=tm, device=device)
     dense_tile = min(512, tm if tm >= 128 else 128)
+    if tm > 512:
+        # the reference's 512 may not divide the band's n_pad here (tm 640,
+        # say): K1 takes any tile, so take the largest that does
+        dense_tile = math.gcd(dense_tile, band.n_pad)
     dense = LJDense(n_particles, potential.sigma, potential.epsilon,
                     potential.cutoff, tm=dense_tile, tn=dense_tile,
                     n_pad=band.n_pad, device=device)

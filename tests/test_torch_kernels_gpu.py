@@ -1223,7 +1223,8 @@ def _sorted_fluid(cuda, n, n_pad, seed=1):
 # end inside, at and just past a tile edge; the last row tiles wrap to tile 0.
 @pytest.mark.parametrize("tm,w", [(64, 575), (64, 576), (64, 577),
                                   (128, 639), (128, 640), (128, 641),
-                                  (256, 511), (256, 512), (256, 513)])
+                                  (256, 511), (256, 512), (256, 513),
+                                  (512, 511), (512, 512), (512, 513)])
 def test_band_kernel_edges_and_every_slot_bitwise(cuda, tm, w):
     """K6 (visits skipped by x, the LJ term only on flagged rows, the rank
     mask on edge visits only, the compare image) against its plain version:
@@ -1404,7 +1405,7 @@ def _strip_layout(cuda, n, tm, narrow, seed=1):
     return extend(H), box_diag, H, pot, extend(full), full
 
 
-@pytest.mark.parametrize("tm", [16, 32, 64, 128])
+@pytest.mark.parametrize("tm", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("narrow", [False, True])
 def test_strip_kernel_at_each_tile_matches_plain_and_repeats(cuda, tm,
                                                              narrow):
@@ -1795,3 +1796,231 @@ def test_dense_tempering_step_loop_makes_no_host_sync(cuda):
     assert _build.launches.get("lj_dense", 0) == before.get("lj_dense", 0)
     assert U.shape == (8,) and torch.isfinite(U).all() and not over.any()
     assert np.isfinite(pt.propagate(10)).all()
+
+
+# ---- the reference's wider tiles ------------------------------------------
+
+WIDE_TILES = [(512, 512), (128, 1024), (384, 768)]
+
+
+@pytest.mark.parametrize("tm,tn", WIDE_TILES)
+def test_culled_kernels_at_wide_tiles(cuda, tm, tn):
+    """The culled pass (row tiles above 256 in chunks, column tiles above
+    512) at N=4000 against its plain version: force max abs 0.05 and p99
+    1e-5 relative, approximate within 1e-4, energy 1e-5, zero padding rows;
+    a repeated call bitwise equal; the exact-energy step equal to K5 bit for
+    bit; K3's segment bitwise its step-by-step sequence in NVT and NpT and
+    latching a NaN; and the runner stepping latch-clean without a host
+    sync."""
+    n = 4000
+    runner, c0, pot = _culled_on_card(cuda, n, tm, tn=tn)
+    md = runner.md
+    assert (md.tm, md.tn) == (tm, tn) and int(c0.pairs.count) > 0
+    args = (c0.x, c0.box_diag, c0.pairs, n, tm, tn, pot.sigma, pot.epsilon,
+            pot.cutoff)
+    with _NoSync():
+        Fk, Ek = lc.culled_force_energy(*args)
+        Fa, _ = lc.culled_force_pass(*args, approx_recip=True)
+        again = lc.culled_force_energy(*args)
+        F_mix, E_mix = lc.culled_force_pass(*args, approx_recip=True,
+                                            with_energy=True)
+    Fp, Ep = lc.row_force_pass_plain(*args, with_energy=True)
+    err = (Fk - Fp)[:, :n].abs()
+    scale = float(Fp.abs().max())
+    assert float(err.max()) < 0.05
+    assert _p99(err, scale) < 1e-5
+    assert float((Fa - Fk).abs().max()) / scale < 1e-4
+    assert float(Fk[:, n:].abs().max()) == 0.0
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    assert torch.equal(again[0], Fk) and torch.equal(again[1], Ek)
+    assert torch.equal(F_mix, Fa) and torch.equal(E_mix, Ek)
+    ws = lc.SegmentWorkspace(md, runner.capacity)
+    nan = c0.x.clone()
+    nan[2, 11] = float("nan")
+    budget = torch.tensor(0.1, device=cuda)
+    for x3, steps, kw in ((c0.x, 1, dict(drift_budget=md.slack_t)),
+                          (c0.x, 40, dict(drift_budget=md.slack_t)),
+                          (c0.x, 40, dict(final_energy=True,
+                                          drift_budget=budget)),
+                          (nan, 40, dict(drift_budget=md.slack_t))):
+        seg = (x3, c0.v, c0.F, c0.box_diag, c0.pairs, 5, c0.step, steps)
+        one = md.run_segment(*seg, workspace=ws, drift_anchor=x3, **kw)
+        seq = md.run_segment_stepwise(*seg, drift_anchor=x3, **kw)
+        assert len(one) == len(seq)
+        for a, b in zip(one, seq):
+            assert _same_bits(a, b), (steps, kw)
+        if x3 is nan:
+            assert bool(one[3])
+    with _NoSync():
+        st = runner.run(c0, 3 * runner.segment_steps)
+    runner.check(st)
+    assert torch.isfinite(st.x).all()
+
+
+def test_megakernel_and_fused_rebuild_at_512(cuda):
+    """K11 at 512 x 512: 5 steps (exact reciprocal, P = 0) within 1e-5 nm
+    of its plain version, the flag equal, a repeated segment bitwise equal;
+    K10 at 512 x 512 bitwise its plain version; and both runners' paths at
+    that tile stepping latch-clean without a host sync."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+    from chiron_tpu_torch.ops import sortbuild as sb
+
+    n = 4000
+    fluid, pos, box = _jittered_fluid(n)
+    kw = dict(potential=fluid.potential, n_particles=n,
+              topology=fluid.topology, temperature=120.0 * units.kelvin,
+              tm=512, tn=512, slack=0.15, segment_steps=8, sort_mode="x",
+              device=cuda)
+    r = make_culled_lj_runner(megakernel=True, **kw)
+    assert r.path == "megakernel" and r.md.n_pad == 4096
+    st = r.init(pos, box, seed=4)
+    md = r.md
+    w = st.v - 0.5 * md.dt * st.F * md.minv
+    args = (md, st.x, w, st.F, st.box_diag, r.capacity, 4)
+    _build.reset_launch_counts()
+    k = lm.mega_segment(*args, st.step, 5, 0, approx_recip=False)
+    assert dict(_build.launches) == {
+        "mega_md": 1, "tile_build": 1, "baoab": 1, "culled_force": 5,
+        "tile_skin_drift": 1, "mega_repair": 1}
+    p = lm.mega_segment_plain(*args, 0, 5, 0)
+    assert float((k[0] - p[0]).abs().max()) < 1e-5
+    assert float((k[1] - p[1]).abs().max()) < 1e-4
+    assert bool(k[3]) == bool(p[3])
+    k16 = lm.mega_segment(*args, st.step, 5, 16)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k16, lm.mega_segment(*args, st.step, 5, 16)))
+    with _NoSync():
+        st = r.run(st, 24)
+    r.check(st)
+    rb = make_culled_lj_runner(fused_rebuild=True, **kw)
+    assert rb.path == "fused_rebuild"
+    sr = rb.init(pos, box, seed=4)
+    sb_args = (st.x, st.v, st.F, st.box_diag[0], n, 512, 512, 0, md.cutoff,
+               md.slack, rb.capacity)
+    ko, po = sb.sort_build(*sb_args), sb.sort_build_plain(*sb_args)
+    for a, b in zip(ko[:3], po[:3]):
+        assert torch.equal(a, b)
+    for f in lc.TilePairList._fields:
+        assert torch.equal(getattr(ko[3], f), getattr(po[3], f)), f
+    with _NoSync():
+        sr = rb.run(sr, 24)
+    rb.check(sr)
+
+
+@pytest.mark.parametrize("tm,tn,n_pad", [(512, 512, 4096), (384, 768, 4608),
+                                         (128, 1024, 4096)])
+def test_tile_build_at_wide_tiles_bitwise(cuda, tm, tn, n_pad):
+    """K11's build at nr x nc of 8 x 8, 12 x 6 and 32 x 4 (its grid and
+    shared memory at the wider tiles) on an x-sorted N=4000 state: bitwise
+    the plain ``build_tile_pairs``, and repeated bitwise."""
+    from chiron_tpu_torch.ops import lj_mega as lm
+
+    n = 4000
+    fluid, pos, box = _jittered_fluid(n)
+    pot = fluid.potential
+    x3 = torch.zeros((3, n_pad), device=cuda)
+    x3[:, :n] = torch.from_numpy(pos.T).to(cuda)
+    bd = torch.from_numpy(np.diagonal(box).copy()).to(cuda)
+    xs = lc.sort_by_key(lc.slab_y_key(x3, n, 0, bd[0]), x3, ())[0]
+    cap = (n_pad // tm) * (n_pad // tn)
+    args = (xs, n, tm, tn, bd, pot.cutoff, 0.15, cap)
+    k, again = lm.tile_build(*args), lm.tile_build(*args)
+    p = lc.build_tile_pairs(*args)
+    assert int(p.count) > 0
+    for f in lc.TilePairList._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+        assert torch.equal(getattr(again, f), getattr(k, f)), f
+
+
+@pytest.mark.parametrize("tm", [384, 512, 640])
+def test_band_kernel_at_wide_tiles_bitwise(cuda, tm):
+    """K6 at row tiles above 256 (square sub-tiles of 128 or 256 a block) at
+    N=3000, on the x-sorted state and with one coordinate moved a box length
+    out: force max abs 0.05 and p99 1e-5 relative, approximate within 1e-4,
+    energy 1e-5; bitwise equal to ``skip=False`` and to a repeated call; no
+    host sync."""
+    from chiron_tpu_torch.ops import lj_band as lb
+
+    n, w = 3000, 1000
+    n_pad = -(-n // tm) * tm
+    x, box, pot = _sorted_fluid(cuda, n, n_pad)
+    far = x.clone()
+    far[1, 900] += float(box[0, 1])
+    for state in (x, far):
+        args = (state, box.reshape(3), n, w, pot.sigma, pot.epsilon,
+                pot.cutoff, tm)
+        with _NoSync():
+            Fk, Ek = lb.band_force_energy(*args)
+            Fk0, Ek0 = lb.band_force_energy(*args, skip=False)
+            Fa = lb.band_force(*args)
+            Fa0 = lb.band_force(*args, skip=False)
+            again = lb.band_force_energy(*args)
+        Fp, Ep = lb.band_force_plain(*args, with_energy=True)
+        scale = float(Fp.abs().max())
+        err = (Fk - Fp)[:, :n].abs()
+        assert float(err.max()) < 0.05
+        assert _p99(err, scale) < 1e-5
+        assert float((Fa - Fk).abs().max()) / scale < 1e-4
+        assert float(Fk[:, n:].abs().max()) == 0.0
+        assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+        for a, b in ((Fk, Fk0), (Ek, Ek0), (Fa, Fa0), (again[0], Fk),
+                     (again[1], Ek)):
+            assert torch.equal(a, b)
+
+
+def test_strip_kernel_at_tm384_with_an_offgrid_halo(cuda):
+    """K7 at tm 384 (N=4600, n_pad 4608) with a halo tm does not divide, as
+    the reference's rounding to 2048-wide strips gives: against its plain
+    version (max abs 0.05, p99 1e-5 relative, energy 1e-5), a repeated call
+    bitwise equal."""
+    from chiron_tpu_torch.ops import lj_strip as ls
+
+    n, tm = 4600, 384
+    _, box, _, pot, xe_full, full = _strip_layout(cuda, n, tm, False)
+    H = full + 128
+    assert H % tm and 4608 >= 2 * (tm + H)
+    xs = xe_full[:, :4608]
+    halo = xs[:, :H].clone()
+    halo[0] = halo[0] + box[0, 0]
+    xe = torch.cat([xs, halo], dim=1)
+    args = (xe, box, n, tm, H, pot.sigma, pot.epsilon, pot.cutoff)
+    with _NoSync():
+        Fk, Ek = ls.strip_force_energy(*args)
+        again = ls.strip_force_energy(*args)
+    Fp, Ep = ls.strip_force_plain(*args, with_energy=True)
+    scale = float(Fp.abs().max())
+    err = (Fk - Fp)[:, :n].abs()
+    assert float(err.max()) < 0.05
+    assert _p99(err, scale) < 1e-5
+    assert abs(float(Ek) - float(Ep)) / abs(float(Ep)) < 1e-5
+    assert torch.equal(again[0], Fk) and torch.equal(again[1], Ek)
+
+
+def test_strip_runner_at_tm256_carries_k1s_force(cuda):
+    """The strip runner at tm 256 (N=4000, the halo its rule gives): two
+    segments without a host sync, check() clean, each carry's F within 1e-3
+    of K1's largest force."""
+    from chiron_tpu_torch.runtime import make_strip_lj_runner
+
+    n = 4000
+    fluid, pos, box = _jittered_fluid(n)
+    pot = fluid.potential
+    runner = make_strip_lj_runner(
+        potential=pot, n_particles=n, topology=fluid.topology,
+        temperature=120.0 * units.kelvin, tm=256, device=cuda)
+    st = runner.init(pos, box, seed=2)
+    assert runner.md.tm == 256
+    carries = []
+    with _NoSync():
+        for _ in range(2):
+            st = runner.segment(st, 50)
+            carries.append(st)
+    runner.check(st)
+    n_pad = runner.md.n_pad
+    for c in carries:
+        x = torch.where(runner.valid, c.x[:, :n_pad], 0.0)
+        F1, _ = lj_dense_force_energy(x, c.box_diag, n, pot.sigma,
+                                      pot.epsilon, pot.cutoff,
+                                      with_energy=False)
+        scale = float(F1[:, :n].abs().max())
+        assert float((c.F - F1)[:, :n].abs().max()) / scale < 1e-3

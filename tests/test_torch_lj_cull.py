@@ -239,24 +239,29 @@ def test_cull_slices_partition_the_column_tile(tn):
 
 
 def _check_items_cover_the_list(pairs, n_pad, tm, tn):
-    """Every listed (entry, column) pair is taken by exactly one block of the
-    capacity x S grid, and each row tile's range of row-partial slots
-    [ptr2[2i] S, ptr2[2i+2] S), which the gather sums, holds exactly the
-    items of that tile's entries."""
+    """Every listed (entry, row, column) slot is taken by exactly one block
+    of the capacity x S x C grid, and each row tile's range of row-partial
+    slots [ptr2[2i] S, ptr2[2i+2] S), which the gather sums, holds exactly
+    the items of that tile's entries."""
     cap = pairs.cols.shape[1]
     count = int(pairs.count)
     slices = tlc.cull_slices(tn)
     S = len(slices)
-    # block b of the capacity x S grid takes slice b % S of entry b // S
-    item = torch.arange(cap * S)
-    k, s = item // S, item % S
+    tr = tlc.row_chunk(tm)
+    C = tm // tr
+    assert C * tr == tm and tr <= 256
+    # block b of the capacity x S x C grid takes row chunk b % C of item
+    # b // C, and item k S + s slice s of entry k
+    block = torch.arange(cap * S * C)
+    k, s, c = block // (S * C), (block // C) % S, block % C
     assert count > 0
-    seen = np.zeros((count, tn), np.int64)
-    for kk, ss in zip(k.tolist(), s.tolist()):
+    seen = np.zeros((count, tm, tn), np.int16)
+    for kk, ss, cc in zip(k.tolist(), s.tolist(), c.tolist()):
         if kk < count:
             c0, width = slices[ss]
-            seen[kk, c0:c0 + width] += 1
+            seen[kk, cc * tr:(cc + 1) * tr, c0:c0 + width] += 1
     assert (seen == 1).all()
+    k, s = k[::C], s[::C]
     rows = pairs.rows[0].numpy()
     ptr2 = pairs.ptr2[0].numpy()
     live = k.numpy() < count
@@ -266,8 +271,8 @@ def _check_items_cover_the_list(pairs, n_pad, tm, tn):
         in_range = (items >= ptr2[2 * i] * S) & (items < ptr2[2 * i + 2] * S)
         np.testing.assert_array_equal(in_range, tile == i)
     _, P, R, e_part, energy = tlc.cull_buffers(n_pad, tm, tn, cap, True, "cpu")
-    assert P.shape == (cap * S, 3, tm) and R.shape == (cap, 3, tn)
-    assert e_part.shape == (cap * S,) and energy.shape == (1,)
+    assert P.shape == (cap * S, 3, tm) and R.shape == (cap * C, 3, tn)
+    assert e_part.shape == (cap * S * C,) and energy.shape == (1,)
 
 
 def test_cull_items_cover_the_fixture_list(sorted_system):
@@ -276,10 +281,12 @@ def test_cull_items_cover_the_fixture_list(sorted_system):
 
 
 @pytest.mark.parametrize("tm, tn", [(128, 256), (256, 256), (64, 192),
-                                   (16, 64)])
+                                   (16, 64), (512, 512), (384, 768),
+                                   (128, 1024)])
 def test_cull_items_cover_a_bench_density_list(tm, tn):
     """The main path's shape (N=4000, rho*=0.8, tiles 128 x 256), F2's row
-    tile of 256, and ragged slices."""
+    tile of 256, ragged slices, and the reference's wider tiles, whose row
+    tiles the kernel takes in chunks."""
     from chiron_tpu_torch.testsystems import LennardJonesFluid
     from chiron_tpu_torch.units import md_unit_system
 
@@ -303,8 +310,43 @@ def test_cull_items_cover_a_bench_density_list(tm, tn):
 
 
 def test_cull_kernel_takes_a_row_tile_of_256():
-    """F2: the kernel's guard takes tm = 256 and still refuses others."""
-    tlc.check_cull_tiles(4096, 256, 256)
-    for tm, tn in ((512, 256), (8, 16), (128, 24), (128, 1024)):
+    """F2: the kernel's guard takes tm = 256, and the reference's wider
+    tiles (tm any multiple of 128, tn any multiple of 16, both dividing
+    n_pad); it still refuses other row tiles, other column tiles and tiles
+    that do not divide n_pad.  The band and strip kernels' guards take the
+    same row tiles (the strip at any halo), and the megakernel's tiles in
+    multiples of 128."""
+    from chiron_tpu_torch.ops import lj_band as tlb
+    from chiron_tpu_torch.ops import lj_mega as tlm
+    from chiron_tpu_torch.ops import lj_strip as tls
+
+    for n_pad, tm, tn in ((4096, 256, 256), (4096, 512, 256),
+                          (4096, 128, 1024), (4096, 512, 512),
+                          (4608, 384, 768), (4096, 16, 2048)):
+        tlc.check_cull_tiles(n_pad, tm, tn)
+    for n_pad, tm, tn in ((4096, 8, 16), (4096, 128, 24), (4096, 384, 256),
+                          (4096, 192, 256), (4096, 512, 768),
+                          (4000, 128, 256)):
         with pytest.raises(ValueError, match="culled force kernel"):
-            tlc.check_cull_tiles(4096, tm, tn)
+            tlc.check_cull_tiles(n_pad, tm, tn)
+    for n_pad, tm, tn in ((4096, 128, 128), (4096, 256, 512),
+                          (4096, 512, 512), (4096, 128, 1024),
+                          (4608, 384, 768)):
+        tlm.check_mega_tiles(n_pad, tm, tn)
+    for n_pad, tm, tn in ((4096, 64, 256), (4096, 128, 192),
+                          (4096, 384, 512), (4608, 1024, 512)):
+        with pytest.raises(ValueError, match="megakernel"):
+            tlm.check_mega_tiles(n_pad, tm, tn)
+    for n_pad, tm in ((4096, 64), (4096, 256), (100_352, 512),
+                      (4608, 384), (6400, 640)):
+        tlb.check_band_tiles(n_pad, tm)
+    for n_pad, tm in ((4096, 32), (4096, 192), (4096, 384), (100_096, 512)):
+        with pytest.raises(ValueError, match="band kernel"):
+            tlb.check_band_tiles(n_pad, tm)
+    for n_pad, tm, H in ((4096, 16, 688), (4096, 256, 768), (4096, 512, 512),
+                         (4608, 384, 640), (6144, 384, 1664)):
+        tls.check_strip_tiles(n_pad, tm, H)
+    for n_pad, tm, H in ((4096, 8, 512), (4096, 192, 576), (4096, 384, 768),
+                         (4096, 512, 1600), (4096, 128, 0)):
+        with pytest.raises(ValueError, match="strip kernel"):
+            tls.check_strip_tiles(n_pad, tm, H)

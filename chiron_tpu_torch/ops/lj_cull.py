@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..profiling import spanned
 from . import _build
 from .diff import energy_with_force_gradient
 
@@ -747,6 +748,7 @@ class CulledLJMD:
         return energy_with_force_gradient(
             lambda p: self.force_energy(p, box_diag, pairs), pos3)
 
+    @spanned("chiron.op.culled_md")
     def run_segment(self, x3, v3, f3, box_diag, pairs: TilePairList, seed: int,
                     step_offset, n_steps: int, approx_recip: bool = True,
                     final_energy: bool = False, drift_anchor=None,

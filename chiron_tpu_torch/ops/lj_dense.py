@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..profiling import span
 from . import _build
 from .diff import energy_with_force_gradient
 
@@ -245,16 +246,18 @@ class LJDense:
     def force_only_r(self, pos3r, box_r, approx_recip: bool = True):
         """(R, 3, n_pad) force of R replicas in one launch (K1 over
         replicas); ``box_r`` holds each replica's box lengths."""
-        return lj_dense_force_energy_replicas(
-            pos3r, box_r, self.n, self.sigma, self.epsilon, self.cutoff,
-            approx_recip, False)[0]
+        with span("chiron.op.lj_dense_replicas"):
+            return lj_dense_force_energy_replicas(
+                pos3r, box_r, self.n, self.sigma, self.epsilon, self.cutoff,
+                approx_recip, False)[0]
 
     def force_energy_r(self, pos3r, box_r):
         """(R, 3, n_pad) force and (R,) energy of R replicas, exact
         reciprocal, in one launch."""
-        return lj_dense_force_energy_replicas(
-            pos3r, box_r, self.n, self.sigma, self.epsilon, self.cutoff,
-            False, True)
+        with span("chiron.op.lj_dense_replicas"):
+            return lj_dense_force_energy_replicas(
+                pos3r, box_r, self.n, self.sigma, self.epsilon, self.cutoff,
+                False, True)
 
     def pad_positions(self, positions):
         """(N, 3) -> (3, n_pad) f32 on this op's device, zero padding."""

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import spanned
 from . import _build
 from .lj_cull import (
     _MASK32,
@@ -184,6 +185,7 @@ class MegaWorkspace(SegmentWorkspace):
         return _scratch_pointers(self._repair)
 
 
+@spanned("chiron.op.mega_md")
 def mega_segment(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
                  seed: int, step_offset, n_steps: int,
                  repair_passes: int = 16, approx_recip: bool = True,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import spanned
 from . import _build
 from .lj_cull import TilePairList, build_tile_pairs, list_pointers, slab_y_key
 
@@ -84,6 +85,7 @@ def list_buffers(n_pad: int, tm: int, capacity: int, device) -> TilePairList:
     )
 
 
+@spanned("chiron.op.sort_build")
 def sort_build(x3, v3, f3, box_diag, n: int, tm: int, tn: int, nslab: int,
                cutoff: float, slack: float, capacity: int):
     """K10: sort (x3, v3, f3) by the spatial key (``slab_y_key``) and build

@@ -59,6 +59,7 @@ from ..neighbors import (
 from ..ops.lj_cull import _MASK32, splitmix_noise_plain
 from ..potential import (HarmonicOscillatorPotential, IdealGasPotential,
                          grad_of)
+from ..profiling import span
 from .mesh import Mesh, make_replica_mesh, replica_sharding
 
 log = logging.getLogger("chiron_tpu_torch")
@@ -142,11 +143,12 @@ class _Noise:
         count = self.shape[0] * self.shape[1]
         for s0 in range(0, self.n_steps, self.block):
             nb = min(self.block, self.n_steps - s0)
-            z = replica_normals(self.seed_t, s0, nb, self.rows, self.half,
-                                self.device)
-            if self.rows == 1:
-                z = z.reshape(nb, R, -1)[:, :, :count].reshape(
-                    nb, R, *self.shape)
+            with span("chiron.pt.noise"):
+                z = replica_normals(self.seed_t, s0, nb, self.rows,
+                                    self.half, self.device)
+                if self.rows == 1:
+                    z = z.reshape(nb, R, -1)[:, :, :count].reshape(
+                        nb, R, *self.shape)
             yield from z
 
 
@@ -558,7 +560,8 @@ class ParallelTemperingSampler:
         U, over = self._advance(n_steps)
         packed = self._gather(torch.stack([U.to(torch.float32),
                                            over.to(torch.float32)], dim=1))
-        host = _host(packed)
+        with span("chiron.sync.energies"):
+            host = _host(packed)
         if host[:, 1].any():
             raise RuntimeError(
                 "Neighbor capacity exceeded in a replica; increase "
@@ -601,13 +604,17 @@ class ParallelTemperingSampler:
         seed = self._swap_seed if seed is None else seed
         self._swap_seed = seed
         for _ in range(n_iterations):
-            self._iteration += 1
-            U = self.propagate(steps_per_iteration)
-            self._u_history.append(U)
-            self._temp_history.append(np.asarray(self.kTs).copy())
-            self._report_iteration(U)
-            rng = np.random.default_rng([seed, self._iteration])
-            self.mix_replicas(U, rng)
+            with span("chiron.pt.iteration"):
+                self._iteration += 1
+                with span("chiron.pt.propagate"):
+                    U = self.propagate(steps_per_iteration)
+                self._u_history.append(U)
+                self._temp_history.append(np.asarray(self.kTs).copy())
+                with span("chiron.pt.report"):
+                    self._report_iteration(U)
+                rng = np.random.default_rng([seed, self._iteration])
+                with span("chiron.pt.swap"):
+                    self.mix_replicas(U, rng)
         if self._reporter is not None:
             self._reporter.flush_buffer()
         return self

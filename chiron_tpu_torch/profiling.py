@@ -1,10 +1,54 @@
 """Tracing and throughput instrumentation (port of
 ``chiron_tpu/profiling.py``).
 
+* :func:`span` -- a named section of the program, recorded while recording
+  is on (:func:`spanned`: each call of a function as one);
+  :func:`recording`, :func:`spans`, :func:`totals` and :func:`dropped` are
+  the operator's interface to the record;
 * :class:`Throughput` -- steps/s counters over measured sections;
 * :func:`trace` -- a context manager around ``torch.profiler`` that writes
   a Chrome/Perfetto trace of the host and the card;
-* :func:`timed` -- a wall-clock section timer.
+* :func:`timed` -- a wall-clock section timer that logs its time (and is a
+  span).
+
+Spans.  Recording is on while a ``torch.profiler`` profile records (not in
+a schedule's wait or warm-up steps) or inside ``with recording():``, which
+records in memory only, with no profiler: the cheap way to time the host's
+phases of a production run.  A span entered then appends ``(name, parent,
+t0_ns, t1_ns)`` to the record (``time.perf_counter_ns``; ``parent`` is the
+index of the enclosing span, or -1; ``t1_ns`` is None while it is open)
+and, under the profiler, also opens the annotation that
+``torch.profiler.record_function(name)`` opens, so the exported trace shows
+it as a ``user_annotation`` on the kernels' timeline.
+With recording off a span is one shared no-op object.  The record holds
+one session: the first span entered after recording was off starts a new
+one and replaces it, so ``spans()`` after a profiled window is that
+window's.  It keeps at most ``MAX_SPANS`` spans; ``dropped()`` counts the
+rest.  The recorder serves one thread.
+
+The program's spans (prefix ``chiron.``), on the paths of the culled
+runner and the tempering sampler:
+
+* ``chiron.segment``: a culled segment (``CulledLJRunner.segment_fn``'s
+  body, the megakernel's too); inside it ``chiron.sort`` (the torch sort),
+  ``chiron.build`` (``build_tile_pairs``) and the wrapper spans;
+* ``chiron.pt.iteration``: one pass of ``ParallelTemperingSampler.run``;
+  inside it ``chiron.pt.propagate``, ``chiron.pt.noise`` (each block of
+  noise the chain draws), ``chiron.pt.report`` and ``chiron.pt.swap``;
+* ``chiron.op.<kernel>``: a kernel wrapper's whole entry (its checks,
+  allocations, torch ops and the C call), ``<kernel>`` being its key in
+  ``ops._build.launches``: ``culled_md`` (``CulledLJMD.run_segment``),
+  ``sort_build``, ``mega_md`` (``lj_mega.mega_segment``) and
+  ``lj_dense_replicas`` (``LJDense.force_only_r``, ``force_energy_r``);
+* ``chiron.sync.<what>``: the host blocked on a device value:
+  ``latch`` (a culled runner's ``check``), ``step`` (``CullCarry.step_host``
+  read from the device) and ``energies`` (the tempering sampler's read of
+  U); its count is the count of such host syncs.
+
+>>> with recording():
+...     state = runner.run(state, 4000)
+>>> totals()["chiron.segment"]
+{'count': 100, 'total_s': ..., 'self_s': ...}
 
 Where JAX blocks on a ``sync`` array (``block_until_ready``), these take a
 CUDA synchronization: ``sync`` is a tensor (its device is synchronized), a
@@ -18,7 +62,9 @@ chains' NaN guard is the production mechanism in both packages).
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -27,6 +73,164 @@ from typing import Dict, List
 import torch
 
 log = logging.getLogger("chiron_tpu_torch")
+
+MAX_SPANS = 1 << 20
+_profiling = torch.autograd._profiler_enabled
+# the user annotation that ``record_function`` makes, at a third of its cost
+# under the profiler (no operator dispatch)
+_annotate = torch.autograd._record_function_with_args_enter
+_annotate_end = torch.autograd._record_function_with_args_exit
+
+
+class _Record:
+    """One session of spans: ``spans`` as [name, parent, t0_ns, t1_ns]
+    lists, the indices of the ``open`` ones, the count ``dropped`` past
+    ``MAX_SPANS``."""
+
+    __slots__ = ("spans", "open", "dropped")
+
+    def __init__(self):
+        self.spans: List[list] = []
+        self.open: List[int] = []
+        self.dropped = 0
+
+
+class _Recorder:
+    """The process's recorder: ``depth`` open ``recording()`` contexts, the
+    current ``record``, and ``fresh``: the next recorded span starts a new
+    session."""
+
+    __slots__ = ("depth", "record", "fresh")
+
+    def __init__(self):
+        self.depth = 0
+        self.record = _Record()
+        self.fresh = True
+
+
+_recorder = _Recorder()
+
+
+class _Off:
+    """The span while recording is off: one shared object, doing nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A span while recording is on."""
+
+    __slots__ = ("name", "record", "index", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        rec = _recorder
+        if rec.fresh:
+            rec.record, rec.fresh = _Record(), False
+        record = self.record = rec.record
+        self.annotation = _annotate(self.name) if _profiling() else None
+        spans = record.spans
+        if len(spans) < MAX_SPANS:
+            self.index = len(spans)
+            parent = record.open[-1] if record.open else -1
+            spans.append([self.name, parent, time.perf_counter_ns(), None])
+            record.open.append(self.index)
+        else:
+            self.index = -1
+            record.dropped += 1
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        record = self.record
+        if self.index >= 0:
+            record.spans[self.index][3] = t1
+            record.open.remove(self.index)
+        if self.annotation is not None:
+            _annotate_end(self.annotation)
+        return False
+
+
+def span(name: str):
+    """A context manager over a named section: recorded while recording is
+    on (see the module docstring), the shared no-op object otherwise."""
+    if _recorder.depth or _profiling():
+        return _Span(name)
+    _recorder.fresh = True
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorate a function so that each call is the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans in memory, with no profiler, inside the block; outside
+    any other recording, it starts a new session."""
+    rec = _recorder
+    if not (rec.depth or _profiling()):
+        rec.fresh = True
+    rec.depth += 1
+    try:
+        yield
+    finally:
+        rec.depth -= 1
+        if not (rec.depth or _profiling()):
+            rec.fresh = True
+
+
+def spans() -> List[tuple]:
+    """The record of the last session: ``(name, parent, t0_ns, t1_ns)`` a
+    span, in the order they were entered."""
+    return [tuple(s) for s in _recorder.record.spans]
+
+
+def dropped() -> int:
+    """The spans of the last session that ``MAX_SPANS`` left out."""
+    return _recorder.record.dropped
+
+
+def totals(start_ns: int = None, end_ns: int = None
+           ) -> Dict[str, Dict[str, float]]:
+    """Per span name in the record: ``count``, ``total_s`` and ``self_s``
+    (the spans' time less the time their children cover), closed spans
+    only, the longest total first; with ``start_ns``/``end_ns``
+    (``time.perf_counter_ns``), only the spans that start in between."""
+    record = spans()
+    lo = -math.inf if start_ns is None else start_ns
+    hi = math.inf if end_ns is None else end_ns
+    child_ns = [0] * len(record)
+    for name, parent, t0, t1 in record:
+        if parent >= 0 and t1 is not None:
+            child_ns[parent] += t1 - t0
+    out: Dict[str, Dict[str, float]] = {}
+    for i, (name, _, t0, t1) in enumerate(record):
+        if t1 is None or not lo <= t0 < hi:
+            continue
+        t = out.setdefault(name, dict(count=0, total_s=0.0, self_s=0.0))
+        t["count"] += 1
+        t["total_s"] += (t1 - t0) * 1e-9
+        t["self_s"] += (t1 - t0 - child_ns[i]) * 1e-9
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["total_s"]))
 
 
 def _synchronize(sync) -> None:
@@ -117,11 +321,12 @@ def trace(log_dir: str = "chiron_tpu_torch_trace"):
 @contextlib.contextmanager
 def timed(name: str, sync=None):
     """Wall-clock a section, synchronizing on ``sync`` so that device work
-    is counted."""
+    is counted, and log its time; the section is also the span ``name``."""
     _synchronize(sync)
     t0 = time.perf_counter()
-    yield
-    _synchronize(sync)
+    with span(name):
+        yield
+        _synchronize(sync)
     dt = time.perf_counter() - t0
     log.info("[timed] %s: %.4fs", name, dt)
 

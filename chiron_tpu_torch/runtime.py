@@ -62,6 +62,7 @@ from .ops.lj_dense import LJDense, box_diagonal
 from .ops.lj_mega import MegaWorkspace, check_mega_tiles, mega_segment
 from .ops.lj_strip import _PAD_X, StripLJMD, sort_by_key_strip, strip_wrap
 from .ops.sortbuild import MAX_N_PAD, sort_build
+from .profiling import span, spanned
 
 
 def _md_constants(temperature, timestep, collision_rate):
@@ -227,7 +228,8 @@ class CullCarry:
         if (noted is not None and noted[0] is self.step
                 and noted[1] == self._step_version()):
             return noted[2]
-        return int(self.step.reshape(-1)[0])
+        with span("chiron.sync.step"):
+            return int(self.step.reshape(-1)[0])
 
 
 def _culled_layout_init(md: CulledLJMD, dense: LJDense, positions,
@@ -388,7 +390,9 @@ class _CulledRunner:
         return ws
 
     def check(self, state):
-        if bool(state.overflowed):
+        with span("chiron.sync.latch"):
+            overflowed = bool(state.overflowed)
+        if overflowed:
             raise RuntimeError(
                 f"{self._INVARIANT} -- reduce segment_steps or increase "
                 "slack and re-run"
@@ -447,6 +451,7 @@ class CulledLJRunner(_CulledRunner):
         do_sort = seg_i % (self.rebuild_every * self.sort_every) == 0
         return do_sort, do_sort or seg_i % self.rebuild_every == 0
 
+    @spanned("chiron.segment")
     def _segment(self, carry: CullCarry, n_steps: int) -> CullCarry:
         if self.path == "megakernel":
             return self._mega_segment(carry, n_steps)
@@ -464,12 +469,15 @@ class CulledLJRunner(_CulledRunner):
         else:
             do_sort, do_rebuild = self.cadence(step_host)
             if do_sort:
-                xs, v3, F3, overflowed = self._sort(carry)
+                with span("chiron.sort"):
+                    xs, v3, F3, overflowed = self._sort(carry)
             else:
                 xs, v3, F3, overflowed = (carry.x, carry.v, carry.F,
                                           carry.overflowed)
             if do_rebuild:
-                pairs = md.build_pairs(xs, carry.box_diag[0], self.capacity)
+                with span("chiron.build"):
+                    pairs = md.build_pairs(xs, carry.box_diag[0],
+                                           self.capacity)
                 anchor = xs
             else:
                 pairs, anchor = carry.pairs, carry.x_anchor

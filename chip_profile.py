@@ -67,7 +67,18 @@ runner from it on the CPU).
 writes K3's segments (NVT, exact reciprocal, NpT), a megakernel segment and
 K10's and ``tile_build``'s outputs on its order from one state to ``OUT``
 and, given another tree's ``REF``, compares them bit for bit
-(``segment_dump``); it runs in the parent tree too.
+(``segment_dump``), with the culled pass (K4, K5) and a K3 segment on the
+benchmark's two culled shapes (``cull_states``: N=4000 on the pure-x key,
+and ``lammps_lj32k``, N=32,000 on 19 slabs); it runs in the parent tree too.
+
+    python3 chip_profile.py --cull-shapes OUT
+
+times the culled pair pass on ``cull_states``' shapes and a dense box
+(``cull_shapes``): profiler rows of 20 K4 calls, 20 K5 calls and one K3
+segment (S=40) each, and, where the tree's profiling keeps them, the pair
+counters of one K4 call; it writes each state's positions to
+``OUT/<shape>.npz`` for ``scripts/cull_work.py``.  It runs in the parent
+tree too.
 
     python3 chip_profile.py --general
 
@@ -419,6 +430,17 @@ def segment_dump(common, box, pos0, out, ref=None):
             arrays[f"strip{tm}_{H}_F"] = ls.strip_force(*a)
             F7, E7 = ls.strip_force_energy(*a)
             arrays[f"strip{tm}_{H}_F7"], arrays[f"strip{tm}_{H}_E7"] = F7, E7
+    for name, (r, c, lj_s) in cull_states(melt.device).items():
+        md = r.md
+        a = (c.x, c.box_diag, c.pairs, md.n, md.tm, md.tn, *lj_s)
+        arrays[f"{name}_F"] = lc.culled_force_pass(*a)[0]
+        arrays[f"{name}_F5"], arrays[f"{name}_E5"] = lc.culled_force_energy(*a)
+        for mode, kw in (("nvt", {}), ("exact", dict(approx_recip=False))):
+            got = md.run_segment(c.x, c.v, c.F, c.box_diag, c.pairs, SEED,
+                                 c.step + 7, SEGMENT_STEPS, drift_anchor=c.x,
+                                 drift_budget=md.slack_t, **kw)
+            arrays.update({f"{name}_{mode}_{k}": t for k, t in
+                           zip(("x", "v", "F", "flag"), got)})
     arrays = {k: t.cpu().numpy() for k, t in arrays.items()}
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez(out, **arrays)
@@ -436,6 +458,107 @@ def segment_dump(common, box, pos0, out, ref=None):
         if not same[k] and v.dtype == np.float32:
             print(f"  {k}: max abs difference "
                   f"{float(np.abs(v - other[k]).max())!r}")
+
+
+def cull_states(dev):
+    """The benchmark's two culled shapes, each melted by 1000 dense steps
+    (K1) from its lattice, then sorted and listed by its runner: a dict
+    of name -> (runner, carry, (sigma, epsilon, cutoff)).  ``lj4000``:
+    ``LennardJonesFluid(4000, 0.8)`` at 120 K on the pure-x key, slack 0.2,
+    128 x 256 (``lj4000.fused``'s runner, the list built in torch);
+    ``lj32k``: ``h100bench/configs/lammps_lj32k.json`` on the default
+    path, 19 slabs, slack 0.3, 128 x 256 (``lj32k.culled``'s runner); and
+    ``dense700``: N=700 at rho* 0.8 (a box of 2.7 reaches) at 16 x 64, a
+    row a lane."""
+    import json
+
+    from chiron_tpu_torch import units
+    from chiron_tpu_torch.runtime import (
+        make_culled_lj_runner,
+        make_fast_lj_runner,
+        make_lj_runner,
+    )
+    from chiron_tpu_torch.testsystems import LennardJonesFluid
+    from h100bench import systems
+    from h100bench.drivers import lj_objects
+
+    md_units = units.md_unit_system
+    out = {}
+    for name, n in (("lj4000", N), ("dense700", 700)):
+        fluid = LennardJonesFluid(nparticles=n, reduced_density=0.8)
+        box = fluid.box_vectors.value_in_unit_system(md_units)
+        common = dict(potential=fluid.potential, n_particles=n,
+                      topology=fluid.topology,
+                      temperature=120.0 * units.kelvin,
+                      timestep=2.0 * units.femtoseconds, device=dev)
+        fast = make_fast_lj_runner(**common)
+        melt = fast.positions(fast.run(fast.init(
+            fluid.positions.value_in_unit_system(md_units), box, seed=SEED),
+            MELT_STEPS))
+        tiles = dict(slack=0.2, tm=128, tn=256) if n == N else dict(
+            slack=0.15, tm=16, tn=64)
+        r = make_culled_lj_runner(segment_steps=SEGMENT_STEPS, sort_mode="x",
+                                  **tiles, **common)
+        pot = fluid.potential
+        out[name] = (r, r.init(melt, box, seed=SEED),
+                     (pot.sigma, pot.epsilon, pot.cutoff))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "h100bench", "configs", "lammps_lj32k.json")) as fh:
+        fluid = systems.fluid(json.load(fh))
+    pot, top, box = lj_objects(fluid)
+    common = dict(potential=pot, n_particles=fluid.n, topology=top,
+                  temperature=fluid.temperature, timestep=fluid.lng.dt,
+                  collision_rate=fluid.lng.gamma, device=dev)
+    fast = make_fast_lj_runner(**common)
+    melt = fast.positions(fast.run(fast.init(fluid.positions, box, seed=SEED),
+                                   MELT_STEPS))
+    r = make_lj_runner(engine="auto", segment_steps=SEGMENT_STEPS, slack=0.3,
+                       tm=128, tn=256, box_vectors=box, **common)
+    out["lj32k"] = (r, r.init(melt, box, seed=SEED),
+                    (pot.sigma, pot.epsilon, pot.cutoff))
+    return out
+
+
+def _pair_counters(fn):
+    """The pair counters of one call of ``fn`` under
+    ``profiling.recording()``, or None in a tree without them."""
+    from chiron_tpu_torch import profiling
+
+    if not hasattr(profiling, "counters"):
+        return None
+    with profiling.recording():
+        fn()
+    return profiling.counters()
+
+
+def cull_shapes(dev, out_dir):
+    """``--cull-shapes``: the culled pair pass's device time on
+    ``cull_states``' shapes."""
+    import numpy as np
+
+    from chiron_tpu_torch.ops import lj_cull as lc
+
+    os.makedirs(out_dir, exist_ok=True)
+    for name, (r, c, lj) in cull_states(dev).items():
+        md = r.md
+        n = md.n
+        np.savez(os.path.join(out_dir, f"{name}.npz"),
+                 positions=c.x[:, :n].T.cpu().numpy())
+        a = (c.x, c.box_diag, c.pairs, n, md.tm, md.tn, *lj)
+        print(f"{name}: n {n}, n_pad {md.n_pad}, {md.tm} x {md.tn}, nslab "
+              f"{r.nslab}, count {int(c.pairs.count)}, capacity "
+              f"{r.capacity}; pair counters of one K4 call: "
+              f"{_pair_counters(lambda: lc.culled_force_pass(*a))}")
+        _profile(f"{name} K4 (approx), 20 calls",
+                 lambda: [lc.culled_force_pass(*a) for _ in range(20)], 20)
+        _profile(f"{name} K5, 20 calls",
+                 lambda: [lc.culled_force_energy(*a) for _ in range(20)], 20)
+        ws = lc.SegmentWorkspace(md, r.capacity)
+        _profile(f"{name} K3's segment (S={SEGMENT_STEPS})",
+                 lambda: md.run_segment(
+                     c.x, c.v, c.F, c.box_diag, c.pairs, SEED, c.step,
+                     SEGMENT_STEPS, drift_anchor=c.x,
+                     drift_budget=md.slack_t, workspace=ws), SEGMENT_STEPS)
 
 
 def _strip_start(common, box, pos0):
@@ -963,6 +1086,11 @@ def main():
                   timestep=2.0 * units.femtoseconds, device=dev)
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--segment-dump":
         segment_dump(common, box, pos0, *sys.argv[2:])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--cull-shapes":
+        print(f"card before: {_card()}")
+        cull_shapes(dev, sys.argv[2])
+        print(f"card after: {_card()}")
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--general":
         general(dev)

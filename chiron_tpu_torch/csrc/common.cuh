@@ -148,6 +148,7 @@ struct CullMD {
   float dt, half_dt, a, b;
   float inv_sigma, sigma_fold, cutoff2_s, eps_scale, e_scale;
   int approx;
+  unsigned long long* work;  // (2,) the pair passes' work counts, or null
 };
 cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s);
 

@@ -61,10 +61,29 @@
 // design does about the pairs it need not compute: each warp holds the
 // bounding box of its rows (32 consecutive rows of the tile) against that
 // of the slice (cull:: in common.cuh) and skips the slice where they are
-// farther apart than the cutoff (in x alone, about a third of the listed
-// pairs at N=4000); inside, the LJ term runs only where some lane has a pair
-// within the cutoff (or a NaN distance, which must reach the sums as it did
-// before), decided warp-uniformly with __any_sync.
+// farther apart than the cutoff (about a third of the listed pairs at
+// N=4000, 55% at N=32,000 on 19 slabs); inside, the LJ term runs only where
+// some lane has a pair within the cutoff (or a NaN distance, which must
+// reach the sums as it did before), decided warp-uniformly with __any_sync.
+//
+// What the block's own work costs: at N=32,000 a block whose warps all
+// skip took half the pass's time, in its column sums over 32 row groups
+// and row sums over 4 column groups through shared memory, whose stores
+// fell in 4 and 8 banks of 32.  So the partial sums are laid out without
+// bank conflicts (Layout), and a skipped warp writes none: its sums are
+// +0, which leave a sum that starts at +0 as it is, so the reductions add
+// the warps that ran alone (a block whose warps all ran takes the loop with
+// no branch inside) and every sum keeps its bits.  Measured and left out
+// (PERF.md): the LJ term on each lane's own passing pairs alone, a
+// test phase into a mask and a walk of its set bits (0.07-0.10 of the
+// tested pairs' lanes against the vote's 0.47-0.75, yet 1.19-1.26 times the
+// time: a walk's round is a chain of dependent operations with no second
+// row to overlap), and the y and z images by compares in place of FRND
+// (2-4% slower: FRND's pipe is not the limit here).
+//
+// Where the caller gives `work`, each block adds the pairs it tested and
+// the lanes that ran its LJ term (32 RPT a voted q step) to work[0] and
+// work[1], with one integer atomic each (the profiling counters).
 //
 // The pair arithmetic is written op by op with the _rn intrinsics, so that
 // every instantiation rounds alike: the force of the energy instantiation
@@ -98,6 +117,7 @@ struct Params {
   float* energy;        // (1,) output energy, or null
   int n, n_pad, tm, tn, n_slices, n_chunks;
   float inv_sigma, sigma_fold, cutoff2_s, cull2_s, eps_scale, e_scale;
+  unsigned long long* work;  // (2,) pairs tested, LJ lanes; or null
 };
 
 // x folded into the frame centered on cx and prescaled: the plain
@@ -119,67 +139,93 @@ struct Geometry {
   int n;
 };
 
+// The block's partial sums in shared memory (red): row group rg's sums of
+// column t at col(rg, a, t), column group cg's of row r at row(cg, a, r).
+// The strides are padded so that a warp's stores fall in distinct banks: a
+// warp holds 32 / KCG row groups and KCG column groups, and rows RPT apart,
+// so with 3 CS = KCG and 3 RS = the warp's row span (or 1 where it spans 32
+// rows) mod 32, its stores of a column's sums, and of a row's, take 32
+// banks (tm 128: 76 and 139 floats, where 64 and 128 took 4 and 8); the
+// reductions read consecutive t (r) and take 32 banks either way.
+template <int RPT, int KRG>
+struct Layout {
+  static constexpr int KCG = kThreads / KRG, TR = KRG * RPT;
+  static constexpr int kSpan = (32 / KCG) * RPT < 32 ? (32 / KCG) * RPT : 1;
+  static constexpr int CS = kSlice + (11 * KCG) % 32;  // 3 x 11 = 1 mod 32
+  static constexpr int RS = TR + ((11 * kSpan - TR) % 32 + 32) % 32;
+  static constexpr int kFloats =
+      KRG * 3 * CS > KCG * 3 * RS ? KRG * 3 * CS : KCG * 3 * RS;
+  __device__ static __forceinline__ int col(int rg, int a, int t) {
+    return (rg * 3 + a) * CS + t;
+  }
+  __device__ static __forceinline__ int row(int cg, int a, int r) {
+    return (cg * 3 + a) * RS + r;
+  }
+};
+
 // The thread's RPT rows against its columns t = cg + KCG q of the staged
 // slice; the row sums stay in fx/fy/fz, each column's sum over the RPT rows
-// goes to red[(rg 3 + a) kSlice + t].  kGeneral adds the col > row, col < n
-// mask and the r^2 clamp.  skip (warp-uniform) writes zero column sums.
+// goes to red[L::col(rg, a, t)].  kGeneral adds the col > row, col < n mask
+// and the r^2 clamp.  Returns the q steps whose vote ran the LJ term.
 template <int RPT, int KRG, bool kEnergy, bool kApprox, bool kGeneral>
-__device__ __forceinline__ void slice_pairs(
+__device__ __forceinline__ int slice_pairs(
     const float4* __restrict__ sc, float* __restrict__ red, int width,
-    int rg, int cg, int rid0, int cid0, bool skip, const Geometry& g,
+    int rg, int cg, int rid0, int cid0, const Geometry& g,
     const float (&xi)[RPT], const float (&yi)[RPT], const float (&zi)[RPT],
     float (&fx)[RPT], float (&fy)[RPT], float (&fz)[RPT], float& ea) {
   constexpr int KCG = kThreads / KRG;
+  using L = Layout<RPT, KRG>;
+  int voted = 0;
   for (int q = 0; q < width / KCG; ++q) {
     const int t = cg + KCG * q;
     float cxs = 0.0f, cys = 0.0f, czs = 0.0f;
-    if (!skip) {
-      const float4 c = sc[t];
-      float dx[RPT], dy[RPT], dz[RPT], r2[RPT];
-      bool m[RPT];
-      bool any = false;
+    const float4 c = sc[t];
+    float dx[RPT], dy[RPT], dz[RPT], r2[RPT];
+    bool m[RPT];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) {
+      dx[u] = __fsub_rn(xi[u], c.x);
+      dy[u] = fold_yz(__fsub_rn(yi[u], c.y), g.Lys, g.two_inv_Lys);
+      dz[u] = fold_yz(__fsub_rn(zi[u], c.z), g.Lzs, g.two_inv_Lzs);
+      r2[u] = __fmaf_rn(dz[u], dz[u],
+                        __fmaf_rn(dy[u], dy[u], __fmul_rn(dx[u], dx[u])));
+      m[u] = r2[u] < g.cutoff2_s;
+      if constexpr (kGeneral) {
+        const int cid = cid0 + t;
+        m[u] = m[u] && cid > rid0 + u && cid < g.n;
+      }
+      any = any || m[u] || r2[u] != r2[u];
+    }
+    if (__any_sync(kFull, any)) {
+      ++voted;
 #pragma unroll
       for (int u = 0; u < RPT; ++u) {
-        dx[u] = __fsub_rn(xi[u], c.x);
-        dy[u] = fold_yz(__fsub_rn(yi[u], c.y), g.Lys, g.two_inv_Lys);
-        dz[u] = fold_yz(__fsub_rn(zi[u], c.z), g.Lzs, g.two_inv_Lzs);
-        r2[u] = __fmaf_rn(dz[u], dz[u],
-                          __fmaf_rn(dy[u], dy[u], __fmul_rn(dx[u], dx[u])));
-        m[u] = r2[u] < g.cutoff2_s;
-        if constexpr (kGeneral) {
-          const int cid = cid0 + t;
-          m[u] = m[u] && cid > rid0 + u && cid < g.n;
-        }
-        any = any || m[u] || r2[u] != r2[u];
-      }
-      if (__any_sync(kFull, any)) {
-#pragma unroll
-        for (int u = 0; u < RPT; ++u) {
-          const float r2s = kGeneral ? fmaxf(r2[u], 1e-4f) : r2[u];
-          const float seed = rcp_approx(r2s);
-          const float inv = kApprox ? seed : lj_newton2(r2s, seed);
-          const float i6 = __fmul_rn(__fmul_rn(inv, inv), inv);
-          const float coef =
-              m[u] ? __fmul_rn(__fmul_rn(__fsub_rn(i6, 0.5f), i6), inv) : 0.0f;
-          fx[u] = __fmaf_rn(coef, dx[u], fx[u]);
-          fy[u] = __fmaf_rn(coef, dy[u], fy[u]);
-          fz[u] = __fmaf_rn(coef, dz[u], fz[u]);
-          cxs = __fmaf_rn(coef, dx[u], cxs);
-          cys = __fmaf_rn(coef, dy[u], cys);
-          czs = __fmaf_rn(coef, dz[u], czs);
-          if constexpr (kEnergy) {
-            const float inv_e = kApprox ? lj_newton2(r2s, seed) : inv;
-            const float i6e = __fmul_rn(__fmul_rn(inv_e, inv_e), inv_e);
-            ea = __fadd_rn(ea, m[u] ? __fmul_rn(__fsub_rn(i6e, 1.0f), i6e)
-                                    : 0.0f);
-          }
+        const float r2s = kGeneral ? fmaxf(r2[u], 1e-4f) : r2[u];
+        const float seed = rcp_approx(r2s);
+        const float inv = kApprox ? seed : lj_newton2(r2s, seed);
+        const float i6 = __fmul_rn(__fmul_rn(inv, inv), inv);
+        const float coef =
+            m[u] ? __fmul_rn(__fmul_rn(__fsub_rn(i6, 0.5f), i6), inv) : 0.0f;
+        fx[u] = __fmaf_rn(coef, dx[u], fx[u]);
+        fy[u] = __fmaf_rn(coef, dy[u], fy[u]);
+        fz[u] = __fmaf_rn(coef, dz[u], fz[u]);
+        cxs = __fmaf_rn(coef, dx[u], cxs);
+        cys = __fmaf_rn(coef, dy[u], cys);
+        czs = __fmaf_rn(coef, dz[u], czs);
+        if constexpr (kEnergy) {
+          const float inv_e = kApprox ? lj_newton2(r2s, seed) : inv;
+          const float i6e = __fmul_rn(__fmul_rn(inv_e, inv_e), inv_e);
+          ea = __fadd_rn(ea, m[u] ? __fmul_rn(__fsub_rn(i6e, 1.0f), i6e)
+                                  : 0.0f);
         }
       }
     }
-    red[(rg * 3 + 0) * kSlice + t] = cxs;
-    red[(rg * 3 + 1) * kSlice + t] = cys;
-    red[(rg * 3 + 2) * kSlice + t] = czs;
+    red[L::col(rg, 0, t)] = cxs;
+    red[L::col(rg, 1, t)] = cys;
+    red[L::col(rg, 2, t)] = czs;
   }
+  return voted;
 }
 
 // A block of KRG row groups x KCG column groups, RPT rows a row group
@@ -190,11 +236,15 @@ template <int RPT, int KRG, bool kEnergy, bool kApprox>
 __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
   constexpr int KCG = kThreads / KRG;
   constexpr int TR = KRG * RPT;
-  static_assert(KCG * RPT <= kSlice, "row partials must fit the buffer");
   __shared__ float4 sc[kSlice];
-  __shared__ float red[KRG * 3 * kSlice];
+  using L = Layout<RPT, KRG>;
+  __shared__ float red[L::kFloats];
+  constexpr int kWarps = kThreads / 32;
+  constexpr int RGW = 32 / KCG;  // row groups a warp
   __shared__ float sbox[7];
-  __shared__ float scratch[kThreads / 32];
+  __shared__ float scratch[kWarps];
+  __shared__ int wlive[kWarps];
+  __shared__ unsigned long long swork[2][kWarps];
   const int item = blockIdx.x / p.n_chunks;
   const int chunk = blockIdx.x - item * p.n_chunks;
   const int k = item / p.n_slices;  // < capacity: the list's arrays hold it
@@ -281,40 +331,79 @@ __global__ void __launch_bounds__(kThreads) cull_pairs(Params p) {
   const bool skip = cull::apart(rbox, cbox, per, iper, p.cull2_s);
 
   [[maybe_unused]] float ea = 0.0f;
-  if (general) {
-    slice_pairs<RPT, KRG, kEnergy, kApprox, true>(
-        sc, red, width, rg, cg, rid0, col0, skip, g, xi, yi, zi, fx, fy, fz,
-        ea);
-  } else {
-    slice_pairs<RPT, KRG, kEnergy, kApprox, false>(
-        sc, red, width, rg, cg, rid0, col0, skip, g, xi, yi, zi, fx, fy, fz,
-        ea);
+  int voted = 0;  // warp-uniform
+  if (!skip) {
+    voted = general ? slice_pairs<RPT, KRG, kEnergy, kApprox, true>(
+                          sc, red, width, rg, cg, rid0, col0, g, xi, yi, zi,
+                          fx, fy, fz, ea)
+                    : slice_pairs<RPT, KRG, kEnergy, kApprox, false>(
+                          sc, red, width, rg, cg, rid0, col0, g, xi, yi, zi,
+                          fx, fy, fz, ea);
+  }
+  const int warp = tid >> 5;
+  if ((tid & 31) == 0) {
+    wlive[warp] = !skip;
+    swork[0][warp] = skip ? 0ull : 32ull * RPT * (width / KCG);
+    swork[1][warp] = 32ull * RPT * voted;
   }
   __syncthreads();
+  // the warps that ran; a skipped warp's sums are all +0, which leave a sum
+  // that starts at +0 as it is, so it takes no part in the reductions
+  unsigned live = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) live |= wlive[w] ? 1u << w : 0u;
   // the slice's column sums over the row groups, in order
   float* Rk =
       p.R + static_cast<size_t>(k * p.n_chunks + chunk) * 3 * tn + c0;
   for (int idx = tid; idx < 3 * width; idx += kThreads) {
     const int a = idx / width, t = idx - a * width;
     float sum = 0.0f;
-    for (int r = 0; r < KRG; ++r) sum += red[(r * 3 + a) * kSlice + t];
+    if (live == (1u << kWarps) - 1) {  // block-uniform: no branch inside
+#pragma unroll
+      for (int r = 0; r < KRG; ++r) sum += red[L::col(r, a, t)];
+    } else {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (!(live >> w & 1u)) continue;
+#pragma unroll
+        for (int j = 0; j < RGW; ++j) sum += red[L::col(w * RGW + j, a, t)];
+      }
+    }
     Rk[a * tn + t] = sum;
   }
-  __syncthreads();
-  // the chunk's rows' sums over the column groups, in order
+  if (p.work != nullptr && tid == 0) {
+    unsigned long long tested = 0, lanes = 0;
 #pragma unroll
-  for (int u = 0; u < RPT; ++u) {
-    const int r = rg * RPT + u;
-    red[(cg * 3 + 0) * TR + r] = fx[u];
-    red[(cg * 3 + 1) * TR + r] = fy[u];
-    red[(cg * 3 + 2) * TR + r] = fz[u];
+    for (int w = 0; w < kWarps; ++w) {
+      tested += swork[0][w];
+      lanes += swork[1][w];
+    }
+    atomicAdd(p.work, tested);
+    atomicAdd(p.work + 1, lanes);
+  }
+  __syncthreads();
+  // the chunk's rows' sums over the column groups, in order (a skipped
+  // warp's rows: +0)
+  if (!skip) {
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) {
+      const int r = rg * RPT + u;
+      red[L::row(cg, 0, r)] = fx[u];
+      red[L::row(cg, 1, r)] = fy[u];
+      red[L::row(cg, 2, r)] = fz[u];
+    }
   }
   __syncthreads();
   float* Pk = p.P + static_cast<size_t>(item) * 3 * tm + chunk * TR;
   for (int idx = tid; idx < 3 * TR; idx += kThreads) {
     const int a = idx / TR, r = idx - a * TR;
     float sum = 0.0f;
-    for (int c = 0; c < KCG; ++c) sum += red[(c * 3 + a) * TR + r];
+    if (live >> (r / RPT / RGW) & 1u) {
+#pragma unroll
+      for (int c = 0; c < KCG; ++c) {
+        sum += red[L::row(c, a, r)];
+      }
+    }
     Pk[a * tm + r] = sum;
   }
   if constexpr (kEnergy) {
@@ -549,7 +638,7 @@ cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s) {
   Params p{m.x, m.box, m.rows, m.cols, m.ccx, m.ptr2, m.rowcx, m.count, m.P,
            m.R, m.e_part, m.F, nullptr, m.n, m.n_pad, m.tm, m.tn, n_slices,
            n_chunks, m.inv_sigma, m.sigma_fold, m.cutoff2_s,
-           m.cutoff2_s * cull::kRaise, m.eps_scale, m.e_scale};
+           m.cutoff2_s * cull::kRaise, m.eps_scale, m.e_scale, m.work};
   Step st{m.x, m.w, m.minv, m.sigv, m.step_offset, m.seed, 0,
           m.dt, m.half_dt, m.a, m.b};
   const int blocks = m.capacity * n_slices * n_chunks;
@@ -575,14 +664,15 @@ cudaError_t cull_md_steps(const CullMD& m, cudaStream_t s) {
 // 64) and C = tm / row_chunk(tm): P: (capacity S, 3, tm) f32; R: (capacity
 // C, 3, tn) f32; e_part: (capacity S C,) f32; energy: (1,) f32 or null.  tm
 // must be 16, 32, 64 or a multiple of 128 and tn a multiple of 16.  approx
-// sets the force's reciprocal; the energy's is always exact.
+// sets the force's reciprocal; the energy's is always exact.  work: (2,)
+// u64 that the pass adds its pairs tested and LJ lanes to, or null.
 CHIRON_EXPORT int chiron_cull_force(
     const float* x, const float* box, const int* rows, const int* cols,
     const float* ccx, const int* ptr2, const float* rowcx, const int* count,
     float* P, float* R, float* e_part, float* F, float* energy, int n,
     int n_pad, int tm, int tn, int capacity, float inv_sigma,
     float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
-    int approx, void* stream) {
+    int approx, unsigned long long* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!tiles_ok(tm, tn, capacity)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -592,7 +682,7 @@ CHIRON_EXPORT int chiron_cull_force(
   const Params p{x, box, rows, cols, ccx, ptr2, rowcx, count, P, R, e_part,
                  F, energy, n, n_pad, tm, tn, n_slices, n_chunks, inv_sigma,
                  sigma_fold, cutoff2_s, cutoff2_s * cull::kRaise, eps_scale,
-                 e_scale};
+                 e_scale, work};
   const cudaError_t err =
       launch_pairs(p, capacity * n_slices * n_chunks, approx != 0, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -608,7 +698,8 @@ CHIRON_EXPORT int chiron_cull_force(
 // pass's scratch (P, R, e_part) are as chiron_cull_force takes them;
 // latch_part and ticket as drift_latch takes them; energy: (1,) f32, the
 // last step's exact energy, or null.  x, w, F: (3, n_pad) f32, none
-// aliasing x_in, F_in or anchor; n_pad even.
+// aliasing x_in, F_in or anchor; n_pad even; work as chiron_cull_force
+// takes it, added to by every step.
 CHIRON_EXPORT int chiron_cull_md_segment(
     const float* x_in, const float* F_in, float* x, float* w, float* F,
     const float* minv, const float* sigv, const float* box,
@@ -619,7 +710,7 @@ CHIRON_EXPORT int chiron_cull_md_segment(
     unsigned* ticket, bool* flag, int n, int n_pad, int tm, int tn,
     int capacity, float dt, float half_dt, float a, float b, float inv_sigma,
     float sigma_fold, float cutoff2_s, float eps_scale, float e_scale,
-    int approx, void* stream) {
+    int approx, unsigned long long* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = sizeof(float) * 3 * static_cast<size_t>(n_pad);
   cudaError_t err =
@@ -631,7 +722,7 @@ CHIRON_EXPORT int chiron_cull_md_segment(
   const CullMD m{x, w, F, minv, sigv, box, step_offset, seed, n_steps, rows,
                  cols, ccx, ptr2, rowcx, count, P, R, e_part, energy, n,
                  n_pad, tm, tn, capacity, dt, half_dt, a, b, inv_sigma,
-                 sigma_fold, cutoff2_s, eps_scale, e_scale, approx};
+                 sigma_fold, cutoff2_s, eps_scale, e_scale, approx, work};
   err = cull_md_steps(m, s);
   if (err == cudaSuccess && flag != nullptr) {
     err = drift_latch(x, anchor, box, n, n_pad, threshold, latch_part, ticket,

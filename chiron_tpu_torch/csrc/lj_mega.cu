@@ -228,7 +228,8 @@ CHIRON_EXPORT int chiron_mega_repair(const float* x, const float* w,
 // latch's (latch_part, ticket, as chiron_drift takes them) and the repair's
 // (keys, idx, or null where chiron_repair_scratch_lanes is 0) are the
 // caller's; threshold: (1,) f32 drift slack on the device; drift_bad: (1,)
-// bool scratch; flag: (1,) bool, the build's latch or the drift latch.
+// bool scratch; flag: (1,) bool, the build's latch or the drift latch;
+// work: (2,) u64 pair-work counts as chiron_cull_force takes them, or null.
 CHIRON_EXPORT int chiron_mega_segment(
     const float* x_in, const float* w_in, const float* F_in, float* x,
     float* w, float* F, float* xo, float* wo, float* Fo, const float* minv,
@@ -240,14 +241,14 @@ CHIRON_EXPORT int chiron_mega_segment(
     int tm, int tn, int capacity, float cutoff, float slack, float reach2,
     float dt, float half_dt, float a, float b, float inv_sigma,
     float sigma_fold, float cutoff2_s, float eps_scale, int approx,
-    int repair_passes, void* stream) {
+    int repair_passes, unsigned long long* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = sizeof(float) * 3 * static_cast<size_t>(n_pad);
   cudaError_t err = cudaSuccess;
   const float* ins[3] = {x_in, w_in, F_in};
-  float* work[3] = {x, w, F};
+  float* outs[3] = {x, w, F};
   for (int q = 0; q < 3 && err == cudaSuccess; ++q) {
-    err = cudaMemcpyAsync(work[q], ins[q], bytes, cudaMemcpyDeviceToDevice, s);
+    err = cudaMemcpyAsync(outs[q], ins[q], bytes, cudaMemcpyDeviceToDevice, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const tile_build::Params bp{x_in, box, rows, cols, ccx, ptr2, rowcx, count,
@@ -258,7 +259,7 @@ CHIRON_EXPORT int chiron_mega_segment(
   const CullMD m{x, w, F, minv, sigv, box, step_offset, seed, n_steps, rows,
                  cols, ccx, ptr2, rowcx, count, P, R, e_part, nullptr, n,
                  n_pad, tm, tn, capacity, dt, half_dt, a, b, inv_sigma,
-                 sigma_fold, cutoff2_s, eps_scale, 0.0f, approx};
+                 sigma_fold, cutoff2_s, eps_scale, 0.0f, approx, work};
   err = cull_md_steps(m, s);
   if (err == cudaSuccess) {
     err = drift_latch(x, x_in, box, n, n_pad, threshold, latch_part, ticket,

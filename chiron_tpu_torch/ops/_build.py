@@ -48,14 +48,14 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
     "chiron_cull_force": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P),
+        _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P),
     "chiron_baoab": (
         _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _F, _F, _F, _F, _P),
     "chiron_cull_md_segment": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P),
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P),
     "chiron_drift": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "chiron_band_force": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -86,7 +86,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P),
 }
 
 

@@ -30,7 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..profiling import spanned
+from ..profiling import cull_work, spanned
 from . import _build
 from .diff import energy_with_force_gradient
 
@@ -386,6 +386,7 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
     F, P, R, e_part, energy = cull_buffers(n_pad, tm, tn, capacity,
                                            with_energy, x3.device)
     inv_sigma = 1.0 / sigma
+    work = cull_work(x3.device)
     _build.launch(
         kernel, "chiron_cull_force",
         x3.data_ptr(), box_diag.data_ptr(), *list_pointers(pairs, False),
@@ -393,7 +394,8 @@ def _cull_force_launch(kernel: str, x3, box_diag, pairs: TilePairList, n: int,
         None if energy is None else energy.data_ptr(),
         n, n_pad, tm, tn, capacity, inv_sigma, 1.0 / inv_sigma,
         (cutoff / sigma) ** 2, 48.0 * epsilon / sigma, 4.0 * epsilon,
-        int(approx_recip), _build.stream_of(x3),
+        int(approx_recip), None if work is None else work.data_ptr(),
+        _build.stream_of(x3),
     )
     return F, (energy[0] if with_energy else None)
 
@@ -802,6 +804,7 @@ class CulledLJMD:
         energy = (torch.empty(1, dtype=torch.float32, device=dev)
                   if final_energy else None)
         inv_sigma = 1.0 / self.sigma
+        work = cull_work(dev)
         _build.launch(
             "culled_md", "chiron_cull_md_segment",
             x3.data_ptr(), f3.data_ptr(), x.data_ptr(), w.data_ptr(),
@@ -817,7 +820,8 @@ class CulledLJMD:
             self.n, n_pad, self.tm, self.tn, capacity, self.dt, half_dt,
             self.a, self.b, inv_sigma, 1.0 / inv_sigma,
             (self.cutoff / self.sigma) ** 2, 48.0 * self.epsilon / self.sigma,
-            4.0 * self.epsilon, int(approx_recip), _build.stream_of(x3),
+            4.0 * self.epsilon, int(approx_recip),
+            None if work is None else work.data_ptr(), _build.stream_of(x3),
             enqueued=segment_launches(n_steps, flag is not None),
         )
         out = [x, w + half_dt * F * self.minv, F]

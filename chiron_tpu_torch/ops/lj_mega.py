@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..profiling import spanned
+from ..profiling import cull_work, spanned
 from . import _build
 from .lj_cull import (
     _MASK32,
@@ -226,6 +226,7 @@ def mega_segment(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
     flag = torch.empty((), dtype=torch.bool, device=dev)
     inv_sigma = 1.0 / md.sigma
     ws = workspace
+    work = cull_work(dev)
     _build.launch(
         "mega_md", "chiron_mega_segment",
         x3.data_ptr(), w3.data_ptr(), f3.data_ptr(),
@@ -240,7 +241,8 @@ def mega_segment(md: CulledLJMD, x3, w3, f3, box_diag, capacity: int,
         md.cutoff, md.slack, (md.cutoff + md.slack) ** 2,
         md.dt, md.dt * 0.5, md.a, md.b, inv_sigma, 1.0 / inv_sigma,
         (md.cutoff / md.sigma) ** 2, 48.0 * md.epsilon / md.sigma,
-        int(approx_recip), repair_passes, _build.stream_of(x),
+        int(approx_recip), repair_passes,
+        None if work is None else work.data_ptr(), _build.stream_of(x),
         enqueued=(("tile_build", 1), *segment_launches(n_steps, True),
                   ("mega_repair", 1)),
     )

@@ -3,8 +3,8 @@
 
 * :func:`span` -- a named section of the program, recorded while recording
   is on (:func:`spanned`: each call of a function as one);
-  :func:`recording`, :func:`spans`, :func:`totals` and :func:`dropped` are
-  the operator's interface to the record;
+  :func:`recording`, :func:`spans`, :func:`totals`, :func:`dropped` and
+  :func:`counters` are the operator's interface to the record;
 * :class:`Throughput` -- steps/s counters over measured sections;
 * :func:`trace` -- a context manager around ``torch.profiler`` that writes
   a Chrome/Perfetto trace of the host and the card;
@@ -44,6 +44,19 @@ runner and the tempering sampler:
   ``latch`` (a culled runner's ``check``), ``step`` (``CullCarry.step_host``
   read from the device) and ``energies`` (the tempering sampler's read of
   U); its count is the count of such host syncs.
+
+Counters.  While recording is on, the culled pair pass's wrappers
+(``CulledLJMD.run_segment``, ``culled_force_pass``, ``culled_force_energy``,
+``lj_mega.mega_segment``) hand their kernels the session's device buffer of
+:func:`cull_work`, to which every pair block adds, with one integer atomic
+each, the pairs it tested and the lanes that ran its LJ term; off, they
+pass null.  :func:`counters` reads the totals once, when asked:
+
+* ``chiron.count.cull_pairs_tested``: pairs that took the distance test
+  (the listed pairs of the warps the bounding-box cull kept);
+* ``chiron.count.cull_force_lanes``: lanes that ran the LJ term, 32 RPT
+  (rows a lane) a column step whose warp vote passed
+  (``csrc/lj_cull_force.cu``, ``scripts/cull_work.py``).
 
 >>> with recording():
 ...     state = runner.run(state, 4000)
@@ -87,12 +100,13 @@ class _Record:
     lists, the indices of the ``open`` ones, the count ``dropped`` past
     ``MAX_SPANS``."""
 
-    __slots__ = ("spans", "open", "dropped")
+    __slots__ = ("spans", "open", "dropped", "counts")
 
     def __init__(self):
         self.spans: List[list] = []
         self.open: List[int] = []
         self.dropped = 0
+        self.counts: Dict[torch.device, torch.Tensor] = {}
 
 
 class _Recorder:
@@ -109,6 +123,18 @@ class _Recorder:
 
 
 _recorder = _Recorder()
+
+# the counters of cull_work's buffer, in its order
+CULL_WORK = ("chiron.count.cull_pairs_tested", "chiron.count.cull_force_lanes")
+
+
+def _session() -> _Record:
+    """The current session's record; the first call after recording was
+    off starts a new one."""
+    rec = _recorder
+    if rec.fresh:
+        rec.record, rec.fresh = _Record(), False
+    return rec.record
 
 
 class _Off:
@@ -135,10 +161,7 @@ class _Span:
         self.name = name
 
     def __enter__(self):
-        rec = _recorder
-        if rec.fresh:
-            rec.record, rec.fresh = _Record(), False
-        record = self.record = rec.record
+        record = self.record = _session()
         self.annotation = _annotate(self.name) if _profiling() else None
         spans = record.spans
         if len(spans) < MAX_SPANS:
@@ -202,6 +225,29 @@ def spans() -> List[tuple]:
     """The record of the last session: ``(name, parent, t0_ns, t1_ns)`` a
     span, in the order they were entered."""
     return [tuple(s) for s in _recorder.record.spans]
+
+
+def cull_work(device):
+    """While recording is on, the session's (2,) int64 buffer on ``device``
+    that the culled pair kernels add their work to (``CULL_WORK``), made on
+    first use; None while it is off."""
+    if not (_recorder.depth or _profiling()):
+        return None
+    counts = _session().counts
+    buf = counts.get(device)
+    if buf is None:
+        buf = counts[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return buf
+
+
+def counters() -> Dict[str, int]:
+    """The last session's counters, summed over its devices (each
+    device's buffer read once); empty where no kernel counted."""
+    out: Dict[str, int] = {}
+    for buf in _recorder.record.counts.values():
+        for name, value in zip(CULL_WORK, buf.tolist()):
+            out[name] = out.get(name, 0) + value
+    return out
 
 
 def dropped() -> int:

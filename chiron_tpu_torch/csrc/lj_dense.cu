@@ -47,6 +47,11 @@
 // A culled pair or a skipped LJ term adds nothing where the full pass would
 // add zero, so the function is unchanged.
 //
+// Where the caller gives `work` (the profiling counters), each block adds
+// the chunks its warps visited and those that passed the cull (the chunks
+// tested) to work[0] and work[1], one integer atomic each; the counts are
+// kept either way, so the force and energy do not depend on it.
+//
 // Replicas (chiron_lj_dense's n_rep): blockIdx.y is the replica, and a block
 // first moves pos, box, rows, force and e_part to its replica's arrays, so
 // block (x, r) does what block x of a single-system launch on replica r's
@@ -149,9 +154,10 @@ __global__ void __launch_bounds__(kRows * kWarps, 1)
 lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
               const float* __restrict__ rows, float* __restrict__ force,
               int rs, int off, float* __restrict__ e_part, int n, int n_pad,
-              Lj lj) {
+              Lj lj, unsigned long long* __restrict__ work) {
   __shared__ float4 stage[kWarps][kChunk];
   __shared__ float red[kWarps][4][kRows];
+  __shared__ unsigned swork[2][kWarps];
   const size_t rep = blockIdx.y;
   pos += rep * 3 * n_pad;
   box += rep * 3;
@@ -181,6 +187,7 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
     ny = pos[n_pad + col];
     nz = pos[2 * n_pad + col];
   }
+  unsigned visited = 0, tested = 0;
   for (int c = g; c < n_chunks; c += kWarps) {
     const float xj = nx, yj = ny, zj = nz;
     if (c + kWarps < n_chunks) {
@@ -192,7 +199,9 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
     cull::BoxAcc cacc(__shfl_sync(kFull, xj, 0), __shfl_sync(kFull, yj, 0),
                       __shfl_sync(kFull, zj, 0));
     cacc.add(xj, yj, zj, L, iL);
+    ++visited;
     if (cull::apart(rbox, cacc.reduce(), L, iL, lj.cull2)) continue;
+    ++tested;
     __syncwarp();  // the previous chunk's columns have been read
     stage[g][lane] = make_float4(xj, yj, zj, 0.0f);
     __syncwarp();
@@ -212,6 +221,10 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
   red[g][1][lane] = fy;
   red[g][2][lane] = fz;
   red[g][3][lane] = e - ec;
+  if (lane == 0) {
+    swork[0][g] = visited;
+    swork[1][g] = tested;
+  }
   __syncthreads();
   if (g == 0) {
     float sfx = 0.0f, sfy = 0.0f, sfz = 0.0f;
@@ -233,6 +246,15 @@ lj_dense_rows(const float* __restrict__ pos, const float* __restrict__ box,
       kahan_add(acc, comp, __shfl_sync(kFull, mine, l));
     if (lane == 0) e_part[blockIdx.x] = acc - comp;
   }
+  if (work != nullptr && g == kWarps - 1 && lane == 0) {
+    unsigned long long v = 0, t = 0;
+    for (int k = 0; k < kWarps; ++k) {
+      v += swork[0][k];
+      t += swork[1][k];
+    }
+    atomicAdd(work, v);
+    atomicAdd(work + 1, t);
+  }
 }
 
 // The rows [off, off + n_rows) of a launch: their positions, their force
@@ -246,11 +268,12 @@ struct Rows {
 template <bool kDivide, bool kApprox, bool kEnergy>
 cudaError_t launch_rows(const float* pos, const float* box, const Rows& rows,
                         int n_rows, int n_rep, float* e_part, int n, int n_pad,
-                        const Lj& lj, cudaStream_t s) {
+                        const Lj& lj, unsigned long long* work,
+                        cudaStream_t s) {
   lj_dense_rows<kDivide, kApprox, kEnergy>
       <<<dim3(n_rows / kRows, n_rep), dim3(kRows, kWarps), 0, s>>>(
           pos, box, rows.pos, rows.force, rows.rs, rows.off, e_part, n, n_pad,
-          lj);
+          lj, work);
   return cudaGetLastError();
 }
 
@@ -260,12 +283,13 @@ template <bool kApprox>
 cudaError_t launch_pass(const float* pos, const float* box, const Rows& rows,
                         int n_rows, int n_rep, float* e_part, float* energy,
                         int n, int n_pad, const Lj& lj, int with_energy,
-                        float e_scale, cudaStream_t s) {
+                        float e_scale, unsigned long long* work,
+                        cudaStream_t s) {
   if (!with_energy)
     return launch_rows<false, kApprox, false>(pos, box, rows, n_rows, n_rep,
-                                              e_part, n, n_pad, lj, s);
+                                              e_part, n, n_pad, lj, work, s);
   cudaError_t err = launch_rows<false, kApprox, true>(
-      pos, box, rows, n_rows, n_rep, e_part, n, n_pad, lj, s);
+      pos, box, rows, n_rows, n_rep, e_part, n, n_pad, lj, work, s);
   if (err != cudaSuccess) return err;
   partial_sum<kSumThreads><<<n_rep, kSumThreads, 0, s>>>(
       e_part, n_rows / kRows, e_scale, energy);
@@ -281,7 +305,8 @@ cudaError_t lj_dense_force_divide(const float* pos, const float* box,
   const Lj lj{sigma2, coef_scale, 0.0f, cutoff2, r2_floor,
               cutoff2 * cull::kRaise};
   return launch_rows<true, true, false>(pos, box, Rows{pos, force, n_pad, 0},
-                                        n_pad, 1, nullptr, n, n_pad, lj, s);
+                                        n_pad, 1, nullptr, n, n_pad, lj,
+                                        nullptr, s);
 }
 
 // K1 and K2 over n_rep replicas in one launch (n_rep = 1 for a single
@@ -290,22 +315,22 @@ cudaError_t lj_dense_force_divide(const float* pos, const float* box,
 // n_pad / 32) f32 scratch; energy (n_rep,) f32, written only when
 // with_energy.  Replica r's force and energy equal a one-replica launch's on
 // its own arrays, bit for bit.  n_pad must be a multiple of 32 and 0 < n_rep
-// <= 65535.
+// <= 65535.  work: (2,) u64, chunks visited and tested added to it, or null.
 CHIRON_EXPORT int chiron_lj_dense(const float* pos, const float* box,
                                   float* force, float* e_part, float* energy,
                                   int n, int n_pad, int n_rep, float sigma2,
                                   float coef_scale, float eps4, float cutoff2,
                                   float r2_floor, int approx, int with_energy,
-                                  void* stream) {
+                                  unsigned long long* work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Lj lj{sigma2, coef_scale, eps4, cutoff2, r2_floor,
               cutoff2 * cull::kRaise};
   const Rows rows{pos, force, n_pad, 0};
   return static_cast<int>(
       approx ? launch_pass<true>(pos, box, rows, n_pad, n_rep, e_part, energy,
-                                 n, n_pad, lj, with_energy, 0.5f, s)
+                                 n, n_pad, lj, with_energy, 0.5f, work, s)
              : launch_pass<false>(pos, box, rows, n_pad, n_rep, e_part, energy,
-                                  n, n_pad, lj, with_energy, 0.5f, s));
+                                  n, n_pad, lj, with_energy, 0.5f, work, s));
 }
 
 // K8a: the slab rows (3, rows_per_dev) f32 at global rows [off, off +
@@ -326,6 +351,6 @@ CHIRON_EXPORT int chiron_row_slab_force(const float* rows, const float* pos,
               cutoff2 * cull::kRaise};
   return static_cast<int>(launch_pass<false>(
       pos, box, Rows{rows, force, rows_per_dev, off}, rows_per_dev, 1, e_part,
-      energy, n, n_pad, lj, with_energy, 1.0f,
+      energy, n, n_pad, lj, with_energy, 1.0f, nullptr,
       static_cast<cudaStream_t>(stream)));
 }

@@ -45,7 +45,7 @@ launches: collections.Counter = collections.Counter()
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _SIGNATURES = {
     "chiron_lj_dense": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
+        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P),
     "chiron_cull_force": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P),

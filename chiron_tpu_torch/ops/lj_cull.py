@@ -47,22 +47,29 @@ def _round_up(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def slab_y_key(pos3, n: int, nslab: int, L, Ly=None):
+def slab_y_key(pos3, n: int, nslab, L, Ly=None):
     """Monotone spatial sort key (``lj_cull.py:61``).
 
     ``nslab == 0``: pure x.  ``nslab >= 1``: (x-slab, y) lexicographic with
     the slab separation scaled by the y box length.  Padding columns get a
     3e38 sentinel so that they stay at the end.  ``L`` and ``Ly`` may be
-    floats or 0-dim f32 tensors, as the caller has them.
+    floats or 0-dim f32 tensors, as the caller has them.  ``pos3`` may hold
+    a batch, (3, ..., n_pad), with ``nslab`` (a tensor of counts, each at
+    least 1), ``L`` and ``Ly`` broadcasting against one of its rows: the
+    dense tempering chain's replicas, whose slab counts stay on the device.
     """
-    n_pad = pos3.shape[1]
-    if nslab == 0:
+    n_pad = pos3.shape[-1]
+    if not torch.is_tensor(nslab) and nslab == 0:
         key = pos3[0]
     else:
         if Ly is None:
             Ly = L
         slab_w = L / nslab
-        slab = torch.clamp(torch.floor(pos3[0] / slab_w), 0, nslab - 1)
+        slab = torch.floor(pos3[0] / slab_w)
+        if torch.is_tensor(nslab):
+            slab = torch.minimum(torch.clamp_min(slab, 0), nslab - 1)
+        else:
+            slab = torch.clamp(slab, 0, nslab - 1)
         key = slab * (2.0 * Ly) + pos3[1]
     live = torch.arange(n_pad, device=pos3.device) < n
     return torch.where(live, key, 3.0e38)

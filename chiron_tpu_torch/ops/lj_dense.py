@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..profiling import span
+from ..profiling import dense_work, span
 from . import _build
 from .diff import energy_with_force_gradient
 
@@ -129,7 +129,9 @@ def _dense_launch(counter, pos3, box_diag, n, sigma, epsilon, cutoff,
     """K1 on one system ((3, n_pad) ``pos3``, 3 box lengths) or on R
     replicas in one launch ((R, 3, n_pad), R x 3 box lengths), its launch
     counted under ``counter``; returns the force in the shape of ``pos3``
-    and the () or (R,) energy (or None)."""
+    and the () or (R,) energy (or None).  While recording is on, the
+    kernel adds its column chunks visited and tested to the session's
+    ``profiling.dense_work`` buffer (the plain version counts nothing)."""
     single = pos3.dim() == 2
     if pos3.device.type == "cpu":
         if single:
@@ -159,12 +161,14 @@ def _dense_launch(counter, pos3, box_diag, n, sigma, epsilon, cutoff,
     energy = torch.empty(R, dtype=torch.float32, device=pos3.device)
     sigma2 = sigma * sigma
     eps4 = 4.0 * epsilon
+    work = dense_work(pos3.device)
     _build.launch(
         counter, "chiron_lj_dense",
         pos3.data_ptr(), box_diag.data_ptr(), force.data_ptr(),
         e_part.data_ptr(), energy.data_ptr(), n, n_pad, R, sigma2, 6.0 * eps4,
         eps4, cutoff * cutoff, 1e-4 * sigma2, int(approx_recip),
-        int(with_energy), _build.stream_of(pos3),
+        int(with_energy), None if work is None else work.data_ptr(),
+        _build.stream_of(pos3),
     )
     if not with_energy:
         return force, None

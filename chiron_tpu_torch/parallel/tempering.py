@@ -9,7 +9,9 @@ runs the chain over the whole block at once:
 * the dense chain (``make_pt_dense_chain_fn``) keeps the block in one
   (R_local, 3, n_pad) state: a step is one launch of K1 over replicas
   (``LJDense.force_only_r``) and batched elementwise BAOAB, ``kT`` an
-  (R_local, 1, 1) tensor, so its launches do not grow with R;
+  (R_local, 1, 1) tensor, so its launches do not grow with R; each call
+  runs on the replicas' lanes in spatial order (``lane_order``) and
+  returns them in their own;
 * the pair-list and bare-potential chains (``make_pt_chain_fn``) take the
   force of the whole block from one backward pass through the block's
   energies (``block_energy_fn``: the harmonic and ideal-gas energies in one
@@ -56,10 +58,11 @@ from ..neighbors import (
     neighbor_build_fn,
     pairlist_build_fn,
 )
-from ..ops.lj_cull import _MASK32, splitmix_noise_plain
+from ..ops import _build
+from ..ops.lj_cull import _MASK32, slab_y_key, splitmix_noise_plain
 from ..potential import (HarmonicOscillatorPotential, IdealGasPotential,
                          grad_of)
-from ..profiling import span
+from ..profiling import dense_work, span
 from .mesh import Mesh, make_replica_mesh, replica_sharding
 
 log = logging.getLogger("chiron_tpu_torch")
@@ -70,6 +73,8 @@ _NOISE_LANES = 1 << 22
 # a replica's lanes are a multiple of this, so that every replica's draw
 # takes the same vector path on the CPU at any R
 _LANE_ALIGN = 64
+# the dense chain keeps the CUDA graphs of at most this many shapes
+_GRAPHS_KEPT = 4
 
 
 def stream_seed(key: int) -> int:
@@ -130,14 +135,16 @@ class _Noise:
         self.seed_t = (None if given is not None else _to_device(
             [int(x) & _MASK32 for x in self.seeds], torch.int64, device))
 
-    def __iter__(self):
+    def blocks(self):
+        """The noise in blocks of steps, each (steps, R, *shape): the
+        draws' blocks, or ``given`` as one."""
         if self.given is not None:
             if tuple(self.given.shape[2:]) != tuple(self.shape) or \
                     self.given.shape[0] < self.n_steps:
                 raise ValueError(
                     f"noise: shape {tuple(self.given.shape)}, expected "
                     f"({self.n_steps}, {len(self.seeds)}, *{self.shape})")
-            yield from self.given[:self.n_steps]
+            yield self.given[:self.n_steps]
             return
         R = len(self.seeds)
         count = self.shape[0] * self.shape[1]
@@ -149,6 +156,10 @@ class _Noise:
                 if self.rows == 1:
                     z = z.reshape(nb, R, -1)[:, :, :count].reshape(
                         nb, R, *self.shape)
+            yield z
+
+    def __iter__(self):
+        for z in self.blocks():
             yield from z
 
 
@@ -287,6 +298,77 @@ def _verlet_replica(energy_fn, masses, timestep, collision_rate, pairs, x, v,
     return carry.x, carry.v, carry.nbr_state, U.detach(), carry.overflowed
 
 
+def lane_order(x3, box_diag, n: int, cutoff: float) -> torch.Tensor:
+    """(R, n_pad) int64: each replica's lanes in the order of the spatial
+    key of the culled runners (``ops/lj_cull.slab_y_key``, a stable sort),
+    with ``nslab = max(1, floor(Lx / cutoff))`` slabs of the replica's box,
+    worked out on the device.  ``x3`` is (R, 3, n_pad) in the box, as the
+    dense chain keeps it; the padding lanes (>= n) keep their order at the
+    tail, and a live lane whose key is not finite sorts as 0, so that it
+    stays among the live lanes.  Consecutive lanes then lie close in space,
+    which is what K1's chunk cull needs."""
+    L = box_diag.reshape(-1, 3)[:, :, None]          # (R, 3, 1)
+    nslab = torch.clamp_min(torch.floor(L[:, 0] / cutoff), 1.0)
+    key = slab_y_key(x3.transpose(0, 1), n, nslab, L[:, 0], Ly=L[:, 1])
+    key = torch.nan_to_num(key, nan=0.0, posinf=0.0, neginf=0.0)
+    return torch.sort(key, dim=-1, stable=True).indices
+
+
+class _ChainGraphs:
+    """The dense chain's calls on the card, replayed from CUDA graphs, so
+    that a call costs the host a few copies and one launch however many
+    steps it takes.  One graph a shape: the state's, the step count and
+    the address of the dense counters' buffer (``profiling.dense_work``),
+    which the captured kernels keep.  A shape's first call runs as it is,
+    which loads every kernel; its second is captured into a graph, whose
+    inputs are copies of the call's (the state, kT, the boxes and the noise
+    seeds), and replayed; every later call copies its inputs into the
+    graph's and replays.  The outputs are cloned from the graph's, and each
+    replay counts in ``_build.launches`` the launches its capture counted.
+    """
+
+    def __init__(self, body):
+        self.body = body
+        self.seen = set()
+        self.graphs = {}
+
+    def __call__(self, x3, v3, kT, box_diag, draws):
+        work = dense_work(x3.device)
+        key = (tuple(x3.shape), tuple(kT.shape), tuple(box_diag.shape),
+               draws.n_steps, None if work is None else work.data_ptr())
+        inputs = (x3, v3, kT, box_diag, draws.seed_t)
+        entry = self.graphs.get(key)
+        if entry is None:
+            if key not in self.seen:
+                self.seen.add(key)
+                return self.body(x3, v3, kT, box_diag, draws)
+            entry = self._capture(key, inputs, draws)
+        else:
+            for dst, src in zip(entry[1], inputs):
+                dst.copy_(src)
+        graph, _, outputs, counted = entry
+        graph.replay()
+        _build.launches.update(counted)
+        return tuple(t.clone() for t in outputs)
+
+    def _capture(self, key, inputs, draws):
+        static = tuple(t.clone() for t in inputs)
+        draws.seed_t = static[-1]
+        before = _build.launches.copy()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = self.body(*static[:-1], draws)
+        counted = _build.launches - before
+        _build.launches.clear()  # the capture ran nothing
+        _build.launches.update(before)
+        # a graph of another counters' buffer is not replayed again, and
+        # the oldest of the rest go past _GRAPHS_KEPT, each with its memory
+        kept = [(k, e) for k, e in self.graphs.items() if k[-1] == key[-1]]
+        self.graphs = dict(kept[-(_GRAPHS_KEPT - 1):])
+        self.graphs[key] = entry = (graph, static, outputs, counted)
+        return entry
+
+
 def make_pt_dense_chain_fn(
     op,
     m_lane: torch.Tensor,
@@ -299,30 +381,62 @@ def make_pt_dense_chain_fn(
     State in the kernel's (R, 3, n_pad) lane layout, ``box_diag`` (R, 1, 3);
     signature as :func:`make_pt_chain_fn` (``list_state`` passes through).
     A step is one launch of K1 over the block (``op.force_only_r``, the
-    approximate reciprocal unless ``exact_forces``) and about 17 batched
-    elementwise operations; U is K1's exact energy, one more launch.
+    approximate reciprocal unless ``exact_forces``) and 9 batched
+    elementwise operations, in place on the chain's own copy of the state;
+    U is K1's exact energy, one more launch.
     Padding lanes (masses 1) take velocities and noise as JAX's do; K1
     ignores them.
+
+    Each call first puts every replica's lanes in spatial order
+    (:func:`lane_order`) and gathers the state, the masses and each block
+    of noise into it, so that K1's chunk cull skips most column chunks
+    however far the particles have moved; the end scatters x and v back.
+    A particle keeps its own lane's mass and noise, so only the order of
+    K1's sums differs from a chain on the unsorted lanes, and the outputs
+    are in the input's lane order.  On the card, a call from the seeds
+    (no ``noise``) replays a CUDA graph of the whole call
+    (:class:`_ChainGraphs`): the same kernels on the same inputs, so its
+    outputs equal the call's run as it is, bit for bit.
     """
     hdt, a, b = _coefficients(timestep, collision_rate)
     approx = not exact_forces
 
-    def chain(x3, v3, seeds, box_diag, list_state, kT, n_steps, noise=None):
-        R = x3.shape[0]
-        bs = b * torch.sqrt(kT.reshape(R, 1, 1) / m_lane)
+    def body(x3, v3, kT, box_diag, draws):
+        R, _, n_pad = x3.shape
+        perm = lane_order(x3, box_diag, op.n, op.cutoff)
+        lanes = perm[:, None, :].expand(R, 3, n_pad)
+        x3 = torch.gather(x3, 2, lanes)
+        v3 = torch.gather(v3, 2, lanes)
+        m = torch.gather(m_lane.reshape(-1, n_pad).expand(R, n_pad), 1,
+                         perm)[:, None, :]
+        bs = b * torch.sqrt(kT.reshape(R, 1, 1) / m)
+        hm = hdt / m
         L = box_diag.reshape(R, 3, 1)
         F = op.force_only_r(x3, box_diag, approx_recip=approx)
-        for z in _Noise(seeds, n_steps, tuple(x3.shape[1:]), x3.device,
-                        noise):
-            v3 = v3 + hdt * F / m_lane
-            x3 = x3 + hdt * v3
-            v3 = a * v3 + bs * z
-            x3 = x3 + hdt * v3
-            x3 = x3 - torch.floor(x3 / L) * L
-            F = op.force_only_r(x3, box_diag, approx_recip=approx)
-            v3 = v3 + hdt * F / m_lane
+        for zb in draws.blocks():
+            zb = torch.gather(zb, 3, lanes.expand(zb.shape[0], R, 3, n_pad))
+            for z in zb:
+                # in place on the gathered state, one launch an operation
+                v3.addcmul_(F, hm)
+                x3.add_(v3, alpha=hdt)
+                v3.mul_(a).addcmul_(bs, z)
+                x3.add_(v3, alpha=hdt)
+                x3.addcmul_(torch.div(x3, L).floor_(), L, value=-1.0)
+                F = op.force_only_r(x3, box_diag, approx_recip=approx)
+                v3.addcmul_(F, hm)
         _, U = op.force_energy_r(x3, box_diag)
-        return x3, v3, list_state, U, torch.zeros(R, dtype=torch.bool,
+        x3 = torch.empty_like(x3).scatter_(2, lanes, x3)
+        v3 = torch.empty_like(v3).scatter_(2, lanes, v3)
+        return x3, v3, U
+
+    graphs = _ChainGraphs(body)
+
+    def chain(x3, v3, seeds, box_diag, list_state, kT, n_steps, noise=None):
+        draws = _Noise(seeds, n_steps, tuple(x3.shape[1:]), x3.device, noise)
+        run = graphs if x3.is_cuda and noise is None else body
+        x3, v3, U = run(x3, v3, kT, box_diag, draws)
+        return x3, v3, list_state, U, torch.zeros(x3.shape[0],
+                                                   dtype=torch.bool,
                                                    device=x3.device)
 
     return chain

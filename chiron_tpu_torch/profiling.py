@@ -58,6 +58,15 @@ pass null.  :func:`counters` reads the totals once, when asked:
   (rows a lane) a column step whose warp vote passed
   (``csrc/lj_cull_force.cu``, ``scripts/cull_work.py``).
 
+Likewise K1's wrapper (``ops/lj_dense``, single system and over replicas)
+hands its kernel the buffer of :func:`dense_work`, to which every block
+adds its warps' 32-lane column chunks:
+
+* ``chiron.count.dense_chunks_visited``: the chunks its warps took up;
+* ``chiron.count.dense_chunks_tested``: those whose bounding box lay
+  within the cutoff of the block's rows' box, so that their pairs took
+  the distance test (``csrc/lj_dense.cu``, ``scripts/dense_cull_work.py``).
+
 >>> with recording():
 ...     state = runner.run(state, 4000)
 >>> totals()["chiron.segment"]
@@ -98,7 +107,8 @@ _annotate_end = torch.autograd._record_function_with_args_exit
 class _Record:
     """One session of spans: ``spans`` as [name, parent, t0_ns, t1_ns]
     lists, the indices of the ``open`` ones, the count ``dropped`` past
-    ``MAX_SPANS``."""
+    ``MAX_SPANS``, and the counter buffers ``counts`` by (their names,
+    device)."""
 
     __slots__ = ("spans", "open", "dropped", "counts")
 
@@ -106,7 +116,7 @@ class _Record:
         self.spans: List[list] = []
         self.open: List[int] = []
         self.dropped = 0
-        self.counts: Dict[torch.device, torch.Tensor] = {}
+        self.counts: Dict[tuple, torch.Tensor] = {}
 
 
 class _Recorder:
@@ -124,8 +134,10 @@ class _Recorder:
 
 _recorder = _Recorder()
 
-# the counters of cull_work's buffer, in its order
+# the counters of cull_work's and dense_work's buffers, in their order
 CULL_WORK = ("chiron.count.cull_pairs_tested", "chiron.count.cull_force_lanes")
+DENSE_WORK = ("chiron.count.dense_chunks_visited",
+              "chiron.count.dense_chunks_tested")
 
 
 def _session() -> _Record:
@@ -227,25 +239,39 @@ def spans() -> List[tuple]:
     return [tuple(s) for s in _recorder.record.spans]
 
 
+def _work(names, device):
+    """While recording is on, the session's int64 buffer of the counters
+    ``names`` on ``device``, made on first use; None while it is off."""
+    if not (_recorder.depth or _profiling()):
+        return None
+    counts = _session().counts
+    buf = counts.get((names, device))
+    if buf is None:
+        buf = counts[names, device] = torch.zeros(
+            len(names), dtype=torch.int64, device=device)
+    return buf
+
+
 def cull_work(device):
     """While recording is on, the session's (2,) int64 buffer on ``device``
     that the culled pair kernels add their work to (``CULL_WORK``), made on
     first use; None while it is off."""
-    if not (_recorder.depth or _profiling()):
-        return None
-    counts = _session().counts
-    buf = counts.get(device)
-    if buf is None:
-        buf = counts[device] = torch.zeros(2, dtype=torch.int64, device=device)
-    return buf
+    return _work(CULL_WORK, device)
+
+
+def dense_work(device):
+    """While recording is on, the session's (2,) int64 buffer on ``device``
+    that K1 adds its chunks to (``DENSE_WORK``), made on first use; None
+    while it is off."""
+    return _work(DENSE_WORK, device)
 
 
 def counters() -> Dict[str, int]:
     """The last session's counters, summed over its devices (each
-    device's buffer read once); empty where no kernel counted."""
+    buffer read once); empty where no kernel counted."""
     out: Dict[str, int] = {}
-    for buf in _recorder.record.counts.values():
-        for name, value in zip(CULL_WORK, buf.tolist()):
+    for (names, _), buf in _recorder.record.counts.items():
+        for name, value in zip(names, buf.tolist()):
             out[name] = out.get(name, 0) + value
     return out
 

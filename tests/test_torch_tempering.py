@@ -175,6 +175,124 @@ def test_dense_chain_matches_jax_with_its_noise(lj_fluid):
     assert np.abs(tx.numpy()[:, :, N_LJ:]).max() > 0
 
 
+class _NoForce:
+    """A dense op with no force and no energy: the chain's BAOAB then acts
+    on each lane alone, so its result does not depend on the lane order."""
+
+    def __init__(self, n, cutoff):
+        self.n, self.cutoff = n, cutoff
+
+    def force_only_r(self, x3, box_diag, approx_recip=True):
+        return torch.zeros_like(x3)
+
+    def force_energy_r(self, x3, box_diag):
+        return torch.zeros_like(x3), torch.zeros(x3.shape[0])
+
+
+def _dense_step(x3, v3, F3, force, m_lane, L, kT, z, collision_rate):
+    """One step of the dense chain's arithmetic on unsorted lanes."""
+    hdt, a, b = tpt._coefficients(DT, collision_rate)
+    bs = b * torch.sqrt(kT.reshape(-1, 1, 1) / m_lane)
+    hm = hdt / m_lane
+    v3 = torch.addcmul(v3, F3, hm)
+    x3 = torch.add(x3, v3, alpha=hdt)
+    v3 = torch.addcmul(a * v3, bs, z)
+    x3 = torch.add(x3, v3, alpha=hdt)
+    x3 = torch.addcmul(x3, torch.floor(x3 / L), L, value=-1.0)
+    F3 = force(x3)
+    return x3, torch.addcmul(v3, F3, hm), F3
+
+
+def _shuffled_dense_start(pos, box, n_pad, seed):
+    """R replicas of ``pos`` with their live lanes shuffled apart in space
+    (each its own way), zero padding lanes, random velocities and masses."""
+    rng = np.random.default_rng(seed)
+    n = pos.shape[0]
+    x3 = np.zeros((R, 3, n_pad), np.float32)
+    for r in range(R):
+        x3[r, :, :n] = pos[rng.permutation(n)].T
+    v3 = rng.normal(0, 0.3, (R, 3, n_pad)).astype(np.float32)
+    m_lane = np.ones((1, n_pad), np.float32)
+    m_lane[0, :n] = rng.uniform(10.0, 60.0, n)
+    bd = np.tile(np.diagonal(box).reshape(1, 1, 3), (R, 1, 1))
+    return (torch.tensor(x3), torch.tensor(v3), torch.tensor(m_lane),
+            torch.tensor(bd))
+
+
+@pytest.mark.parametrize("source", ["seeds", "given"])
+def test_dense_chain_gives_each_particle_its_own_lanes_noise(
+        lj_fluid, monkeypatch, source):
+    """With no force, each lane's BAOAB is the same arithmetic whatever the
+    order of the lanes, so the sorted chain's outputs equal, bit for bit, a
+    step loop on the unsorted lanes with each lane's own mass and noise:
+    the counter stream of its replica's seed (drawn in blocks of 3 steps,
+    each gathered once) or the given noise.  The outputs come back in the
+    input's lane order, the padding lanes last."""
+    _, pos, box = lj_fluid
+    n_pad, steps = 512, 7
+    x3, v3, m_lane, bd = _shuffled_dense_start(pos, box, n_pad, 8)
+    kT = torch.tensor(_kTs())
+    seeds = [tpt.stream_seed(k) for k in (11, 2 ** 40 + 3, 77)]
+    monkeypatch.setattr(tpt, "_NOISE_LANES", R * 3 * n_pad * 3)
+    if source == "seeds":
+        z, given = tpt.replica_normals(seeds, 0, steps, 3, n_pad // 2,
+                                       "cpu"), None
+    else:
+        z = given = torch.randn(steps, R, 3, n_pad,
+                                generator=torch.Generator().manual_seed(4))
+    # the sort moves most lanes
+    perm = tpt.lane_order(x3, bd, N_LJ, 0.9)
+    assert int((perm[:, :N_LJ] != torch.arange(N_LJ)).sum()) > N_LJ
+    assert torch.equal(perm[:, N_LJ:], torch.arange(N_LJ, n_pad).expand(
+        R, -1))
+    chain = tpt.make_pt_dense_chain_fn(_NoForce(N_LJ, 0.9), m_lane, DT, 5.0)
+    tx, tv, _, tU, _ = chain(x3, v3, seeds, bd, None, kT, steps,
+                             noise=given)
+    L = bd.reshape(R, 3, 1)
+    zero = torch.zeros_like(x3)
+    x, v, F = x3, v3, zero
+    for s in range(steps):
+        x, v, F = _dense_step(x, v, F, torch.zeros_like, m_lane, L, kT, z[s],
+                              5.0)
+    assert torch.equal(tx, x) and torch.equal(tv, v)
+    assert not torch.equal(tx, x3) and tU.shape == (R,)
+
+
+def test_dense_chain_takes_one_step_from_a_shuffled_start(lj_fluid):
+    """K1's plain version in the sorted chain: one step from lanes shuffled
+    apart moves each lane by its step's drift alone and lands within f32
+    rounding of a step on the unsorted lanes (the order of the force's sums
+    differs); the padding lanes, which feel no force, equal it bit for
+    bit."""
+    _, pos, box = lj_fluid
+    tf = tts.LennardJonesFluid(nparticles=N_LJ, reduced_density=0.5)
+    top = tf.potential
+    op = LJDense(N_LJ, top.sigma, top.epsilon, top.cutoff, tm=128, tn=512,
+                 device="cpu")
+    x3, v3, m_lane, bd = _shuffled_dense_start(pos, box, op.n_pad, 9)
+    kT = torch.tensor(_kTs())
+    z = torch.randn(1, R, 3, op.n_pad,
+                    generator=torch.Generator().manual_seed(5))
+    chain = tpt.make_pt_dense_chain_fn(op, m_lane, DT, 1.0,
+                                       exact_forces=True)
+    tx, tv, _, tU, _ = chain(x3, v3, [0] * R, bd, None, kT, 1, noise=z)
+
+    def force(x):
+        return op.force_energy_r(x, bd)[0]
+
+    L = bd.reshape(R, 3, 1)
+    x, v, _ = _dense_step(x3, v3, force(x3), force, m_lane, L, kT, z[0], 1.0)
+    d = tx - x3
+    d = d - torch.round(d / L) * L
+    assert float(d[:, :, :N_LJ].abs().max()) < 0.01
+    assert np.abs((tx - x).numpy()).max() < X_TOL
+    assert np.abs((tv - v).numpy()).max() < V_TOL
+    assert torch.equal(tx[:, :, N_LJ:], x[:, :, N_LJ:])
+    assert torch.equal(tv[:, :, N_LJ:], v[:, :, N_LJ:])
+    _, U = op.force_energy_r(x, bd)
+    assert np.abs((tU - U).numpy()).max() / np.abs(U.numpy()).max() < U_REL
+
+
 def _ho_pair():
     jho = jts.HarmonicOscillator(
         k=100.0 * ju.kilojoule_per_mole / ju.nanometer ** 2)

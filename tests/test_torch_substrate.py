@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import chiron_tpu.potential as jpot
 import chiron_tpu.testsystems as jts
@@ -131,3 +132,9 @@ def test_port_sources_name_no_jax_import():
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
+
+
+def test_torch_runs_one_intra_op_thread_in_each_test_process():
+    # The root conftest.py pins it: each xdist worker would otherwise start
+    # one torch thread per core, and the workers would contend for the cores.
+    assert torch.get_num_threads() == 1
